@@ -1,0 +1,157 @@
+"""Transformer building blocks and the blockwise patch embedding.
+
+Parameter layout mirrors the JAX package's flax modules name for name
+(``io/flax_params.py`` maps one onto the other): pre-norm blocks with
+``attn_norm`` → ``attn`` (``to_qkv`` without bias; ``to_out``, absent when
+``heads == 1 and dim_head == dim``) → ``ff_norm`` → ``ff`` (``fc1``,
+``fc2``). Parameters stay fp32; ``dtype`` is the compute
+dtype of the fused ops (None = fp32).
+
+Every layer runs as one call of ``ops.fused_layer.fused_transformer_layer``
+and the embedding as one call of ``ops.fused_embed.fused_embed_mask``:
+the CUDA kernels for tensors on the card, their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from maskedsst_tpu_torch.ops.fused_embed import fused_embed_mask
+from maskedsst_tpu_torch.ops.fused_layer import LayerParams, fused_transformer_layer
+
+# torch nn.LayerNorm epsilon
+LN_EPS = 1e-5
+
+
+class FeedForward(nn.Module):
+    """Parameters of the MLP block: Linear → exact GELU → Linear (the
+    computation runs in the fused layer)."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, dim)
+
+
+class Attention(nn.Module):
+    """Parameters of multi-head self-attention: fused QKV without bias and
+    an output projection with bias, which is absent (identity) when
+    ``heads == 1 and dim_head == dim`` (the computation runs in the fused
+    layer)."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        inner = heads * dim_head
+        self.project_out = not (heads == 1 and dim_head == dim)
+        self.to_qkv = nn.Linear(dim, 3 * inner, bias=False)
+        self.to_out = nn.Linear(inner, dim) if self.project_out else None
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm residual block x + Attn(LN(x)); x + FF(LN(x)), run as one
+    fused layer call."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
+        self.dtype = dtype
+        self.attn_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = Attention(dim, heads, dim_head)
+        self.ff_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.ff = FeedForward(dim, mlp_dim)
+
+    def layer_params(self) -> LayerParams:
+        """The block's weights in the fused layer's [in, out] layout."""
+        qkv = self.attn.to_qkv.weight
+        if self.attn.project_out:
+            wout = self.attn.to_out.weight.t()
+            bout = self.attn.to_out.bias
+        else:  # identity projection, no params
+            dim = qkv.shape[1]
+            wout = torch.eye(dim, device=qkv.device)
+            bout = torch.zeros(dim, device=qkv.device)
+        return LayerParams(
+            ln1_scale=self.attn_norm.weight, ln1_bias=self.attn_norm.bias,
+            wqkv=qkv.t(), wout=wout, bout=bout,
+            ln2_scale=self.ff_norm.weight, ln2_bias=self.ff_norm.bias,
+            w1=self.ff.fc1.weight.t(), b1=self.ff.fc1.bias,
+            w2=self.ff.fc2.weight.t(), b2=self.ff.fc2.bias,
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, D] → [B, S, D]."""
+        return fused_transformer_layer(
+            x, self.layer_params(), self.heads, self.dim_head,
+            self.dtype or torch.float32, self.dropout, self.training,
+        )
+
+
+class Transformer(nn.Module):
+    """Stack of ``depth`` pre-norm blocks over [..., S, D]; leading axes are
+    flattened into the batch of sequences and restored after."""
+
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
+                 dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerBlock(dim, heads, dim_head, mlp_dim, dropout, dtype)
+            for _ in range(depth)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-2]
+        xb = x.reshape(-1, x.shape[-2], x.shape[-1])
+        for layer in self.layers:
+            xb = layer(xb)
+        return xb.reshape(*lead, x.shape[-2], x.shape[-1])
+
+
+class BlockwisePatchEmbedding(nn.Module):
+    """Per-spectral-block linear patch embedding: pre-LN over the patch
+    pixels, one [patch_dim, dim] matrix and bias per spectral block, post-LN
+    over dim. The block matrices live in one [num_blocks, patch_dim, dim]
+    tensor."""
+
+    def __init__(self, num_channels: int, dim: int, patch_depth: int,
+                 patch_height: int, patch_width: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dim, self.patch_depth = dim, patch_depth
+        self.patch_height, self.patch_width = patch_height, patch_width
+        self.dtype = dtype
+        self.num_blocks = num_channels // patch_depth
+        self.patch_dim = patch_depth * patch_height * patch_width
+        self.pre_norm = nn.LayerNorm(self.patch_dim, eps=LN_EPS)
+        self.blockwise_kernel = nn.Parameter(torch.empty(self.num_blocks, self.patch_dim, dim))
+        self.blockwise_bias = nn.Parameter(torch.zeros(self.num_blocks, dim))
+        self.post_norm = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def to_patch_pn(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, C, H, W] → patches [B, g, p, n]: g spectral blocks, p =
+        patch_depth*patch_height*patch_width pixels ordered (p0, p1, p2), n
+        spatial patches row-major. A pure reshape for 1x1 spatial patches."""
+        b, c, hh, ww = x.shape
+        g, p0 = self.num_blocks, self.patch_depth
+        p1, p2 = self.patch_height, self.patch_width
+        if p1 == 1 and p2 == 1:
+            return x.reshape(b, g, p0, hh * ww)
+        h, w = hh // p1, ww // p2
+        x = x.reshape(b, g, p0, h, p1, w, p2)
+        x = x.permute(0, 1, 2, 4, 6, 3, 5)  # b g p0 p1 p2 h w
+        return x.reshape(b, g, p0 * p1 * p2, h * w)
+
+    def embed_mask_fused(self, patches_pn: torch.Tensor, pos: torch.Tensor,
+                         mask_token: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """patches_pn [B, g, p, n]; pos [g, n, d]; mask [B, g, n] 0/1 float
+        → tokens [B, g, n, d] (pre-LN → blockwise embed → post-LN → + pos →
+        mask-token replacement, one fused op call). Computes in ``dtype``,
+        or in the patches' dtype when that is None."""
+        return fused_embed_mask(
+            patches_pn.contiguous(), mask, self.pre_norm.weight, self.pre_norm.bias,
+            self.blockwise_kernel, self.blockwise_bias,
+            self.post_norm.weight, self.post_norm.bias, pos, mask_token,
+            self.dtype or patches_pn.dtype,
+        )
