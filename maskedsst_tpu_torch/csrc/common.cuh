@@ -6,6 +6,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace msst {
 
 constexpr float kLnEps = 1e-5f;  // torch nn.LayerNorm default, fp32 statistics
@@ -42,6 +44,52 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+__device__ __forceinline__ float gelu(float u) {  // exact (erf) GELU
+  return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_grad(float u) {
+  return 0.5f * (1.f + erff(u * 0.70710678118654752f)) +
+         u * expf(-0.5f * u * u) * 0.39894228040143268f;
+}
+
+// ---------------------------------------------------------------------------
+// Dropout masks from a counter-based hash. A site's mask bit for element idx
+// (its logical row-major index in the site's tensor) depends only on (layer
+// seed, site, idx), so the forward kernel, the backward kernel and the plain
+// PyTorch version (ops/fused_layer.py::dropout_mask, the same arithmetic in
+// int64 masked to 32 bits) produce identical bits whatever block size each
+// uses. Keep rule as the TPU kernel: bits >= rate * 2^32, kept values scaled
+// by 1 / (1 - rate).
+
+__host__ __device__ inline uint32_t fmix32(uint32_t h) {  // murmur3 finalizer
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+struct DropCfg {
+  int on;          // train and rate > 0
+  int proj;        // the post-projection site is active (no identity projection)
+  uint32_t seed;   // the layer's seed
+  uint32_t thr;    // uint32(rate * 2^32)
+  float scale;     // float32(1 / (1 - rate))
+};
+
+enum DropSite : uint32_t { kSiteAttn = 1, kSiteProj = 3, kSiteFfMid = 5, kSiteFfOut = 7 };
+
+// the dropout multiplier (0 or scale) of element idx of a site; 1 when off
+__device__ __forceinline__ float drop_mult(const DropCfg& dc, uint32_t site, uint64_t idx) {
+  if (!dc.on) return 1.f;
+  const uint32_t lo = static_cast<uint32_t>(idx), hi = static_cast<uint32_t>(idx >> 32);
+  const uint32_t key = fmix32(dc.seed ^ fmix32(site * 0x9E3779B9u + hi * 0x632BE5ABu + 0x7F4A7C15u));
+  const uint32_t bits = fmix32(fmix32(lo ^ key) + key);
+  return bits >= dc.thr ? dc.scale : 0.f;
 }
 
 }  // namespace msst

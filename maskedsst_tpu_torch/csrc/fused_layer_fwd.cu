@@ -1,4 +1,4 @@
-// fused_layer_fwd: one pre-norm transformer layer, forward, dropout off.
+// fused_layer_fwd: one pre-norm transformer layer, forward, with dropout.
 //
 // Replaces the Pallas kernel maskedsst_tpu/ops/fused_layer.py::_layer_fwd_kernel
 // (entry fused_transformer_layer, pallas_call in _fwd_impl). Per token:
@@ -9,7 +9,12 @@
 // statistics; every matmul operand rounded to the compute type C (fp32 or
 // bf16) and accumulated in fp32 (LN outputs, q/k/v, softmax probabilities,
 // per-head attention outputs, the GELU output); fp32 softmax; an fp32
-// residual stream; the output cast to the input type T.
+// residual stream; the output cast to the input type T. Dropout (training)
+// at the TPU kernel's four sites: the attention probabilities (before the
+// AV product), the projection output (unless the projection is the
+// identity), the GELU output and the MLP output, with masks from the
+// counter-based hash in common.cuh keyed by (layer seed, site, logical
+// index), so fused_layer_bwd.cu regenerates the same bits.
 //
 // What bounds it on the H100: operations. At dim 96, inner width 512 and
 // seq 64 a token costs ~5.5e5 flop against 2 x 96 values of slab traffic,
@@ -80,10 +85,6 @@ __device__ void layer_norm_rows(const float* src, O* dst, int ldd, int rows, int
   }
 }
 
-__device__ __forceinline__ float gelu(float u) {
-  return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
-}
-
 // ---------------------------------------------------------------------------
 // FMA form
 
@@ -96,11 +97,14 @@ enum Epilogue { kStoreRounded, kAccumulate, kBiasGeluRounded, kBiasResidual };
 // A: shared fp32 (already rounded to C), row stride lda, with at least
 // round_up(rows, kRowTile) rows allocated. W: device memory in C, row
 // stride ldw. Consecutive threads take consecutive columns: W loads are
-// coalesced and the A loads of a warp are one broadcast.
+// coalesced and the A loads of a warp are one broadcast. The GELU and
+// residual epilogues apply dropout sites 5 and 7 to element (row0 + r, c)
+// of the [rows, N] site tensor.
 template <typename C, int EPI>
 __device__ void block_mm(const float* A, int lda, int rows, int K,
                          const C* __restrict__ W, int ldw, int N,
-                         const float* __restrict__ bias, float* out, int ldo) {
+                         const float* __restrict__ bias, float* out, int ldo,
+                         const DropCfg& dc = DropCfg{}, long long row0 = 0) {
   const int groups = (rows + kRowTile - 1) / kRowTile;
   for (int t = threadIdx.x; t < groups * N; t += blockDim.x) {
     const int c = t % N, r0 = (t / N) * kRowTile;
@@ -122,9 +126,11 @@ __device__ void block_mm(const float* A, int lda, int rows, int K,
       } else if (EPI == kAccumulate) {
         *o += acc[i];
       } else if (EPI == kBiasGeluRounded) {
-        *o = round_to<C>(gelu(acc[i] + bias[c]));
+        const float m = drop_mult(dc, kSiteFfMid, static_cast<uint64_t>(row0 + r) * N + c);
+        *o = round_to<C>(gelu(acc[i] + bias[c]) * m);
       } else {  // kBiasResidual
-        *o = *o + (acc[i] + bias[c]);
+        const float m = drop_mult(dc, kSiteFfOut, static_cast<uint64_t>(row0 + r) * N + c);
+        *o = *o + (acc[i] + bias[c]) * m;
       }
     }
   }
@@ -147,7 +153,7 @@ fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                        const float* __restrict__ ln2s, const float* __restrict__ ln2b,
                        const C* __restrict__ w1, const float* __restrict__ b1,
                        const C* __restrict__ w2, const float* __restrict__ b2,
-                       int B, int S, int D, int H, int dh, int F) {
+                       int B, int S, int D, int H, int dh, int F, DropCfg dc) {
   extern __shared__ float smem[];
   const int seqs = seqs_per_block(S);
   const int rcap = round_up(seqs * S, kRowTile);
@@ -195,7 +201,8 @@ fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
     __syncthreads();
 
     // fp32 softmax with row-max subtraction, one warp per row; the
-    // probabilities are rounded to C as the AV product's operand
+    // probabilities, after dropout site 1, are rounded to C as the AV
+    // product's operand
     for (int r = tid / 32; r < rows; r += nwarps) {
       float* s = sc + r * S;
       float m = __int_as_float(0xff800000);  // -inf
@@ -208,7 +215,9 @@ fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
         sum += e;
       }
       const float inv = 1.f / warp_sum(sum);
-      for (int j = lane; j < S; j += 32) s[j] = round_to<C>(s[j] * inv);
+      const uint64_t idx0 = ((static_cast<uint64_t>(seq0 + r / S) * H + h) * S + r % S) * S;
+      for (int j = lane; j < S; j += 32)
+        s[j] = round_to<C>(s[j] * inv * drop_mult(dc, kSiteAttn, idx0 + j));
     }
     __syncthreads();
 
@@ -230,13 +239,17 @@ fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
     __syncthreads();
   }
 
-  for (int i = tid; i < rows * D; i += nthr) xs[i] = xs[i] + (proj[i] + bout[i % D]);
+  const long long row0 = static_cast<long long>(seq0) * S;
+  for (int i = tid; i < rows * D; i += nthr) {
+    const float m = dc.proj ? drop_mult(dc, kSiteProj, row0 * D + i) : 1.f;
+    xs[i] = xs[i] + (proj[i] + bout[i % D]) * m;
+  }
   __syncthreads();
   layer_norm_rows<C, float>(xs, hs, D, rows, D, ln2s, ln2b);
   __syncthreads();
-  block_mm<C, kBiasGeluRounded>(hs, D, rows, D, w1, F, F, b1, hid, F);
+  block_mm<C, kBiasGeluRounded>(hs, D, rows, D, w1, F, F, b1, hid, F, dc, row0);
   __syncthreads();
-  block_mm<C, kBiasResidual>(hid, F, rows, F, w2, D, D, b2, xs, D);
+  block_mm<C, kBiasResidual>(hid, F, rows, F, w2, D, D, b2, xs, D, dc, row0);
   __syncthreads();
 
   for (int i = tid; i < rows * D; i += nthr) y[base + i] = from_f<T>(xs[i]);
@@ -310,7 +323,7 @@ __device__ void stage_weights(const bf16* __restrict__ src, int lds, int K, int 
 template <int EPI, typename BL>
 __device__ void tc_mm(const bf16* A, int lda, int R, int K, const bf16* B, int ldb, int N,
                       void* out, int ldo, const float* __restrict__ bias, float* stage,
-                      int rows) {
+                      int rows, const DropCfg& dc = DropCfg{}, long long row0 = 0) {
   const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32, lane = threadIdx.x % 32;
   const int tn = N / 16, tiles = (R / 16) * tn;
   float* st = stage + warp * 256;
@@ -344,10 +357,12 @@ __device__ void tc_mm(const bf16* A, int lda, int R, int K, const bf16* B, int l
       if (EPI == kTcStoreBf16) {
         static_cast<bf16*>(out)[r * ldo + c] = __float2bfloat16(st[e]);
       } else if (EPI == kTcBiasGeluBf16) {
-        static_cast<bf16*>(out)[r * ldo + c] = __float2bfloat16(gelu(st[e] + bias[c]));
+        const float m = drop_mult(dc, kSiteFfMid, static_cast<uint64_t>(row0 + r) * N + c);
+        static_cast<bf16*>(out)[r * ldo + c] = __float2bfloat16(gelu(st[e] + bias[c]) * m);
       } else if (r < rows) {  // kTcBiasResidual
+        const float m = drop_mult(dc, kSiteFfOut, static_cast<uint64_t>(row0 + r) * N + c);
         float* o = static_cast<float*>(out) + r * ldo + c;
-        *o = *o + (st[e] + bias[c]);
+        *o = *o + (st[e] + bias[c]) * m;
       }
     }
     __syncwarp();
@@ -363,7 +378,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y,
                           const float* __restrict__ ln2s, const float* __restrict__ ln2b,
                           const bf16* __restrict__ w1, const float* __restrict__ b1,
                           const bf16* __restrict__ w2, const float* __restrict__ b2,
-                          int B, int S, int D, int H, int dh, int F) {
+                          int B, int S, int D, int H, int dh, int F, DropCfg dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid % 32, nwarps = nthr / 32;
@@ -434,8 +449,12 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y,
       float sum = 0.f;
       for (int c = lo + lane; c < hi; c += 32) sum += expf(s[c] - m);
       const float inv = 1.f / warp_sum(sum);
+      // dropout site 1 on [B', H, S, S]: (sequence, head, query, key)
+      const uint64_t idx0 = ((static_cast<uint64_t>(seq0 + r / S) * H + h) * S + r % S) * S;
       for (int c = lane; c < R; c += 32)
-        pr[c] = __float2bfloat16(c >= lo && c < hi ? expf(s[c] - m) * inv : 0.f);
+        pr[c] = __float2bfloat16(
+            c >= lo && c < hi ? expf(s[c] - m) * inv * drop_mult(dc, kSiteAttn, idx0 + c - lo)
+                              : 0.f);
     }
     __syncthreads();
 
@@ -450,17 +469,21 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 
   stage_weights(w1, F, D, F, wst, F + kPad);
-  for (int i = tid; i < rows * D; i += nthr) xs[i] = xs[i] + (proj[i] + bout[i % D]);
+  const long long row0 = static_cast<long long>(seq0) * S;
+  for (int i = tid; i < rows * D; i += nthr) {
+    const float m = dc.proj ? drop_mult(dc, kSiteProj, row0 * D + i) : 1.f;
+    xs[i] = xs[i] + (proj[i] + bout[i % D]) * m;
+  }
   __syncthreads();
   layer_norm_rows<bf16, bf16>(xs, hs, plan.ld_h, rows, D, ln2s, ln2b);
   __syncthreads();
   tc_mm<kTcBiasGeluBf16, wmma::row_major>(hs, plan.ld_h, R, D, wst, F + kPad, F, hid,
-                                          plan.ld_hid, b1, stage, rows);
+                                          plan.ld_hid, b1, stage, rows, dc, row0);
   __syncthreads();
   stage_weights(w2, D, F, D, wst, ld_wd);
   __syncthreads();
   tc_mm<kTcBiasResidual, wmma::row_major>(hid, plan.ld_hid, R, F, wst, ld_wd, D, xs, D, b2,
-                                          stage, rows);
+                                          stage, rows, dc, row0);
   __syncthreads();
 
   for (int i = tid; i < rows * D; i += nthr) y[base + i] = from_f<T>(xs[i]);
@@ -474,7 +497,8 @@ cudaError_t launch_fma(const void* x, void* y, const void* ln1s, const void* ln1
                        const void* wqkv, const void* wout, const void* bout,
                        const void* ln2s, const void* ln2b, const void* w1, const void* b1,
                        const void* w2, const void* b2,
-                       int B, int S, int D, int H, int dh, int F, cudaStream_t stream) {
+                       int B, int S, int D, int H, int dh, int F, DropCfg dc,
+                       cudaStream_t stream) {
   const int seqs = seqs_per_block(S);
   const size_t bytes = smem_floats(seqs, S, D, dh, F) * sizeof(float);
   auto kernel = fused_layer_fwd_kernel<T, C>;
@@ -489,7 +513,7 @@ cudaError_t launch_fma(const void* x, void* y, const void* ln1s, const void* ln1
       static_cast<const float*>(ln2s), static_cast<const float*>(ln2b),
       static_cast<const C*>(w1), static_cast<const float*>(b1),
       static_cast<const C*>(w2), static_cast<const float*>(b2),
-      B, S, D, H, dh, F);
+      B, S, D, H, dh, F, dc);
   return cudaGetLastError();
 }
 
@@ -498,7 +522,8 @@ cudaError_t launch_tc(const void* x, void* y, const void* ln1s, const void* ln1b
                       const void* wqkv, const void* wout, const void* bout,
                       const void* ln2s, const void* ln2b, const void* w1, const void* b1,
                       const void* w2, const void* b2,
-                      int B, int S, int D, int H, int dh, int F, cudaStream_t stream) {
+                      int B, int S, int D, int H, int dh, int F, DropCfg dc,
+                      cudaStream_t stream) {
   const int seqs = seqs_per_block(S);
   const size_t bytes = TcPlan(S, D, dh, F, kTcThreads / 32).bytes;
   auto kernel = fused_layer_fwd_tc_kernel<T>;
@@ -513,7 +538,7 @@ cudaError_t launch_tc(const void* x, void* y, const void* ln1s, const void* ln1b
       static_cast<const float*>(ln2s), static_cast<const float*>(ln2b),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      B, S, D, H, dh, F);
+      B, S, D, H, dh, F, dc);
   return cudaGetLastError();
 }
 
@@ -524,36 +549,43 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // x, y: [B, S, D] in T (fp32, or bf16 when io_bf16). wqkv [D, 3*H*dh] (q
 // block pre-scaled), wout [H*dh, D], w1 [D, F], w2 [F, D] in the compute type
 // (bf16 when compute_bf16, else fp32). LN scales/biases and the three
-// biases in fp32. Launches on `stream`; returns cudaGetLastError(). bf16
-// compute takes the tensor-core form when D, dh and F are multiples of 16
-// and the weights are 16-byte aligned, else the FMA form.
+// biases in fp32. Dropout: drop_on (train and rate > 0), drop_proj (the
+// projection site is active), the layer seed, the keep threshold
+// uint32(rate * 2^32) and the scale 1 / (1 - rate); seed and threshold
+// arrive as the int bit patterns of their uint32 values. Launches on
+// `stream`; returns cudaGetLastError(). bf16 compute takes the tensor-core
+// form when D, dh and F are multiples of 16 and the weights are 16-byte
+// aligned, else the FMA form.
 extern "C" int fused_layer_fwd(const void* x, void* y, const void* ln1s, const void* ln1b,
                                const void* wqkv, const void* wout, const void* bout,
                                const void* ln2s, const void* ln2b, const void* w1,
                                const void* b1, const void* w2, const void* b2,
                                int B, int S, int D, int H, int dh, int F,
-                               int io_bf16, int compute_bf16, void* stream) {
+                               int io_bf16, int compute_bf16, int drop_on, int drop_proj,
+                               int drop_seed, int drop_thr, float drop_scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  const DropCfg dc{drop_on, drop_proj, static_cast<uint32_t>(drop_seed),
+                   static_cast<uint32_t>(drop_thr), drop_scale};
   const bool tc = compute_bf16 && D % 16 == 0 && dh % 16 == 0 && F % 16 == 0 &&
                   aligned16(wqkv) && aligned16(wout) && aligned16(w1) && aligned16(w2);
   cudaError_t err;
   if (tc && io_bf16)
     err = launch_tc<__nv_bfloat16>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
-                                   w1, b1, w2, b2, B, S, D, H, dh, F, st);
+                                   w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   else if (tc)
     err = launch_tc<float>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
-                           w1, b1, w2, b2, B, S, D, H, dh, F, st);
+                           w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   else if (io_bf16 && compute_bf16)
     err = launch_fma<__nv_bfloat16, __nv_bfloat16>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s,
-                                                   ln2b, w1, b1, w2, b2, B, S, D, H, dh, F, st);
+                                                   ln2b, w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   else if (io_bf16)
     err = launch_fma<__nv_bfloat16, float>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
-                                           w1, b1, w2, b2, B, S, D, H, dh, F, st);
+                                           w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   else if (compute_bf16)
     err = launch_fma<float, __nv_bfloat16>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
-                                           w1, b1, w2, b2, B, S, D, H, dh, F, st);
+                                           w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   else
     err = launch_fma<float, float>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
-                                   w1, b1, w2, b2, B, S, D, H, dh, F, st);
+                                   w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   return static_cast<int>(err);
 }

@@ -1,0 +1,88 @@
+"""Supervised finetuning entry point of the PyTorch port (the repo's
+``finetune.py``, on one CUDA card).
+
+    python -m maskedsst_tpu_torch.finetune {enmap|houston2018} --synthetic
+        [--synthetic-tiles N] [--epochs N] [--steps N] [--fp32] [--cpu]
+        [--checkpoint none]
+
+The model comes from ``method_name`` in the finetune config (only
+ViTSpatialSpectral is ported) with weights made from the seed. bf16 compute
+(fp32 parameters) is the default, as in the JAX ``finetune.py``; ``--fp32`` computes
+in fp32. It runs on the card unless ``--cpu`` is given. Only synthetic
+cubes are ported, and pretrained-weight loading is not (``--checkpoint``
+takes only ``none``). Prints ``FINAL train_loss=... best_val_acc=...`` at
+the end.
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+
+import numpy as np
+
+SEED = 5
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("dataset", choices=["enmap", "houston2018"])
+    parser.add_argument("--config", default="configs/config.yaml")
+    parser.add_argument("--synthetic-tiles", type=int, default=512)
+    parser.add_argument("--synthetic", action="store_true")
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--steps", type=int, default=None)
+    parser.add_argument("--checkpoint", default=None,
+                        help="only 'none': loading pretrained weights is not ported yet")
+    parser.add_argument("--fp32", action="store_true",
+                        help="fp32 compute (default: bf16 compute, fp32 parameters)")
+    parser.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
+    args = parser.parse_args(argv)
+    if args.checkpoint not in (None, "none"):
+        parser.error("loading a pretrained checkpoint is not ported yet (ROADMAP.md); "
+                     "use --checkpoint none")
+    if not args.synthetic:
+        parser.error("only synthetic cubes are ported yet (ROADMAP.md); pass --synthetic")
+
+    import torch
+
+    from maskedsst_tpu_torch.config import get_finetune_config
+    from maskedsst_tpu_torch.data.pipeline import split_dataset
+    from maskedsst_tpu_torch.data.resolve import get_dataset
+    from maskedsst_tpu_torch.train.factory import build_finetune_model
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+
+    device = "cpu" if args.cpu else "cuda"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --cpu to run on the CPU")
+    random.seed(SEED)
+    np.random.seed(SEED)
+    config = get_finetune_config(
+        f"configs/finetune_config_{args.dataset}.yaml", args.config, SEED
+    )
+    config.synthetic_tiles = args.synthetic_tiles
+    config.checkpoint_path = None
+    model, trainer_kwargs = build_finetune_model(
+        config, dtype=None if args.fp32 else torch.bfloat16, device=device
+    )
+    dataset = get_dataset(config, supervised=True, synthetic=True)
+    val_ds, train_ds = split_dataset(dataset, config.train_fraction, config.data_fraction, SEED)
+    print(f"device: {torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}")
+    print(f"len(train_dataset)={len(train_ds)}")
+    print(f"len(val_dataset)={len(val_ds)}")
+    trainer = Finetuner(config, model, tile_size=dataset.tile_size, **trainer_kwargs)
+    print(f"Model name: {config.method_name}")
+    print(f"Model parameters: {trainer.num_params:,}")
+    history = trainer.fit(train_ds, val_ds, epochs=args.epochs, max_steps=args.steps)
+    print(f"best val acc: {history['best_val_acc']:.4f}")
+    if history["throughput"]:
+        print("throughput:", {k: round(v, 2) for k, v in history["throughput"].items()})
+    if history["train"]:
+        print(f"FINAL train_loss={history['train'][-1]['loss']:.10f} "
+              f"best_val_acc={history['best_val_acc']:.10f}")
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,8 @@ mapping is by rule rather than by table:
   its name.
 
 The fused and unfused JAX transformers declare identical trees, so one
-mapping serves both. Leaves are numpy arrays on the flax side and CPU
+mapping serves both; ``grads_to_flax`` maps a model's gradients the same
+way, for comparing them leaf by leaf with ``jax.grad``. Leaves are numpy arrays on the flax side and CPU
 tensors on the port's side; the round trip is exact.
 """
 
@@ -51,6 +52,13 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def grads_to_flax(model: torch.nn.Module) -> Dict[str, Any]:
+    """The ``.grad`` of every parameter that has one, as a flax tree."""
+    return flax_from_params(
+        {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    )
+
+
 def flax_from_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """This package's ``state_dict`` → flax ``params`` tree (numpy leaves)."""
     tree: Dict[str, Any] = {}
@@ -74,5 +82,5 @@ def flax_from_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.array(arr, order="C")  # a copy: never the tensor's memory
     return tree

@@ -8,8 +8,13 @@ Parameter layout mirrors the JAX package's flax modules name for name
 dtype of the fused ops (None = fp32).
 
 Every layer runs as one call of ``ops.fused_layer.fused_transformer_layer``
-and the embedding as one call of ``ops.fused_embed.fused_embed_mask``:
-the CUDA kernels for tensors on the card, their plain versions on the CPU.
+and the fused embedding as one call of ``ops.fused_embed.fused_embed_mask``:
+the CUDA kernels for tensors on the card, their plain versions on the CPU,
+forward and backward. ``BlockwisePatchEmbedding.embed_pn`` is the same
+embedding in plain ops, for the route where embedding dropout is active.
+
+Dropout seeds: a stack takes a per-call base seed and layer i uses
+base + i (mod 2**32), as the JAX ``FusedTransformer`` does.
 """
 
 from __future__ import annotations
@@ -24,6 +29,17 @@ from maskedsst_tpu_torch.ops.fused_layer import LayerParams, fused_transformer_l
 
 # torch nn.LayerNorm epsilon
 LN_EPS = 1e-5
+
+
+def token_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Dropout on tokens, its keep mask drawn from a generator on x's device
+    seeded with ``seed``: kept values divided by 1 - rate in x's dtype, as
+    flax ``nn.Dropout``."""
+    if rate == 0.0:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class FeedForward(nn.Module):
@@ -82,11 +98,12 @@ class TransformerBlock(nn.Module):
             w2=self.ff.fc2.weight.t(), b2=self.ff.fc2.bias,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, S, D] → [B, S, D]."""
+    def forward(self, x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+        """x [B, S, D] → [B, S, D]; ``seed`` drives dropout in training."""
         return fused_transformer_layer(
             x, self.layer_params(), self.heads, self.dim_head,
-            self.dtype or torch.float32, self.dropout, self.training,
+            self.dtype or torch.float32, self.dropout, self.training, seed,
+            self.attn.project_out,
         )
 
 
@@ -102,11 +119,12 @@ class Transformer(nn.Module):
             for _ in range(depth)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+        """``seed``: the stack's base dropout seed; layer i uses seed + i."""
         lead = x.shape[:-2]
         xb = x.reshape(-1, x.shape[-2], x.shape[-1])
-        for layer in self.layers:
-            xb = layer(xb)
+        for i, layer in enumerate(self.layers):
+            xb = layer(xb, (seed + i) & 0xFFFFFFFF)
         return xb.reshape(*lead, x.shape[-2], x.shape[-1])
 
 
@@ -142,6 +160,28 @@ class BlockwisePatchEmbedding(nn.Module):
         x = x.reshape(b, g, p0, h, p1, w, p2)
         x = x.permute(0, 1, 2, 4, 6, 3, 5)  # b g p0 p1 p2 h w
         return x.reshape(b, g, p0 * p1 * p2, h * w)
+
+    def embed_pn(self, patches_pn: torch.Tensor) -> torch.Tensor:
+        """patches [B, g, p, n] → tokens [B, g*n, dim] in plain ops (the
+        JAX ``embed_pn``, for the route with embedding dropout): pre-LN over
+        p, the per-block product and bias, post-LN over dim. Computes in
+        ``dtype`` (or the patches' dtype) with the flax module's casts: each
+        LayerNorm takes fp32 statistics and returns ``dtype``, the product
+        accumulates in fp32 and is rounded to ``dtype``, the bias is added
+        in ``dtype``."""
+        dt = self.dtype or patches_pn.dtype
+        b, g, _, n = patches_pn.shape
+        xf = patches_pn.float()
+        mu = xf.mean(dim=2, keepdim=True)
+        var = ((xf - mu) ** 2).mean(dim=2, keepdim=True)
+        x = ((xf - mu) * torch.rsqrt(var + LN_EPS) * self.pre_norm.weight[:, None]
+             + self.pre_norm.bias[:, None]).to(dt)
+        t = torch.einsum("bgpn,gpd->bgnd", x.float(),
+                         self.blockwise_kernel.to(dt).float()).to(dt)
+        t = (t + self.blockwise_bias.to(dt)[None, :, None, :]).reshape(b, g * n, self.dim)
+        return nn.functional.layer_norm(
+            t.float(), (self.dim,), self.post_norm.weight, self.post_norm.bias, LN_EPS
+        ).to(dt)
 
     def embed_mask_fused(self, patches_pn: torch.Tensor, pos: torch.Tensor,
                          mask_token: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -8,21 +8,32 @@ as [B, c, n, d]; the swap to [B, n, c, d] between the stacks is followed by
 slab — a copy of the token tensor that the TPU path, where the swap was a
 layout change inside XLA, did not pay.
 
-Tokenization always runs through the fused embed op (blockwise embedding,
-+ positions, with a zero mask and zero mask token) and both stacks through
-the fused layer op; the tensor's device picks kernel or plain version.
+Tokenization runs through the fused embed op (blockwise embedding, +
+positions, with a zero mask and zero mask token) unless embedding dropout
+is active in training; then, as in the JAX model, it takes the plain
+``embed_pn`` + positions + dropout. Both stacks run through the fused layer
+op; the tensor's device picks kernel or plain version.
+
+Randomness in training comes from an explicit ``torch.Generator`` passed
+to ``forward`` (never torch's global RNG): three seeds per call, for the
+spatial stack, the spectral stack and the embedding dropout.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from maskedsst_tpu_torch.models.layers import LN_EPS, BlockwisePatchEmbedding, Transformer
+from maskedsst_tpu_torch.models.layers import (
+    LN_EPS,
+    BlockwisePatchEmbedding,
+    Transformer,
+    token_dropout,
+)
 from maskedsst_tpu_torch.ops.pos_embed import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed
 
 
@@ -78,6 +89,7 @@ class ViTSpatialSpectral(nn.Module):
                 "(ROADMAP.md, Queue 1, Slice E)"
             )
         self.num_classes, self.dim, self.emb_dropout = num_classes, dim, emb_dropout
+        self.dropout = dropout
         self.spectral_pos_embed, self.spectral_only = spectral_pos_embed, spectral_only
         self.spectral_mlp_head, self.pixelwise = spectral_mlp_head, pixelwise
         self.dtype = dtype
@@ -189,19 +201,21 @@ class ViTSpatialSpectral(nn.Module):
             return self.get_pos_embeddings()
         return self.pos_embedding[:, :num_tokens]
 
-    def transformer_forward(self, x: torch.Tensor, spectral_layout_out: bool = False) -> torch.Tensor:
+    def transformer_forward(self, x: torch.Tensor, spectral_layout_out: bool = False,
+                            seeds: Tuple[int, int] = (0, 0)) -> torch.Tensor:
         """Factorized transformer over block-major tokens [B, c*n, d]:
         spatial over n with (B, c) as batch, a swap, spectral over c with
         (B, n) as batch. ``spectral_layout_out=True`` returns the spectral
-        stack's layout [B, n, c, d]; otherwise block-major [B, c*n, d]."""
+        stack's layout [B, n, c, d]; otherwise block-major [B, c*n, d].
+        ``seeds``: the two stacks' base dropout seeds."""
         b, num_tokens, d = x.shape
         c, n = self.num_spectral_patches, self.num_spatial_patches
         assert num_tokens == c * n, f"{num_tokens=} != {c=}*{n=}"
         x = x.reshape(b, c, n, d)
         if not self.spectral_only:
-            x = self.spatial_transformer(x)
+            x = self.spatial_transformer(x, seeds[0])
         x = x.transpose(1, 2).contiguous()  # [B, n, c, d]: the copy the TPU path did not pay
-        x = self.spectral_transformer(x)
+        x = self.spectral_transformer(x, seeds[1])
         if spectral_layout_out:
             return x
         return x.transpose(1, 2).reshape(b, c * n, d)
@@ -223,21 +237,42 @@ class ViTSpatialSpectral(nn.Module):
         tokens = self.to_patch_embedding.embed_mask_fused(patches, pos, mask_token, mask)
         return tokens.reshape(b, c * n, self.dim), patches
 
-    def forward_features(self, img: torch.Tensor, spectral_layout_out: bool = False) -> torch.Tensor:
-        """Tokenize (with positions) and run the factorized transformer."""
-        if self.training and self.emb_dropout > 0.0:
-            raise NotImplementedError(
-                "embedding dropout (training) comes with the finetune training "
-                "slice (ROADMAP.md, Queue 1, Slice B)"
+    def dropout_seeds(self, rng: Optional[torch.Generator]) -> Tuple[int, int, int]:
+        """(spatial, spectral, embedding) dropout seeds of one training call,
+        drawn from ``rng``; zeros when no dropout is active."""
+        if not (self.training and (self.dropout > 0.0 or self.emb_dropout > 0.0)):
+            return (0, 0, 0)
+        if rng is None:
+            raise ValueError(
+                "training with dropout needs an explicit torch.Generator (rng); "
+                "the model never draws from torch's global RNG"
             )
-        tokens, _ = self.tokenize_fused(img)
-        return self.transformer_forward(tokens, spectral_layout_out=spectral_layout_out)
+        return tuple(torch.randint(0, 2**31 - 1, (3,), generator=rng).tolist())
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, img: torch.Tensor, spectral_layout_out: bool = False,
+                         rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Tokenize (with positions) and run the factorized transformer.
+
+        The fused embed runs unless embedding dropout is active in
+        training (the JAX routing, ``deterministic or emb_dropout == 0``);
+        then the plain ``embed_pn`` + positions + token dropout."""
+        seeds = self.dropout_seeds(rng)
+        if not self.training or self.emb_dropout == 0.0:
+            tokens, _ = self.tokenize_fused(img)
+        else:
+            emb = self.to_patch_embedding
+            x = emb.embed_pn(emb.to_patch_pn(img))
+            x = x + self.pos_embedding_for(x.shape[1]).to(x.dtype)
+            tokens = token_dropout(x, self.emb_dropout, seeds[2])
+        return self.transformer_forward(tokens, spectral_layout_out=spectral_layout_out,
+                                        seeds=seeds[:2])
+
+    def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Cube [B, C, H, W] → logits: per patch pixel [B, num_classes, H, W]
         by default and with ``spectral_mlp_head``, or [B, num_classes] with
-        ``pixelwise``."""
-        x = self.forward_features(img, spectral_layout_out=True)  # [B, n, c, d]
+        ``pixelwise``. ``rng`` (a CPU generator) drives dropout in
+        training."""
+        x = self.forward_features(img, spectral_layout_out=True, rng=rng)  # [B, n, c, d]
         b = x.shape[0]
         c = self.num_spectral_patches
         hh = ww = self.num_spatial_patches_sqrt

@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
-KERNELS = ("fused_embed_fwd", "fused_layer_fwd")
+KERNELS = ("fused_embed_fwd", "fused_embed_bwd", "fused_layer_fwd", "fused_layer_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -99,11 +99,12 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
 
 
-def bind(lib: ctypes.CDLL, name: str, n_pointers: int, n_ints: int):
-    """Declare a C entry taking ``n_pointers`` pointers, ``n_ints`` ints and
-    a trailing stream, returning a CUDA error code."""
+def bind(lib: ctypes.CDLL, name: str, n_pointers: int, n_ints: int, n_floats: int = 0):
+    """Declare a C entry taking ``n_pointers`` pointers, ``n_ints`` ints,
+    ``n_floats`` floats and a trailing stream, returning a CUDA error code."""
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p

@@ -1,19 +1,25 @@
-"""Fused tokenization head, forward: CUDA kernel and plain version.
+"""Fused tokenization head, forward and backward: CUDA kernels and plain
+versions.
 
 patches [B, g, p, n] → pre-LN over p → per-block [p] x [p, d] + bias →
 post-LN over d → + pos [g, n, d] → tokens where mask = 0, (pos +
 mask_token) where mask = 1 → tokens [B, g, n, d].
 
-``fused_embed_mask`` picks the implementation by the tensor's device: a
-CPU tensor goes to :func:`fused_embed_mask_reference`, the plain PyTorch
-version; a CUDA tensor launches ``csrc/fused_embed_fwd.cu`` or raises. The
-kernel replaces the TPU kernel ``maskedsst_tpu/ops/fused_embed.py::
-_fwd_kernel``, with its layouts and numeric contract: fp32 LN statistics
-(eps 1e-5), the pre-LN output and the embed kernel rounded to
-``compute_dtype`` with an fp32 product, and the output in ``compute_dtype``
-when that is below 32 bits, else fp32. The classifier passes a zero mask
-and a zero mask_token (the select is then the identity); SimMIM passes
-real ones.
+``fused_embed_mask`` is a ``torch.autograd.Function`` that picks the
+implementation by the tensor's device: a CPU tensor goes to
+:func:`fused_embed_mask_reference` forward and
+:func:`fused_embed_mask_reference_bwd` backward, the plain PyTorch
+versions; a CUDA tensor launches ``csrc/fused_embed_fwd.cu`` and
+``csrc/fused_embed_bwd.cu`` or raises. The kernels replace the TPU kernels
+``maskedsst_tpu/ops/fused_embed.py::_fwd_kernel`` and ``_bwd_kernel``, with
+their layouts and numeric contract: fp32 LN statistics (eps 1e-5), the
+pre-LN output, the embed kernel and the embedded tokens' gradient rounded
+to ``compute_dtype`` with fp32 products, and the output in
+``compute_dtype`` when that is below 32 bits, else fp32. The backward
+kernel reduces the eight parameter gradients only; the patch and mask
+cotangents come from plain ops (:func:`embed_input_grads`), and only when
+autograd asks for them. The classifier passes a zero mask and a zero
+mask_token (the select is then the identity); SimMIM passes real ones.
 """
 
 from __future__ import annotations
@@ -22,15 +28,16 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 LN_EPS = 1e-5
 _KERNEL = "fused_embed_fwd"
+_BWD = "fused_embed_bwd"
 _SUPPORTED = (torch.float32, torch.bfloat16)
 
 # kernel launches since the count was last set to 0 (plain-version calls
-# are not counted)
+# are not counted): forward, backward
 launches = 0
+bwd_launches = 0
 
 
 def _out_dtype(compute_dtype: torch.dtype) -> torch.dtype:
@@ -57,13 +64,118 @@ def fused_embed_mask(
     [d]; pos [g, n, d]; mask_token [d]."""
     if patches_pn.shape[0] == 0:
         raise ValueError("fused_embed_mask: empty batch (B == 0)")
-    args = (patches_pn, mask, preln_scale, preln_bias, kernel, bias,
-            postln_scale, postln_bias, pos, mask_token)
-    if patches_pn.device.type == "cpu":
-        return fused_embed_mask_reference(*args, compute_dtype)
-    if patches_pn.device.type != "cuda":
+    if patches_pn.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_embed_mask: unsupported device {patches_pn.device}")
-    return _launch(*args, compute_dtype)
+    return _EmbedFn.apply(patches_pn.device.type == "cpu", compute_dtype, patches_pn, mask,
+                          preln_scale, preln_bias, kernel, bias, postln_scale, postln_bias,
+                          pos, mask_token)
+
+
+def plain_embed_mask(patches_pn, mask, preln_scale, preln_bias, kernel, bias, postln_scale,
+                     postln_bias, pos, mask_token, compute_dtype=torch.bfloat16):
+    """The same differentiable op through the plain versions on any device
+    (the reference the card's kernels are held to)."""
+    if patches_pn.shape[0] == 0:
+        raise ValueError("fused_embed_mask: empty batch (B == 0)")
+    return _EmbedFn.apply(True, compute_dtype, patches_pn, mask, preln_scale, preln_bias,
+                          kernel, bias, postln_scale, postln_bias, pos, mask_token)
+
+
+class _EmbedFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plain, compute_dtype, *args):
+        out = (fused_embed_mask_reference if plain else _launch)(*args, compute_dtype)
+        ctx.save_for_backward(*args)
+        ctx.plain, ctx.compute_dtype = plain, compute_dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, dtok):
+        args = ctx.saved_tensors
+        bwd = fused_embed_mask_reference_bwd if ctx.plain else _launch_bwd
+        grads = bwd(*args, dtok, ctx.compute_dtype)
+        dpatches = dmask = None
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            dpatches, dmask = embed_input_grads(*args, dtok, ctx.compute_dtype)
+        return (None, None, dpatches, dmask,
+                *(g.to(t.dtype) for g, t in zip(grads, args[2:])))
+
+
+def _fwd_parts(patches_pn, preln_scale, preln_bias, kernel, bias, postln_scale, postln_bias,
+               compute_dtype):
+    """(z1, rsig1, xln, z2, rsig2, t2): the pre-LN's normalized input and
+    output, the post-LN's normalized input and output, fp32."""
+    xf = patches_pn.float()
+    mu = xf.mean(dim=2, keepdim=True)
+    rsig1 = torch.rsqrt(((xf - mu) ** 2).mean(dim=2, keepdim=True) + LN_EPS)
+    z1 = (xf - mu) * rsig1
+    xln = z1 * preln_scale.float()[:, None] + preln_bias.float()[:, None]
+    t = torch.einsum(
+        "bgpn,gpd->bgnd", xln.to(compute_dtype).float(), kernel.to(compute_dtype).float()
+    ) + bias.float()[None, :, None, :]
+    mu2 = t.mean(dim=-1, keepdim=True)
+    rsig2 = torch.rsqrt(((t - mu2) ** 2).mean(dim=-1, keepdim=True) + LN_EPS)
+    z2 = (t - mu2) * rsig2
+    t2 = z2 * postln_scale.float() + postln_bias.float()
+    return z1, rsig1, xln, z2, rsig2, t2
+
+
+def _post_ln_bwd(dkept, z2, rsig2, postln_scale):
+    dz = dkept * postln_scale.float()
+    return rsig2 * (dz - dz.mean(dim=-1, keepdim=True)
+                    - z2 * (dz * z2).mean(dim=-1, keepdim=True))
+
+
+def fused_embed_mask_reference_bwd(
+    patches_pn, mask, preln_scale, preln_bias, kernel, bias,
+    postln_scale, postln_bias, pos, mask_token, dtok, compute_dtype=torch.bfloat16,
+):
+    """Plain PyTorch version of the parameter gradients, as the TPU kernel
+    computes them (``_bwd_kernel``; dbias reduced over n as its rule does):
+    (d preln_scale [p], d preln_bias [p], d kernel [g, p, d], d bias [g, d],
+    d postln_scale [d], d postln_bias [d], d pos [g, n, d], d mask_token
+    [d]), fp32. The masked table is pos + mask_token, so its cotangent goes
+    to both."""
+    z1, _, xln, z2, rsig2, _ = _fwd_parts(patches_pn, preln_scale, preln_bias, kernel, bias,
+                                          postln_scale, postln_bias, compute_dtype)
+    dt4 = dtok.float()
+    mb = mask.float()[..., None]
+    dkept = dt4 * (1.0 - mb)
+    dmasked = (dt4 * mb).sum(dim=0)  # [g, n, d]
+    dt = _post_ln_bwd(dkept, z2, rsig2, postln_scale)
+    dtr = dt.to(compute_dtype).float()
+    dxln = torch.einsum("gpd,bgnd->bgpn", kernel.to(compute_dtype).float(), dtr)
+    return (
+        (dxln * z1).sum(dim=(0, 1, 3)),
+        dxln.sum(dim=(0, 1, 3)),
+        torch.einsum("bgpn,bgnd->gpd", xln.to(compute_dtype).float(), dtr),
+        dt.sum(dim=(0, 2)),
+        (dkept * z2).sum(dim=(0, 1, 2)),
+        dkept.sum(dim=(0, 1, 2)),
+        dkept.sum(dim=0) + dmasked,
+        dmasked.sum(dim=(0, 1)),
+    )
+
+
+def embed_input_grads(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
+                      postln_scale, postln_bias, pos, mask_token, dtok,
+                      compute_dtype=torch.bfloat16):
+    """Cotangents of the data inputs (patches [B, g, p, n], mask [B, g, n])
+    in plain ops, as the JAX rule's ``_input_grads_xla``."""
+    z1, rsig1, _, z2, rsig2, t2 = _fwd_parts(patches_pn, preln_scale, preln_bias, kernel,
+                                             bias, postln_scale, postln_bias, compute_dtype)
+    dt4 = dtok.float()
+    mb = mask.float()[..., None]
+    kept = t2 + pos.float()[None]
+    masked = (pos.float() + mask_token.float())[None]
+    dmask = (dt4 * (masked - kept)).sum(dim=-1)
+    dt = _post_ln_bwd(dt4 * (1.0 - mb), z2, rsig2, postln_scale)
+    dxln = torch.einsum("gpd,bgnd->bgpn", kernel.to(compute_dtype).float(),
+                        dt.to(compute_dtype).float())
+    dz1 = dxln * preln_scale.float()[:, None]
+    dx = rsig1 * (dz1 - dz1.mean(dim=2, keepdim=True)
+                  - z1 * (dz1 * z1).mean(dim=2, keepdim=True))
+    return dx.to(patches_pn.dtype), dmask.to(mask.dtype)
 
 
 def fused_embed_mask_reference(
@@ -71,18 +183,8 @@ def fused_embed_mask_reference(
     postln_scale, postln_bias, pos, mask_token, compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """Plain PyTorch version: the kernel's math with the same roundings."""
-    xf = patches_pn.float()
-    mu = xf.mean(dim=2, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=2, keepdim=True)
-    z1 = (xf - mu) * torch.rsqrt(var + LN_EPS)
-    xln = z1 * preln_scale.float()[:, None] + preln_bias.float()[:, None]
-    t = torch.einsum(
-        "bgpn,gpd->bgnd",
-        xln.to(compute_dtype).float(),
-        kernel.to(compute_dtype).float(),
-    ) + bias.float()[None, :, None, :]
-    d = t.shape[-1]
-    t2 = F.layer_norm(t, (d,), postln_scale.float(), postln_bias.float(), LN_EPS)
+    t2 = _fwd_parts(patches_pn, preln_scale, preln_bias, kernel, bias, postln_scale,
+                    postln_bias, compute_dtype)[-1]
     posf = pos.float()
     tokens = t2 + posf[None]
     mb = mask.float()[..., None]
@@ -92,27 +194,24 @@ def fused_embed_mask_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _bind():
+def _bind(name: str = _KERNEL):
     from maskedsst_tpu_torch.ops import _build
 
-    lib = _build.load(_KERNEL)
-    return lib, _build.bind(lib, _KERNEL, n_pointers=11, n_ints=7)
+    lib = _build.load(name)
+    if name == _KERNEL:
+        return lib, _build.bind(lib, name, n_pointers=11, n_ints=7)
+    return lib, _build.bind(lib, name, n_pointers=11, n_ints=8)
 
 
-def _launch(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
-            postln_scale, postln_bias, pos, mask_token, compute_dtype):
-    global launches
-    from maskedsst_tpu_torch.ops import _build
-
+def _check(name, patches_pn, mask, preln_scale, preln_bias, kernel, bias,
+           postln_scale, postln_bias, pos, mask_token, compute_dtype):
     if patches_pn.dtype not in _SUPPORTED or compute_dtype not in _SUPPORTED:
         raise TypeError(
-            f"fused_embed_fwd takes fp32/bf16, got patches {patches_pn.dtype}, "
-            f"compute {compute_dtype}"
+            f"{name} takes fp32/bf16, got patches {patches_pn.dtype}, compute {compute_dtype}"
         )
     if patches_pn.dim() != 4 or not patches_pn.is_contiguous():
         raise ValueError(
-            f"fused_embed_fwd: patches must be a contiguous [B, g, p, n], "
-            f"got {tuple(patches_pn.shape)}"
+            f"{name}: patches must be a contiguous [B, g, p, n], got {tuple(patches_pn.shape)}"
         )
     b, g, p, n = patches_pn.shape
     d = kernel.shape[-1]
@@ -123,20 +222,30 @@ def _launch(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
         "postln_bias": (postln_bias, (d,)), "pos": (pos, (g, n, d)),
         "mask_token": (mask_token, (d,)),
     }
-    for name, (t, shape) in expect.items():
+    for pname, (t, shape) in expect.items():
         if tuple(t.shape) != shape or t.device != patches_pn.device:
             raise ValueError(
-                f"fused_embed_fwd: {name} must be {shape} on {patches_pn.device}, "
+                f"{name}: {pname} must be {shape} on {patches_pn.device}, "
                 f"got {tuple(t.shape)} on {t.device}"
             )
+    return b, g, p, n, d
 
-    def f32(t):
-        return t.float().contiguous()
 
+def _f32(t):
+    return t.float().contiguous()
+
+
+def _launch(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
+            postln_scale, postln_bias, pos, mask_token, compute_dtype):
+    global launches
+    from maskedsst_tpu_torch.ops import _build
+
+    b, g, p, n, d = _check(_KERNEL, patches_pn, mask, preln_scale, preln_bias, kernel, bias,
+                           postln_scale, postln_bias, pos, mask_token, compute_dtype)
     # kept referenced until the launch has been enqueued
     args = (
-        f32(mask), f32(preln_scale), f32(preln_bias), kernel.to(compute_dtype).contiguous(),
-        f32(bias), f32(postln_scale), f32(postln_bias), f32(pos), f32(mask_token),
+        _f32(mask), _f32(preln_scale), _f32(preln_bias), kernel.to(compute_dtype).contiguous(),
+        _f32(bias), _f32(postln_scale), _f32(postln_bias), _f32(pos), _f32(mask_token),
     )
     out = torch.empty((b, g, n, d), dtype=_out_dtype(compute_dtype), device=patches_pn.device)
     lib, fn = _bind()
@@ -151,3 +260,40 @@ def _launch(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
     _build.check(lib, _KERNEL, code)
     launches += 1
     return out
+
+
+def _launch_bwd(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
+                postln_scale, postln_bias, pos, mask_token, dtok, compute_dtype):
+    """Backward kernel → the eight fp32 parameter gradients, as
+    :func:`fused_embed_mask_reference_bwd`."""
+    global bwd_launches
+    from maskedsst_tpu_torch.ops import _build
+
+    b, g, p, n, d = _check(_BWD, patches_pn, mask, preln_scale, preln_bias, kernel, bias,
+                           postln_scale, postln_bias, pos, mask_token, compute_dtype)
+    if tuple(dtok.shape) != (b, g, n, d):
+        raise ValueError(f"{_BWD}: dtok must be {(b, g, n, d)}, got {tuple(dtok.shape)}")
+    dtok = dtok.to(_out_dtype(compute_dtype)).contiguous()
+    # the gradients need neither pos nor mask_token, only their shapes
+    args = (_f32(mask), _f32(preln_scale), _f32(preln_bias),
+            kernel.to(compute_dtype).contiguous(), _f32(bias), _f32(postln_scale),
+            _f32(postln_bias))
+    sms = torch.cuda.get_device_properties(patches_pn.device).multi_processor_count
+    chunks = max(1, min(b, -(-sms // g)))
+    sizes = [p, p, g * p * d, g * d, d, d, g * n * d, d]
+    part = p * d + d + 2 * n * d + d + 2 * p + 2 * d  # one block's partials
+    ws = torch.empty((g * chunks, part), dtype=torch.float32, device=patches_pn.device)
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=patches_pn.device)
+    lib, fn = _bind(_BWD)
+    with torch.cuda.device(patches_pn.device):
+        stream = torch.cuda.current_stream(patches_pn.device).cuda_stream
+        code = fn(
+            patches_pn.data_ptr(), *(a.data_ptr() for a in args), dtok.data_ptr(),
+            ws.data_ptr(), grads.data_ptr(), b, g, p, n, d, chunks,
+            int(patches_pn.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
+            ctypes.c_void_p(stream),
+        )
+    _build.check(lib, _BWD, code)
+    bwd_launches += 1
+    shapes = [(p,), (p,), (g, p, d), (g, d), (d,), (d,), (g, n, d), (d,)]
+    return tuple(t.view(sh) for t, sh in zip(grads.split(sizes), shapes))

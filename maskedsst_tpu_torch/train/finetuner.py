@@ -1,0 +1,274 @@
+"""Supervised finetuning loop, the JAX package's ``Finetuner`` on one card.
+
+One training step: an optional random crop (or shifting-window tiling) of
+the 64x64 tiles with one origin per batch, center-pixel labels for
+pixelwise models, the model's forward in train mode with its dropout drawn
+from the trainer's generator, cross-entropy with ignored labels, backward
+through the fused ops (the CUDA kernels on the card), and an Adam update
+with split head/backbone learning rates; it returns loss, micro and macro
+accuracy. Validation slides ``image_size`` windows over the tiles and
+averages over all windows, from per-chunk sums.
+
+``fit`` streams batches from the host (synchronous ``DataLoader``) with the
+JAX loop's budgets: strict epoch/step overrides, validation on
+``get_val_epochs``, the plateau scheduler stepped at the end of every
+completed epoch with the last mean validation loss, and a raise when the
+logged loss is NaN. Not ported yet (ROADMAP.md): the device-resident tile
+store with index batches, the superstep, resume and checkpoints, the
+tracker and multi-host.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from maskedsst_tpu_torch.config import Config
+from maskedsst_tpu_torch.data.pipeline import DataLoader
+from maskedsst_tpu_torch.train.losses import cross_entropy, cross_entropy_sums
+from maskedsst_tpu_torch.train.metrics import confusion_matrix, macro_accuracy, micro_accuracy
+from maskedsst_tpu_torch.train.optim import (
+    build_optimizer,
+    get_learning_rates,
+    make_head_label_fn,
+    plateau_scheduler,
+)
+from maskedsst_tpu_torch.train.train_state import TrainState
+from maskedsst_tpu_torch.train.windows import window_tiles
+
+
+def get_val_epochs(config: Config, steps_per_epoch: int) -> list:
+    """Validation epochs: every epoch when the epoch budget dominates;
+    ``epoch`` validations spread evenly over the run when max_steps does."""
+    total_steps = steps_per_epoch * config.epoch
+    if total_steps > config.max_steps:
+        return list(range(config.epoch))
+    total_epochs = config.max_steps // max(steps_per_epoch, 1)
+    return sorted(set(int(e) for e in np.linspace(0, total_epochs, config.epoch)))
+
+
+class Finetuner:
+    """Trains ``model`` (already on its device) by the config's recipe.
+
+    ``tile_size``: the side of the dataset's tiles (64 for EnMAP; crops of
+    ``image_size`` are drawn from them). Every random choice of a step (the
+    crop origin, then the model's dropout seeds) comes from
+    ``self.state.rng``, a CPU generator seeded by ``config.seed``."""
+
+    def __init__(
+        self,
+        config: Config,
+        model: torch.nn.Module,
+        center_pixel: bool = False,
+        tile_size: int = 64,
+    ):
+        self.config = config
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.center_pixel = center_pixel
+        self.tile_size = tile_size
+        linear_eval = bool(config.get("linear_eval", False))
+        optimizer = build_optimizer(
+            model, config.lr, config.weight_decay,
+            # linear eval trains the head at the base lr
+            head_lr=None if linear_eval else config.get("mlp_head_lr"),
+            head_label_fn=make_head_label_fn(config.get("method_name")),
+            linear_eval=linear_eval,
+        )
+        rng = torch.Generator().manual_seed(int(config.get("seed", 5)))
+        self.state = TrainState(model, optimizer, rng)
+        self.scheduler = plateau_scheduler(optimizer)
+        self.num_params = sum(p.numel() for p in model.parameters())
+        self.crop = config.image_size != tile_size and config.dataset in ("dfc", "worldcover")
+        self.shifting_window = bool(config.get("shifting_window", False))
+        self.eval_chunk = int(config.get("eval_chunk", 256))
+
+    @property
+    def window(self) -> int:
+        return self.config.image_size - self.config.get("patch_sub", 0)
+
+    # --- one step ------------------------------------------------------------
+    def _crop_draw(self) -> Tuple[int, Tuple[int, int]]:
+        """One crop origin per batch, in the reference's deliberately narrow
+        range ``randint(0, tile - image_size - patch_sub)`` (under patch_sub
+        the last 2*patch_sub origins are never drawn)."""
+        hi = max(self.tile_size - self.config.image_size - self.config.get("patch_sub", 0), 1)
+        xy = torch.randint(0, hi, (2,), generator=self.state.rng).tolist()
+        return self.window, (xy[0], xy[1])
+
+    def _prep(self, img: torch.Tensor, label: torch.Tensor,
+              xy: Optional[Tuple[int, int]] = None):
+        """Crop (origin drawn, or ``xy`` when given) or window the batch, and
+        take center-pixel labels for pixelwise models."""
+        s = self.window
+        if self.crop and self.shifting_window:
+            img, label = window_tiles(img, s, label)
+        elif self.crop:
+            if xy is None:
+                s, xy = self._crop_draw()
+            x0, y0 = xy
+            img = img[:, :, x0 : x0 + s, y0 : y0 + s]
+            label = label[:, x0 : x0 + s, y0 : y0 + s]
+        if self.center_pixel and label.dim() == 3:
+            label = label[:, s // 2, s // 2]
+        return img, label
+
+    def _to_device(self, img, label):
+        img = torch.as_tensor(img).to(self.device, torch.float32)
+        label = torch.as_tensor(label).to(self.device, torch.int64)
+        return img, label
+
+    def train_step(self, img, label, xy: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
+        """One update on a batch of tiles (numpy or tensors); returns loss,
+        acc and macro_acc as device scalars. The crop is taken where the
+        batch lies, before the copy to the card, so a host batch moves only
+        its crop windows."""
+        cfg = self.config
+        img, label = self._to_device(*self._prep(torch.as_tensor(img), torch.as_tensor(label), xy))
+        self.model.train()
+        self.model.zero_grad(set_to_none=True)
+        logits = self.model(img, rng=self.state.rng)
+        loss = cross_entropy(logits, label, ignore_index=cfg.ignored_label)
+        loss.backward()
+        self.state.apply_gradients()
+        with torch.no_grad():
+            pred = logits.argmax(dim=1)
+            return {
+                "loss": loss.detach(),
+                "acc": micro_accuracy(pred, label, cfg.ignored_label),
+                "macro_acc": macro_accuracy(pred, label, cfg.n_classes, cfg.ignored_label),
+            }
+
+    @torch.no_grad()
+    def _eval_sums(self, img, label) -> Dict[str, torch.Tensor]:
+        """Per-chunk metric sums (weighted-loss numerator and weight mass,
+        correct, valid, confusion matrix), so that host aggregation gives
+        exact global metrics."""
+        cfg = self.config
+        img, label = self._to_device(img, label)
+        if self.center_pixel and label.dim() == 3:
+            label = label[:, self.window // 2, self.window // 2]
+        self.model.eval()
+        logits = self.model(img)
+        loss_num, loss_wsum = cross_entropy_sums(logits, label, ignore_index=cfg.ignored_label)
+        pred = logits.argmax(dim=1)
+        valid = label != cfg.ignored_label
+        return {
+            "loss_num": loss_num, "loss_wsum": loss_wsum,
+            "correct": ((pred == label) & valid).sum(), "n_valid": valid.sum(),
+            "cm": confusion_matrix(pred, label, cfg.n_classes, cfg.ignored_label),
+        }
+
+    def _window_batch(self, img: np.ndarray, label: np.ndarray):
+        """Host-side sliding windows at stride s over the tiles, then
+        fixed-size chunks padded with ignored labels."""
+        if self.crop:
+            img, label = window_tiles(img, self.window, label)
+        chunk, n = self.eval_chunk, img.shape[0]
+        for lo in range(0, n, chunk):
+            ci, cl = img[lo : lo + chunk], label[lo : lo + chunk]
+            if ci.shape[0] < chunk:
+                pad = chunk - ci.shape[0]
+                ci = np.concatenate([ci, np.zeros((pad, *ci.shape[1:]), ci.dtype)])
+                cl = np.concatenate([cl, np.full((pad, *cl.shape[1:]), self.config.ignored_label,
+                                                 cl.dtype)])
+            yield ci, cl
+
+    def validate(self, val_loader) -> Optional[dict]:
+        """Mean loss, acc and macro_acc over every window of the loader."""
+        sums = None
+        for batch in val_loader:
+            for ci, cl in self._window_batch(batch["img"], batch["label"]):
+                out = {k: v.cpu().numpy() for k, v in self._eval_sums(ci, cl).items()}
+                sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
+        if sums is None or sums["n_valid"] <= 0:
+            return None
+        support = sums["cm"].sum(axis=1)
+        recall = np.where(support > 0, np.diag(sums["cm"]) / np.maximum(support, 1), 0.0)
+        present = support > 0
+        return {
+            "loss": float(sums["loss_num"]) / max(float(sums["loss_wsum"]), 1e-12),
+            "acc": float(sums["correct"]) / float(sums["n_valid"]),
+            "macro_acc": float((recall * present).sum() / max(present.sum(), 1)),
+        }
+
+    # --- loop ----------------------------------------------------------------
+    def fit(self, train_dataset, val_dataset, epochs: Optional[int] = None,
+            max_steps: Optional[int] = None, log: Callable[[dict], None] = print) -> dict:
+        cfg = self.config
+        val_bs = cfg.get("val_batch_size", cfg.batch_size)
+        loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True,
+                            seed=int(cfg.get("seed", 5)), pad_to_multiple=cfg.batch_size,
+                            pad_label_value=cfg.ignored_label)
+        val_loader = DataLoader(val_dataset, val_bs, shuffle=False, pad_to_multiple=val_bs,
+                                pad_label_value=cfg.ignored_label)
+        # config budgets run until BOTH are exhausted; explicit overrides stop
+        # at whichever is hit first
+        strict = epochs is not None or max_steps is not None
+        epoch_budget = epochs if epochs is not None else cfg.epoch
+        step_budget = max_steps if max_steps is not None else cfg.max_steps
+        validation_epochs = set(get_val_epochs(cfg, max(len(loader), 1)))
+        history = {"train": [], "val": [], "best_val_acc": 0.0}
+        last_val_loss = None
+        step, epoch = self.state.step, 0
+        win = {k: deque(maxlen=cfg.logging_freq) for k in ("loss", "acc", "macro_acc")}
+        train_seconds, train_steps = 0.0, 0
+
+        def done() -> bool:
+            if strict:
+                return epoch >= epoch_budget or step >= step_budget
+            return epoch >= epoch_budget + 1 and step >= step_budget + 1
+
+        def log_step():
+            means = {k: float(torch.stack(list(v)).float().mean()) for k, v in win.items() if v}
+            if "loss" in means and not np.isfinite(means["loss"]):
+                raise ValueError("Loss is NaN")
+            log({"step": step, "epoch": epoch, **means,
+                 "lr": get_learning_rates(self.state.optimizer)[0]})
+
+        while not done():
+            metrics, consumed = None, 0
+            for batch in loader:
+                t0 = time.perf_counter()
+                metrics = self.train_step(batch["img"], batch["label"])
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                train_seconds += time.perf_counter() - t0
+                train_steps += 1
+                for k in win:
+                    win[k].append(metrics[k])
+                step += 1
+                consumed += 1
+                if step % cfg.logging_freq == 0:
+                    log_step()
+                if strict and step >= step_budget:
+                    break
+            epoch_complete = consumed >= len(loader)
+            if metrics is not None:
+                history["train"].append({k: float(v) for k, v in metrics.items()})
+            if epoch_complete and (epoch in validation_epochs or epoch == epoch_budget):
+                mean = self.validate(val_loader)
+                if mean is not None:
+                    log({"step": step, "epoch": epoch, "val_loss": mean["loss"],
+                         "val_acc": mean["acc"], "val_macro_acc": mean["macro_acc"]})
+                    history["val"].append(mean)
+                    last_val_loss = mean["loss"]
+                    history["best_val_acc"] = max(history["best_val_acc"], mean["acc"])
+            # the plateau scheduler steps at the end of EVERY completed epoch
+            # with the (possibly stale) last mean validation loss
+            if epoch_complete and last_val_loss is not None:
+                self.scheduler.step(last_val_loss)
+            if epoch_complete:
+                epoch += 1
+            if len(loader) == 0:
+                break
+        history["throughput"] = (
+            {"steps_per_s": train_steps / train_seconds,
+             "cubes_per_s": train_steps * cfg.batch_size / train_seconds}
+            if train_steps else {}
+        )
+        return history

@@ -1,0 +1,82 @@
+"""The finetune recipe's optimizer and scheduler on ``torch.optim``.
+
+* ``torch.optim.Adam(weight_decay=wd)``: coupled L2 added to the gradient
+  before the moment estimates (the JAX package's ``_adam_l2_core``);
+* two parameter groups, the classifier head at ``head_lr`` and the rest at
+  ``lr``; the head is chosen by name (``head_*`` / ``mlp_head`` components,
+  never the feed-forward ``fc1``/``fc2``); with ``linear_eval`` only the
+  head is optimized;
+* ``ReduceLROnPlateau(factor 0.9, patience 5, rel threshold 1e-4)``,
+  stepped by the mean validation loss.
+
+Groups are ordered head first, then the rest, the order in which the JAX
+package's ``get_learning_rates`` reports them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+
+def make_head_label_fn(method_name: Optional[str] = None) -> Callable[[str], bool]:
+    """Predicate on a parameter name marking classifier-head parameters:
+    ``fc*`` components for the li 3-D CNN, ``head_*``/``mlp_head`` for the
+    ViTs (a blanket ``fc`` prefix would catch the transformer's
+    feed-forward layers)."""
+    prefixes = ("fc",) if method_name == "li" else ("head_", "mlp_head")
+    return lambda name: any(part.startswith(prefixes) for part in name.split("."))
+
+
+def build_optimizer(
+    model: nn.Module,
+    learning_rate: float,
+    weight_decay: float = 0.0,
+    *,
+    head_lr: Optional[float] = None,
+    head_label_fn: Optional[Callable[[str], bool]] = None,
+    linear_eval: bool = False,
+) -> torch.optim.Adam:
+    """Adam with coupled L2 over the model's parameters, in head/rest groups
+    when ``head_lr`` differs from ``learning_rate`` or under
+    ``linear_eval`` (head only, at ``head_lr`` or the base lr)."""
+    named = list(model.named_parameters())
+    needs_groups = linear_eval or (head_lr is not None and head_lr != learning_rate)
+    if not needs_groups:
+        return torch.optim.Adam([p for _, p in named], lr=learning_rate,
+                                weight_decay=weight_decay, betas=(0.9, 0.999), eps=1e-8)
+    if head_label_fn is None:
+        raise ValueError("head_label_fn is required for parameter groups")
+    head = [p for n, p in named if head_label_fn(n)]
+    rest = [p for n, p in named if not head_label_fn(n)]
+    groups = [{"params": head, "lr": head_lr if head_lr is not None else learning_rate}]
+    if not linear_eval:
+        groups.append({"params": rest, "lr": learning_rate})
+    return torch.optim.Adam(groups, lr=learning_rate, weight_decay=weight_decay,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def get_learning_rates(optimizer: torch.optim.Optimizer) -> List[float]:
+    return [float(g["lr"]) for g in optimizer.param_groups]
+
+
+def set_learning_rates(optimizer: torch.optim.Optimizer, values: Sequence[float]) -> None:
+    values = list(values)
+    if len(values) != len(optimizer.param_groups):
+        raise ValueError(f"{len(values)} rates for {len(optimizer.param_groups)} groups")
+    for group, lr in zip(optimizer.param_groups, values):
+        group["lr"] = float(lr)
+
+
+def plateau_scheduler(optimizer: torch.optim.Optimizer, factor: float = 0.9,
+                      patience: int = 5, threshold: float = 1e-4):
+    """torch ReduceLROnPlateau with the recipe's settings (mode min, relative
+    threshold, no cooldown): after ``patience`` epochs without the metric
+    falling below best * (1 - threshold), every group's lr is multiplied by
+    ``factor``."""
+    return torch.optim.lr_scheduler.ReduceLROnPlateau(
+        optimizer, mode="min", factor=factor, patience=patience, threshold=threshold,
+        threshold_mode="rel", cooldown=0, min_lr=0.0,
+    )

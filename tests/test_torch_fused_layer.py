@@ -101,11 +101,20 @@ def test_dropout_rate_out_of_range_raises(rate):
 
 
 def test_training_dropout_raises_naming_the_slice():
+    """Training with dropout now runs (it raised before the training
+    slice): seeded, repeatable, and different from eval, which stays the
+    dropout-free forward."""
     x, p = _small()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fused_transformer_layer(x, p, 2, 8, torch.float32, dropout_rate=0.1, train=True)
-    # eval, or a zero rate, is the forward this slice serves
-    fused_transformer_layer(x, p, 2, 8, torch.float32, dropout_rate=0.1, train=False)
+    train = fused_transformer_layer(x, p, 2, 8, torch.float32, dropout_rate=0.1, train=True,
+                                    seed=4)
+    again = fused_transformer_layer(x, p, 2, 8, torch.float32, dropout_rate=0.1, train=True,
+                                    seed=4)
+    other = fused_transformer_layer(x, p, 2, 8, torch.float32, dropout_rate=0.1, train=True,
+                                    seed=5)
+    evaluated = fused_transformer_layer(x, p, 2, 8, torch.float32, dropout_rate=0.1, train=False)
+    assert torch.isfinite(train).all() and torch.equal(train, again)
+    assert not torch.equal(train, other) and not torch.equal(train, evaluated)
+    assert torch.equal(evaluated, fused_transformer_layer(x, p, 2, 8, torch.float32))
 
 
 def test_other_devices_raise():

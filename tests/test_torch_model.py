@@ -94,8 +94,33 @@ def test_init_weights_is_seeded():
 
 
 def test_unported_options_raise():
+    """PatchEmbed is still unported; embedding dropout in training now runs
+    (it raised before the training slice) and needs an explicit generator."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ViTSpatialSpectral(**NARROW, blockwise_patch_embed=False)
     model = ViTSpatialSpectral(**NARROW, emb_dropout=0.1).init_weights(0).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(torch.zeros(1, 40, 8, 8))
+    x = torch.randn(1, 40, 8, 8)
+    with pytest.raises(ValueError, match="torch.Generator"):
+        model(x)
+    out = model(x, rng=torch.Generator().manual_seed(1))
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, model(x, rng=torch.Generator().manual_seed(1)))
+    assert not torch.equal(out, model(x, rng=torch.Generator().manual_seed(2)))
+
+
+def test_stack_seeds_layer_i_with_base_plus_i():
+    """A stack's layer i draws its dropout from base + i, as the JAX
+    FusedTransformer does; the model draws one base per stack."""
+    from maskedsst_tpu_torch.models.layers import Transformer
+
+    torch.manual_seed(0)
+    stack = Transformer(dim=16, depth=2, heads=2, dim_head=8, mlp_dim=12, dropout=0.1).train()
+    x = torch.randn(3, 5, 16)
+    got = stack(x, 41)
+    want = stack.layers[1](stack.layers[0](x, 41), 42)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, stack(x, 40))
+    model = ViTSpatialSpectral(**NARROW, dropout=0.1).init_weights(0).train()
+    seeds = model.dropout_seeds(torch.Generator().manual_seed(3))
+    assert len(seeds) == 3 and len(set(seeds)) == 3
+    assert model.eval().dropout_seeds(None) == (0, 0, 0)
