@@ -6,8 +6,8 @@ Run from the repo root on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py
 
 Phases:
-  0. build: compiles every CUDA kernel (layer and embed, forward and
-     backward) from csrc/ with nvcc for sm_90a into build/kernels/ (one nvcc
+  0. build: compiles every CUDA kernel (layer, embed and SimMIM decode,
+     forward and backward) from csrc/ with nvcc for sm_90a into build/kernels/ (one nvcc
      per source, in parallel);
   1. forward kernels vs plain: each forward kernel against its plain
      PyTorch version on the card, at the serving shapes (batch 256) in fp32
@@ -36,7 +36,23 @@ Phases:
      step's gradients against the same step through the plain versions on
      the card (same seeds, so the same masks) per tensor relative to the
      tensor's own largest value, and that the loss falls over 30 steps;
-     then measures steps/s and cubes/s at batch 64 in bf16 and fp32.
+     then measures steps/s and cubes/s at batch 64 in bf16 and fp32;
+  1c. SimMIM decode + weighted-L1 kernels (forward and backward) vs plain,
+     at the recipe shape (batch 64, 20 blocks, 64 tokens, dim 96, 10
+     pixels), Houston's 5 blocks, a batch of 61 and dim 16, fp32 and bf16,
+     with a tube mask's loss weights and an all-zero weight row: the loss
+     relative to |plain|, each gradient relative to its own max|plain|,
+     two calls giving the same bits, device times (torch.profiler: the
+     kernels take microseconds) and bounds;
+  4. pretraining path: Pretrainer on configs/pretrain_config.yaml +
+     configs/config.yaml with SyntheticCubeDataset tiles (640, unlabeled)
+     in DeviceTileStores on the card, steps through the store path; checks
+     the exact launches of all six kernels at every step (a few at batch
+     2, 20 at batch 64, bf16), one validation pass and its launches per
+     chunk, one step's loss and gradients against the same step through
+     the plain versions on the card (same crop, mask and dropout seeds),
+     and that the loss falls over 60 steps; then measures steps/s and
+     cubes/s at batch 64 in bf16 and fp32 with a torch.profiler breakdown.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -87,7 +103,15 @@ LIBRARY_NONE = {
     "product, post-LN, + pos and mask select",
     "fused_embed_bwd": "no single PyTorch call computes the per-block embed backward "
     "with its two LNs and the mask select",
+    "fused_simmim_fwd": "no single PyTorch call computes a per-block decode fused with a "
+    "weighted L1 sum; plain_ms is the einsum + abs + weighted-sum composition",
+    "fused_simmim_bwd": "no single PyTorch call computes the per-block decode's backward "
+    "with the sign of the weighted L1; plain_ms is the einsum composition",
 }
+# The SimMIM loss is one sum over 819,200 terms: held relative to |plain|;
+# fp32 differs in summation order only, bf16 in one-ulp flips of a few
+# products' operands.
+TOL_LOSS = {"float32": 1e-5, "bfloat16": 1e-3}
 
 failures: list = []
 
@@ -115,6 +139,36 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, names=None) -> float:
+    """Device time of one call of ``fn``, in ms: torch.profiler's CUDA-side
+    self time over ``reps`` calls (after a warm-up), summed over the events
+    whose name holds one of ``names`` (all device events when None), per
+    call. For kernels of a few microseconds, where a CUDA-event time would
+    measure the host's launch path; NaN when the profiler records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        if names is not None and not any(n in e.key for n in names):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        total += dev_us
+    return total / 1e3 / reps if total > 0 else float("nan")
 
 
 def rel_err(got, want) -> tuple:
@@ -384,20 +438,127 @@ def phase_embed_bwd(gen):
     return cases
 
 
+def rel_to_max(got, want) -> float:
+    """max |got - want| / max |want|, per tensor (an all-zero reference must
+    stay zero)."""
+    scale = float(want.float().abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    return diff / scale if scale > 0 else diff
+
+
+def phase_simmim(gen):
+    """fused_simmim_fwd/bwd against their plain versions: the recipe shape,
+    Houston's 5 blocks, a batch of 61, dim 16; fp32 and bf16."""
+    import torch
+
+    from maskedsst_tpu_torch.ops import fused_simmim
+    from maskedsst_tpu_torch.ops.masking import MaskGenerator, loss_weights
+
+    fwd_cases, bwd_cases = [], []
+    mask_gen = MaskGenerator(8, 4, 1, 0.7)
+    for label, b, g, p, n, d in (("simmim", TRAIN_BATCH, 20, 10, 64, 96),
+                                 ("houston", TRAIN_BATCH, 5, 10, 64, 96),
+                                 ("batch_61", 61, 20, 10, 64, 96),
+                                 ("dim_16", TRAIN_BATCH, 20, 10, 64, 16)):
+        enc32 = torch.randn(b, g, n, d, generator=gen).cuda()
+        patches = torch.randn(b, g, p, n, generator=gen).cuda()
+        kernel = (torch.randn(g, d, p, generator=gen) / math.sqrt(d)).cuda()
+        bias = (0.1 * torch.randn(g, p, generator=gen)).cuda()
+        cgen = torch.Generator(device="cuda").manual_seed(SEED + b + g + d)
+        bool_mask = mask_gen.batch_masks(cgen, b, g, True)
+        weights = loss_weights(bool_mask, int(0.7 * g * n))
+        weights[0] = 0.0  # an all-zero weight row
+        # the recipe's cotangent: 1 / (B * num_masked * p) / num_masked
+        gout = torch.tensor(1.0 / (b * int(0.7 * g * n) * p) / int(0.7 * g * n), device="cuda")
+        tokens = b * g * n
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            enc = enc32.to(dtype)
+            args = (enc, patches, kernel, bias, weights)
+            item = enc.element_size()
+            got = fused_simmim._launch(*args, dtype)
+            want = fused_simmim.fused_decode_l1_reference(*args, dtype)
+            again = fused_simmim._launch(*args, dtype)
+            torch.cuda.synchronize()
+            abs_err = abs(float(got) - float(want))
+            err = abs_err / abs(float(want))
+            check(math.isfinite(float(got)) and err <= TOL_LOSS[name],
+                  f"fused_simmim_fwd {label} [{b},{g},{n},{d}]->{p} {name}: loss {float(got):.6e} "
+                  f"vs plain {float(want):.6e}, rel {err:.3e} <= {TOL_LOSS[name]:.0e}")
+            check(torch.equal(got, again), f"fused_simmim_fwd {label} {name}: two calls give "
+                                           "bit-identical losses")
+            # device time: a CUDA-event time of a launch this short measures
+            # the host's path through the wrapper
+            ms = device_ms(lambda: fused_simmim._launch(*args, dtype),
+                           names=("fused_simmim_fwd", "sum_partials"))
+            plain = device_ms(lambda: fused_simmim.fused_decode_l1_reference(*args, dtype))
+            event_ms = cuda_ms(lambda: fused_simmim._launch(*args, dtype))
+            check(math.isfinite(ms) and math.isfinite(plain),
+                  f"fused_simmim_fwd {label} {name}: the profiler measured device time")
+            flops = 2 * tokens * d * p + 5 * tokens * p
+            nbytes = (tokens * d * item + tokens * p * 4 + g * d * p * item + g * p * 4
+                      + tokens * 4 + 4)
+            bms, by = bound_ms(nbytes, flops, name)
+            fwd_cases.append(dict(shape=label, dims=[b, g, n, d, p], dtype=name,
+                                  max_abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+                                  event_ms=event_ms))
+            print(f"     fused_simmim_fwd {label} {name}: device ms {ms:.4f} plain {plain:.4f} "
+                  f"bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} GB/s; CUDA-event ms "
+                  f"of one call {event_ms:.4f}", flush=True)
+
+            got = fused_simmim._launch_bwd(*args, gout, dtype)
+            want = fused_simmim.fused_decode_l1_reference_bwd(*args, gout, dtype)
+            again = fused_simmim._launch_bwd(*args, gout, dtype)
+            torch.cuda.synchronize()
+            errs, abs_errs = {}, {}
+            for gname, gv, wv in zip(("encoded", "kernel", "bias"), got, want):
+                errs[gname] = rel_to_max(gv, wv)
+                abs_errs[gname] = float((gv.float() - wv.float()).abs().max())
+                check(bool(torch.isfinite(gv.float()).all()) and errs[gname] <= TOL_OP[name],
+                      f"fused_simmim_bwd {label} [{b},{g},{n},{d}]->{p} {name} d{gname}: "
+                      f"max|d| {abs_errs[gname]:.3e}, max|d|/max|ref| {errs[gname]:.3e} "
+                      f"<= {TOL_OP[name]:.0e}")
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"fused_simmim_bwd {label} {name}: two calls give bit-identical gradients")
+            del got, want, again
+            ms = device_ms(lambda: fused_simmim._launch_bwd(*args, gout, dtype),
+                           names=("fused_simmim_bwd", "reduce_partials"))
+            plain = device_ms(lambda: fused_simmim.fused_decode_l1_reference_bwd(*args, gout,
+                                                                                 dtype))
+            event_ms = cuda_ms(lambda: fused_simmim._launch_bwd(*args, gout, dtype))
+            check(math.isfinite(ms) and math.isfinite(plain),
+                  f"fused_simmim_bwd {label} {name}: the profiler measured device time")
+            flops = 6 * tokens * d * p + 5 * tokens * p
+            nbytes = (2 * tokens * d * item + tokens * p * 4 + g * d * p * item + g * p * 4
+                      + tokens * 4 + 4 + 4 * (g * d * p + g * p))
+            bms, by = bound_ms(nbytes, flops, name)
+            bwd_cases.append(dict(shape=label, dims=[b, g, n, d, p], dtype=name,
+                                  max_abs_err=max(abs_errs.values()), rel_err=errs, ms=ms,
+                                  plain_ms=plain, bound_ms=bms, bound_by=by, flops=flops,
+                                  bytes=nbytes, event_ms=event_ms))
+            print(f"     fused_simmim_bwd {label} {name}: device ms {ms:.4f} plain {plain:.4f} "
+                  f"bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} GB/s; CUDA-event ms "
+                  f"of one call {event_ms:.4f}", flush=True)
+        torch.cuda.empty_cache()
+    return fwd_cases, bwd_cases
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's two fused ops to their plain versions (still on the
-    card, forward and backward), for the main paths' reference runs."""
-    from maskedsst_tpu_torch.models import layers
-    from maskedsst_tpu_torch.ops import fused_embed, fused_layer
+    """Route the models' three fused ops to their plain versions (still on
+    the card, forward and backward), for the main paths' reference runs."""
+    from maskedsst_tpu_torch.models import layers, simmim
+    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim
 
-    saved = layers.fused_transformer_layer, layers.fused_embed_mask
+    saved = layers.fused_transformer_layer, layers.fused_embed_mask, simmim.fused_decode_l1
     layers.fused_transformer_layer = fused_layer.plain_transformer_layer
     layers.fused_embed_mask = fused_embed.plain_embed_mask
+    simmim.fused_decode_l1 = fused_simmim.plain_decode_l1
     try:
         yield
     finally:
-        layers.fused_transformer_layer, layers.fused_embed_mask = saved
+        layers.fused_transformer_layer, layers.fused_embed_mask, simmim.fused_decode_l1 = saved
 
 
 def phase_main(card: str):
@@ -460,17 +621,20 @@ def phase_main(card: str):
 
 
 def launch_counts() -> dict:
-    from maskedsst_tpu_torch.ops import fused_embed, fused_layer
+    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim
 
     return {"fused_layer_fwd": fused_layer.launches, "fused_layer_bwd": fused_layer.bwd_launches,
-            "fused_embed_fwd": fused_embed.launches, "fused_embed_bwd": fused_embed.bwd_launches}
+            "fused_embed_fwd": fused_embed.launches, "fused_embed_bwd": fused_embed.bwd_launches,
+            "fused_simmim_fwd": fused_simmim.launches,
+            "fused_simmim_bwd": fused_simmim.bwd_launches}
 
 
 def reset_counts() -> None:
-    from maskedsst_tpu_torch.ops import fused_embed, fused_layer
+    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim
 
     fused_layer.launches = fused_layer.bwd_launches = 0
     fused_embed.launches = fused_embed.bwd_launches = 0
+    fused_simmim.launches = fused_simmim.bwd_launches = 0
 
 
 def step_grads(trainer, img, label, seed):
@@ -493,20 +657,21 @@ def step_grads(trainer, img, label, seed):
     return float(loss.detach()), grads
 
 
-def profile_step(trainer, tiles, steps: int = 3) -> dict:
-    """Device time by kernel over a few training steps (torch.profiler with
-    CUDA activity), against the host clock of the same steps; an empty
-    result when the profiler records no device time."""
+def profile_step(step, steps: int = 3) -> dict:
+    """Device time by kernel over a few calls of ``step`` (one training
+    step; torch.profiler with CUDA activity), against the host clock of the
+    same steps; an empty result when the profiler records no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        trainer.train_step(tiles["img"], tiles["label"])
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.train_step(tiles["img"], tiles["label"])
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     rows = []
@@ -527,7 +692,8 @@ def profile_step(trainer, tiles, steps: int = 3) -> dict:
     groups = {}
     for key, ms, _ in rows:
         group = next((g for g in ("fused_layer_bwd", "fused_layer_fwd", "fused_embed_bwd",
-                                  "fused_embed_fwd", "reduce_partials", "Memcpy") if g in key),
+                                  "fused_embed_fwd", "fused_simmim_bwd", "fused_simmim_fwd",
+                                  "reduce_partials", "sum_partials", "Memcpy") if g in key),
                      "other")
         groups[group] = groups.get(group, 0.0) + ms
     return {"steps": steps, "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
@@ -555,9 +721,11 @@ def phase_train(card: str):
     routes = {"recipe": 0.1, "emb_dropout_0": 0.0}
     per_step_want = {
         "recipe": {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth,
-                   "fused_embed_fwd": 0, "fused_embed_bwd": 0},
+                   "fused_embed_fwd": 0, "fused_embed_bwd": 0,
+                   "fused_simmim_fwd": 0, "fused_simmim_bwd": 0},
         "emb_dropout_0": {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth,
-                          "fused_embed_fwd": 1, "fused_embed_bwd": 1},
+                          "fused_embed_fwd": 1, "fused_embed_bwd": 1,
+                          "fused_simmim_fwd": 0, "fused_simmim_bwd": 0},
     }
     per_step_seen = {}
 
@@ -593,16 +761,11 @@ def phase_train(card: str):
               f"train {route} bf16: {len(losses)} losses finite (last {losses[-1]:.4f})")
         per_step_seen[route] = seen[0]
     main_counts = launch_counts()
-    for name, n in main_counts.items():
-        check(n > 0, f"training path: {name} launched {n} times")
+    for name in ("fused_layer_fwd", "fused_layer_bwd", "fused_embed_fwd", "fused_embed_bwd"):
+        check(main_counts[name] > 0, f"training path: {name} launched {main_counts[name]} times")
     torch.cuda.empty_cache()
 
     # --- one step's gradients against the plain versions (same seeds) -------
-    def rel_to_max(got, want):
-        scale = float(want.abs().max())
-        diff = float((got - want).abs().max())
-        return diff / scale if scale > 0 else diff  # an all-zero gradient must stay zero
-
     for route, emb_rate in routes.items():
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[1]
@@ -650,7 +813,7 @@ def phase_train(card: str):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         step_s = statistics.median(walls)
-        prof = profile_step(trainer, tiles)
+        prof = profile_step(lambda: trainer.train_step(tiles["img"], tiles["label"]))
         if prof:
             print(f"     profile {name}: {prof['device_ms_per_step']:.2f} ms of device time in a "
                   f"{prof['wall_ms_per_step']:.2f} ms step (busy {prof['busy_share']:.1%}); "
@@ -668,12 +831,194 @@ def phase_train(card: str):
     return main_counts, per_step_seen
 
 
+def pretrain_step_grads(trainer, img, bool_mask, seed):
+    """Loss and parameter gradients of one forward/backward of the
+    pretrainer's model (no clamp, no update) on a given crop and mask, its
+    dropout seeds drawn from a generator at seed."""
+    import torch
+
+    model = trainer.model
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = model(img, rng=torch.Generator().manual_seed(seed), bool_mask=bool_mask)
+    loss.backward()
+    grads = {n: q.grad.detach().clone() for n, q in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_pretrain(card: str):
+    """The pretraining path: Pretrainer on the pretrain config, tiles in
+    DeviceTileStores on the card."""
+    import torch
+
+    from maskedsst_tpu_torch.config import get_pretrain_config
+    from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
+    from maskedsst_tpu_torch.data.pipeline import split_dataset
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer, largest_divisor
+
+    base = get_pretrain_config("configs/pretrain_config.yaml", "configs/config.yaml", seed=SEED)
+    t0 = time.perf_counter()
+    data = SyntheticCubeDataset(num_tiles=10 * TRAIN_BATCH, n_bands=base.n_bands,
+                                labeled=False, seed=SEED)
+    val_ds, train_ds = split_dataset(data, base.train_fraction, base.data_fraction, SEED)
+    train_store = DeviceTileStore(train_ds, "cuda")
+    val_store = DeviceTileStore(val_ds, "cuda")
+    store = train_store.arrays["img"]
+    check(store.is_cuda and val_store.arrays["img"].is_cuda and len(val_store) >= TRAIN_BATCH,
+          f"pretrain: {len(train_store)} train and {len(val_store)} val tiles "
+          f"{tuple(store.shape[1:])} resident on the card "
+          f"({time.perf_counter() - t0:.1f} s to make and upload)")
+    batches = IndexBatcher(len(train_store), TRAIN_BATCH, shuffle=True, seed=SEED)
+    idx_all = batches.take(60)
+    depth = base.transformer_depth
+    per_step_want = {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth,
+                     "fused_embed_fwd": 1, "fused_embed_bwd": 1,
+                     "fused_simmim_fwd": 1, "fused_simmim_bwd": 1}
+
+    def trainer_for(dtype, batch):
+        cfg = base.copy()
+        cfg.batch_size = batch
+        return Pretrainer(cfg, dtype=dtype, device="cuda")
+
+    # --- (a) the main path, counted: bf16, the store path ---------------------
+    reset_counts()
+    losses, seen = [], []
+    for batch, steps in ((2, 3), (TRAIN_BATCH, 20)):
+        trainer = trainer_for(torch.bfloat16, batch)
+        for k in range(steps):
+            before = launch_counts()
+            m = trainer.train_step_idx(store, idx_all[k][:batch])
+            torch.cuda.synchronize()
+            after = launch_counts()
+            per_step = {n: after[n] - before[n] for n in after}
+            losses.append(float(m["loss"]))
+            if per_step not in seen:
+                seen.append(per_step)
+        if batch == TRAIN_BATCH:
+            main_trainer = trainer
+        else:
+            del trainer
+    main_counts = launch_counts()
+    check(seen == [per_step_want],
+          f"pretrain bf16: launches at every one of {len(losses)} steps {seen} == "
+          f"{per_step_want}")
+    check(all(math.isfinite(v) for v in losses),
+          f"pretrain bf16: {len(losses)} losses finite (last {losses[-1]:.6e})")
+    for name, n in main_counts.items():
+        check(n > 0, f"pretraining path: {name} launched {n} times")
+
+    # --- (b) one validation pass (the val store's first batch) ---------------
+    val_idx = next(iter(IndexBatcher(len(val_store), TRAIN_BATCH, shuffle=False)))
+    tiles = val_store.arrays["img"][torch.as_tensor(val_idx, device="cuda")]
+    windows = TRAIN_BATCH * (64 // base.image_size) ** 2
+    chunks = windows // largest_divisor(windows, 512)
+    before = launch_counts()
+    vloss = float(main_trainer._step_val(tiles, seed=7))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    val_counts = {n: after[n] - before[n] for n in after}
+    val_want = {"fused_layer_fwd": 2 * depth * chunks, "fused_layer_bwd": 0,
+                "fused_embed_fwd": chunks, "fused_embed_bwd": 0,
+                "fused_simmim_fwd": chunks, "fused_simmim_bwd": 0}
+    check(math.isfinite(vloss) and val_counts == val_want,
+          f"pretrain validation: {windows} windows in {chunks} chunks, loss {vloss:.6e} finite, "
+          f"launches {val_counts} == {chunks} x (8 / 0 / 1 / 0 / 1 / 0)")
+    del main_trainer, tiles
+    torch.cuda.empty_cache()
+
+    # --- (c) one step's gradients against the plain versions (same crop,
+    # mask and dropout seeds) ---------------------------------------------------
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        trainer = trainer_for(dtype, TRAIN_BATCH)
+        img = trainer._gather_crop(store, torch.as_tensor(idx_all[0], device="cuda"), (5, 9),
+                                   base.image_size)
+        bool_mask = trainer.model.sample_mask(TRAIN_BATCH, "cuda", torch.Generator().manual_seed(3))
+        loss_k, g_k = pretrain_step_grads(trainer, img, bool_mask, seed=77)
+        with plain_versions():
+            loss_p, g_p = pretrain_step_grads(trainer, img, bool_mask, seed=77)
+            # a fault to hold the limit against: the step with other dropout masks
+            _, g_f = pretrain_step_grads(trainer, img, bool_mask, seed=78)
+        errs = {n: rel_to_max(g_k[n], ref) for n, ref in g_p.items()}
+        faults = sorted(rel_to_max(g_f[n], ref) for n, ref in g_p.items())
+        caught = sum(v > TOL_STEP[name] for v in faults)
+        worst = max(errs, key=errs.get)
+        print(f"     pretrain {name} step: the five largest gradient errors "
+              + ", ".join(f"{n} {errs[n]:.3e}" for n in sorted(errs, key=errs.get)[-5:]),
+              flush=True)
+        check(abs(loss_k - loss_p) <= TOL_LOSS[name] * abs(loss_p),
+              f"pretrain {name} step: loss {loss_k:.8e} vs plain {loss_p:.8e} "
+              f"(rel {abs(loss_k - loss_p) / abs(loss_p):.3e} <= {TOL_LOSS[name]:.0e})")
+        check(errs[worst] <= TOL_STEP[name],
+              f"pretrain {name} step: each of {len(errs)} gradients vs plain versions on the "
+              f"card, worst {worst} max|d|/max|ref| {errs[worst]:.3e} <= {TOL_STEP[name]:.1e} "
+              f"(other dropout masks read {faults[-1]:.3e} at worst, "
+              f"{faults[len(faults) // 2]:.3e} median, {caught} leaves above the limit; "
+              f"a zeroed leaf reads 1)")
+        del trainer, g_k, g_p, g_f, img
+        torch.cuda.empty_cache()
+
+    # --- (d) the loss falls over 60 steps (bf16, batch 64). The recipe (lr
+    # 8e-3, no warm-up) rises for its first ~25 steps before it falls, in
+    # the JAX package's own soak too (SOAK_r05.json: 1.275e-3 at step 0,
+    # 1.378e-3 at 16, 0.972e-3 at 32), so 30 steps can end inside the rise
+    # (one such window read 1.40e-3 -> 3.19e-3 on an H100) --------------------
+    trainer = trainer_for(torch.bfloat16, TRAIN_BATCH)
+    losses = [float(trainer.train_step_idx(store, idx)["loss"]) for idx in idx_all[:60]]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print("     pretrain bf16 losses, every 5th step from 1: "
+          + " ".join(f"{v:.3e}" for v in losses[::5]), flush=True)
+    check(last < first, f"pretrain bf16: mean loss of steps 1-5 {first:.6e} > steps 56-60 "
+                        f"{last:.6e}")
+    del trainer
+
+    # --- (e) steps/s and cubes/s at batch 64 ----------------------------------
+    rates = {}
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        trainer = trainer_for(dtype, TRAIN_BATCH)
+        it = iter(idx_all)
+
+        def step():
+            return trainer.train_step_idx(store, next(it))
+
+        for _ in range(2):  # warm-up
+            step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        step_s = statistics.median(walls)
+        prof = profile_step(step)
+        if prof:
+            print(f"     profile pretrain {name}: {prof['device_ms_per_step']:.2f} ms of device "
+                  f"time in a {prof['wall_ms_per_step']:.2f} ms step (busy "
+                  f"{prof['busy_share']:.1%}); by kernel: "
+                  + ", ".join(f"{g} {ms:.3f} ms" for g, ms in prof["groups_ms_per_step"].items()),
+                  flush=True)
+        else:
+            print(f"     profile pretrain {name}: the profiler recorded no device time "
+                  "(not measured)", flush=True)
+        rates[name] = 1 / step_s
+        print(f"     pretraining {name}: {1 / step_s:.3f} steps/s, {TRAIN_BATCH / step_s:.1f} "
+              f"cubes/s (batch {TRAIN_BATCH}, median of 7 steps, store path: crop gathered on "
+              f"the card) on {card}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    return main_counts, seen[0]
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
     at the recipe's dropout 0.1), every case kept under "cases"."""
     main = [c for c in cases if c["dtype"] == "bfloat16"
-            and c["shape"] in ("spatial", "spectral", "embed") and c.get("dropout", 0.1) == 0.1]
+            and c["shape"] in ("spatial", "spectral", "embed", "simmim")
+            and c.get("dropout", 0.1) == 0.1]
 
     def mean(key):
         return sum(c[key] for c in main) / len(main)
@@ -712,21 +1057,29 @@ def main() -> int:
     print(f"phase 0 build: {', '.join(_build.KERNELS)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    def timed(label, fn, *args):
+        print(label, flush=True)
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"{label.split(' ', 2)[0]} {label.split(' ', 2)[1]} took "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
     gen = torch.Generator().manual_seed(SEED)
-    print("phase 1 forward kernels vs plain versions", flush=True)
-    layer_cases = phase_layer(gen)
-    embed_cases = phase_embed(gen)
-    print("phase 1b backward kernels vs plain versions (training shapes, batch 64)", flush=True)
-    layer_bwd_cases, layer_drop_cases = phase_layer_bwd(gen)
-    embed_bwd_cases = phase_embed_bwd(gen)
-
-    print("phase 2 serving path: Predictor over the EnMAP-DFC classifier", flush=True)
-    serving = phase_main(card)
-
-    print("phase 3 training path: Finetuner over the EnMAP-DFC classifier", flush=True)
-    t3 = time.perf_counter()
-    counts, per_step = phase_train(card)
-    print(f"phase 3 took {time.perf_counter() - t3:.1f} s", flush=True)
+    layer_cases, embed_cases = timed("phase 1 forward kernels vs plain versions",
+                                     lambda: (phase_layer(gen), phase_embed(gen)))
+    (layer_bwd_cases, layer_drop_cases), embed_bwd_cases = timed(
+        "phase 1b backward kernels vs plain versions (training shapes, batch 64)",
+        lambda: (phase_layer_bwd(gen), phase_embed_bwd(gen)))
+    simmim_fwd_cases, simmim_bwd_cases = timed(
+        "phase 1c SimMIM decode + weighted-L1 kernels vs plain versions", phase_simmim, gen)
+    serving = timed("phase 2 serving path: Predictor over the EnMAP-DFC classifier",
+                    phase_main, card)
+    counts, per_step = timed("phase 3 training path: Finetuner over the EnMAP-DFC classifier",
+                             phase_train, card)
+    pre_counts, per_step["pretrain"] = timed(
+        "phase 4 pretraining path: SimMIM Pretrainer on the EnMAP pretrain recipe",
+        phase_pretrain, card)
 
     batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
 
@@ -750,7 +1103,17 @@ def main() -> int:
         kernel_entry("fused_embed_bwd", "maskedsst_tpu_torch/csrc/fused_embed_bwd.cu",
                      "maskedsst_tpu/ops/fused_embed.py:102", embed_bwd_cases,
                      counts["fused_embed_bwd"], launches_per_step=steps_of("fused_embed_bwd")),
+        kernel_entry("fused_simmim_fwd", "maskedsst_tpu_torch/csrc/fused_simmim_fwd.cu",
+                     "maskedsst_tpu/ops/fused_simmim.py:52", simmim_fwd_cases,
+                     pre_counts["fused_simmim_fwd"],
+                     launches_per_step=steps_of("fused_simmim_fwd")),
+        kernel_entry("fused_simmim_bwd", "maskedsst_tpu_torch/csrc/fused_simmim_bwd.cu",
+                     "maskedsst_tpu/ops/fused_simmim.py:74", simmim_bwd_cases,
+                     pre_counts["fused_simmim_bwd"],
+                     launches_per_step=steps_of("fused_simmim_bwd")),
     ]
+    for entry in kernels[:4]:
+        entry["launches_pretrain"] = pre_counts[entry["name"]]
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
         for msg in failures:

@@ -1,9 +1,10 @@
 """Config system: two-file YAML merge with attribute access.
 
-A task YAML (finetune) is merged with the shared ``config.yaml`` sections
-``data[dataset]`` and ``transformer``, last write wins, into an
-attribute-access object, so the repo's ``configs/*.yaml`` files drop in
-unchanged. Same semantics as the JAX package's ``config.py``.
+A task YAML (pretrain or finetune) is merged with the shared
+``config.yaml`` sections ``data[dataset]``, ``transformer`` and, for
+pretraining, ``masked_modeling``, last write wins, into an attribute-access
+object, so the repo's ``configs/*.yaml`` files drop in unchanged. Same
+semantics as the JAX package's ``config.py``.
 """
 
 from __future__ import annotations
@@ -66,6 +67,24 @@ def _merge(task: Dict[str, Any], general: Dict[str, Any], *, masked_modeling: bo
     if masked_modeling:
         merged.update(general["masked_modeling"])
     return merged
+
+
+def get_pretrain_config(
+    pretrain_config_path: str,
+    general_config_path: str,
+    seed: int = 5,
+    device: Any = None,
+) -> Config:
+    """Merged pretrain config: the task YAML with the shared ``data``,
+    ``transformer`` and ``masked_modeling`` sections."""
+    hyper = _merge(
+        _load_yaml(pretrain_config_path),
+        _load_yaml(general_config_path),
+        masked_modeling=True,
+    )
+    hyper["seed"] = seed
+    hyper["device"] = device
+    return Config(hyper)
 
 
 def get_finetune_config(

@@ -1,0 +1,90 @@
+"""Device-resident tile store and index batches, as the JAX package's
+``data/device_store.py`` on one card.
+
+The store uploads the whole tile set to the card once; each training step
+then moves only a [batch] index vector and gathers its batch there (the
+pretrainer reads just the crop windows). A set larger than the byte budget
+raises ``MemoryError``, and the trainer streams batches from the host
+instead, as the JAX ``fit`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+
+class DeviceTileStore:
+    """Stacks a map-style dataset's samples into tensors on ``device``: every
+    key of sample 0 whose value is an array or a scalar (strings and bytes
+    are skipped)."""
+
+    def __init__(self, dataset, device="cuda", max_bytes: int = 8 * 1024**3):
+        n = len(dataset)
+        if n == 0:
+            # a configuration problem, not a reason to stream from the host
+            raise ValueError("DeviceTileStore: dataset is empty")
+        first = dataset[0]
+        fields = [k for k, v in first.items() if not isinstance(v, (str, bytes))]
+        nbytes = sum(np.asarray(first[k]).nbytes if np.ndim(first[k]) else 8 for k in fields) * n
+        if nbytes > max_bytes:
+            raise MemoryError(
+                f"dataset needs {nbytes / 1e9:.1f} GB > budget {max_bytes / 1e9:.1f} GB; "
+                "stream from host instead"
+            )
+        # one pass over the dataset into arrays preallocated from sample 0
+        host: Dict[str, np.ndarray] = {}
+        for k in fields:
+            v0 = np.asarray(first[k])
+            host[k] = np.empty((n, *v0.shape), v0.dtype)
+            host[k][0] = v0
+        for i in range(1, n):
+            sample = dataset[i]
+            for k in fields:
+                host[k][i] = np.asarray(sample[k])
+        self.arrays: Dict[str, torch.Tensor] = {
+            k: torch.from_numpy(v).to(device) for k, v in host.items()
+        }
+        self.num_samples = n
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+
+class IndexBatcher:
+    """Epoch iterator over full batches of indices (int64 numpy), shuffled
+    with a numpy generator seeded by ``seed + epoch``, as the host
+    DataLoader; the ragged tail is dropped (the JAX trainer's
+    ``drop_last=True``, its only use in pretraining)."""
+
+    def __init__(self, num_samples: int, batch_size: int, shuffle: bool = True, seed: int = 0):
+        self.num_samples = num_samples
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return self.num_samples // self.batch_size
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        order = (np.random.default_rng(self.seed + self.epoch).permutation(self.num_samples)
+                 if self.shuffle else np.arange(self.num_samples))
+        self.epoch += 1
+        for lo in range(0, len(self) * self.batch_size, self.batch_size):
+            yield order[lo : lo + self.batch_size].astype(np.int64)
+
+    def take(self, steps: int) -> np.ndarray:
+        """The next ``steps`` index batches stacked into [steps, batch_size],
+        advancing the per-epoch shuffle as needed."""
+        if len(self) == 0:
+            raise ValueError(
+                f"IndexBatcher yields no batches ({self.num_samples} samples "
+                f"< batch_size {self.batch_size})"
+            )
+        out: list = []
+        while len(out) < steps:
+            out.extend(self)
+        return np.stack(out[:steps])

@@ -4,9 +4,10 @@
 ``torch.utils.data.random_split([val, train, rest], Generator(seed))`` (the
 same ``randperm`` stream), so train/val membership matches the JAX
 package's. ``DataLoader`` is synchronous: shuffle seeded per epoch, collate,
-and the trailing batch padded to a multiple of
-``pad_to_multiple`` with zero images and ``pad_label_value`` labels (which
-the losses and metrics ignore). No prefetch thread yet (ROADMAP.md).
+and the trailing batch either dropped (``drop_last``) or padded to a
+multiple of ``pad_to_multiple`` with zero images and ``pad_label_value``
+labels (which the losses and metrics ignore). No prefetch thread yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -59,23 +60,26 @@ class DataLoader:
     """Epoch iterator over numpy batches ``{"img": ..., "label": ...}``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 pad_to_multiple: int = 1, pad_label_value: int = -1):
+                 pad_to_multiple: int = 1, pad_label_value: int = -1, drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.pad_to_multiple = max(1, pad_to_multiple)
         self.pad_label_value = pad_label_value
+        self.drop_last = drop_last
         self.epoch = 0
 
     def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
         return -(-len(self.dataset) // self.batch_size)
 
     def _batch_indices(self) -> List[np.ndarray]:
         n = len(self.dataset)
         order = (np.random.default_rng(self.seed + self.epoch).permutation(n)
                  if self.shuffle else np.arange(n))
-        return [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
+        return [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)][: len(self)]
 
     def __iter__(self) -> Iterator[dict]:
         batches = self._batch_indices()

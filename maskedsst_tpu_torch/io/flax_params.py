@@ -9,14 +9,18 @@ mapping is by rule rather than by table:
 * ``layers_<i>`` is the ``nn.ModuleList`` entry ``layers.<i>``;
 * a LayerNorm ``scale`` is ``weight``;
 * a Dense ``kernel`` [in, out] is an ``nn.Linear`` ``weight`` [out, in],
-  transposed (the stacked ``blockwise_kernel`` keeps its name and layout);
+  transposed; a stacked 3-D kernel (the embedding's ``blockwise_kernel``
+  [g, p, d], the SimMIM decoder's ``to_pixels/kernel`` [g, d, p]) keeps
+  its name and layout;
 * everything else (``bias``, ``pos_embed``, ``channel_embed``, ...) keeps
   its name.
 
 The fused and unfused JAX transformers declare identical trees, so one
-mapping serves both; ``grads_to_flax`` maps a model's gradients the same
-way, for comparing them leaf by leaf with ``jax.grad``. Leaves are numpy arrays on the flax side and CPU
-tensors on the port's side; the round trip is exact.
+mapping serves both, and the SimMIM tree (``encoder/...``, ``mask_token``,
+``to_pixels/{kernel,bias}``) maps by the same rules; ``grads_to_flax``
+maps a model's gradients the same way, for comparing them leaf by leaf
+with ``jax.grad``. Leaves are numpy arrays on the flax side and CPU tensors
+on the port's side; the round trip is exact.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             return
         arr = np.asarray(node)
         name = path[-1]
-        if name == "kernel":  # Dense [in, out] → Linear.weight [out, in]
+        if name == "kernel" and arr.ndim == 2:  # Dense [in, out] → Linear.weight [out, in]
             path, arr = path[:-1] + ["weight"], arr.T
         elif name == "scale":
             path = path[:-1] + ["weight"]

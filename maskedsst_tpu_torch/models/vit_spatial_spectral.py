@@ -41,6 +41,18 @@ def _pair(t):
     return t if isinstance(t, (tuple, list)) else (t, t)
 
 
+def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax ``lecun_normal``: a normal of std sqrt(1 / fan_in) truncated at
+    ±2σ (the std divided by 0.8796, the truncated normal's own std), drawn
+    on the CPU from ``gen`` and copied into ``t``. For a stacked [k, in,
+    out] kernel flax counts fan_in = k * in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        cpu = torch.empty(t.shape)
+        nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std, generator=gen)
+        t.copy_(cpu)
+
+
 class ViTSpatialSpectral(nn.Module):
     """Args as the JAX package's ``ViTSpatialSpectral``, without ``fused``
     and ``mesh``: the fused ops always run, on one device."""
@@ -162,24 +174,16 @@ class ViTSpatialSpectral(nn.Module):
         biases, unit LN scales, normal(1) learned positions; the sin-cos
         tables are kept."""
         gen = torch.Generator().manual_seed(seed)
-
-        def lecun_(t: torch.Tensor, fan_in: int):
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            with torch.no_grad():
-                cpu = torch.empty(t.shape)
-                nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std, generator=gen)
-                t.copy_(cpu)
-
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
-                lecun_(mod.weight, mod.in_features)
+                lecun_normal_(mod.weight, mod.in_features, gen)
                 if mod.bias is not None:
                     nn.init.zeros_(mod.bias)
             elif isinstance(mod, nn.LayerNorm):
                 nn.init.ones_(mod.weight)
                 nn.init.zeros_(mod.bias)
         emb = self.to_patch_embedding
-        lecun_(emb.blockwise_kernel, emb.num_blocks * emb.patch_dim)
+        lecun_normal_(emb.blockwise_kernel, emb.num_blocks * emb.patch_dim, gen)
         nn.init.zeros_(emb.blockwise_bias)
         if not self.spectral_pos_embed:
             with torch.no_grad():

@@ -1,13 +1,25 @@
-"""The finetune recipe's optimizer and scheduler on ``torch.optim``.
+"""The recipes' optimizers and schedulers on ``torch.optim``.
+
+Finetuning:
 
 * ``torch.optim.Adam(weight_decay=wd)``: coupled L2 added to the gradient
   before the moment estimates (the JAX package's ``_adam_l2_core``);
 * two parameter groups, the classifier head at ``head_lr`` and the rest at
   ``lr``; the head is chosen by name (``head_*`` / ``mlp_head`` components,
   never the feed-forward ``fc1``/``fc2``); with ``linear_eval`` only the
-  head is optimized;
-* ``ReduceLROnPlateau(factor 0.9, patience 5, rel threshold 1e-4)``,
-  stepped by the mean validation loss.
+  head is optimized.
+
+Pretraining:
+
+* ``torch.optim.AdamW(lr, betas (0.9, 0.999), eps 1e-8, weight_decay=wd)``,
+  optax's ``adamw``: decoupled decay on every parameter;
+* before it, every gradient clamped elementwise to [-1, 1]
+  (:func:`clamp_gradients_`, the JAX chain's ``optax.clip``: a value
+  clamp, not a norm clip).
+
+Schedulers: ``ReduceLROnPlateau(factor 0.9, patience 5, rel threshold
+1e-4)``, stepped by the mean validation loss, or :class:`CosineAnnealingLR`
+(T_max 50), whose rate is set per group in closed form each epoch.
 
 Groups are ordered head first, then the rest, the order in which the JAX
 package's ``get_learning_rates`` reports them.
@@ -15,7 +27,8 @@ package's ``get_learning_rates`` reports them.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+import math
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -80,3 +93,52 @@ def plateau_scheduler(optimizer: torch.optim.Optimizer, factor: float = 0.9,
         optimizer, mode="min", factor=factor, patience=patience, threshold=threshold,
         threshold_mode="rel", cooldown=0, min_lr=0.0,
     )
+
+
+def build_pretrain_optimizer(model: nn.Module, name: str, learning_rate: float,
+                             weight_decay: float = 0.0) -> torch.optim.AdamW:
+    """The pretraining optimizer named by the config: ``AdamW``, decoupled
+    decay on every parameter (the recipe's; the others the JAX package
+    knows are not ported yet)."""
+    if name != "AdamW":
+        raise NotImplementedError(f"optimizer {name!r} is not ported yet (ROADMAP.md, Slice E)")
+    return torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
+def clamp_gradients_(params: Iterable[torch.Tensor], bound: float) -> None:
+    """Clamp every ``.grad`` elementwise to [-bound, bound], in place."""
+    for p in params:
+        if p.grad is not None:
+            p.grad.clamp_(-bound, bound)
+
+
+class CosineAnnealingLR:
+    """torch ``CosineAnnealingLR(T_max, eta_min)`` in closed form, as the JAX
+    package's: each ``step`` (one epoch) sets group g's rate to ``eta_min +
+    (base_g - eta_min) * (1 + cos(pi * t / T_max)) / 2``, from the groups'
+    rates at construction."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, t_max: int = 50,
+                 eta_min: float = 0.0):
+        self.optimizer, self.t_max, self.eta_min = optimizer, t_max, eta_min
+        self.bases = get_learning_rates(optimizer)
+        self.epoch = 0
+
+    def step(self) -> None:
+        self.epoch += 1
+        c = (1 + math.cos(math.pi * self.epoch / self.t_max)) / 2
+        set_learning_rates(self.optimizer,
+                           [self.eta_min + (b - self.eta_min) * c for b in self.bases])
+
+
+def build_scheduler(name: Optional[str], optimizer: torch.optim.Optimizer):
+    """The scheduler named by the config: ``ReduceLROnPlateau``, ``cosine``
+    (T_max 50) or none; any other name raises, as in the JAX trainer."""
+    if name == "ReduceLROnPlateau":
+        return plateau_scheduler(optimizer)
+    if name == "cosine":
+        return CosineAnnealingLR(optimizer, t_max=50)
+    if name in (None, "", "none", "None"):
+        return None
+    raise ValueError(f"unknown scheduler {name!r}: use 'ReduceLROnPlateau', 'cosine', or none")

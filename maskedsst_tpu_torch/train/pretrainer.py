@@ -1,0 +1,292 @@
+"""SimMIM masked pretraining loop, the JAX package's ``Pretrainer`` on one
+card.
+
+One training step: one crop origin per batch in [0, tile − image_size),
+then the mask (drawn on the card), then the dropout seeds, all from the
+trainer's generator; the SimMIM loss in train mode through the fused ops
+(the CUDA kernels on the card); backward; every gradient clamped to
+[-1, 1]; AdamW. The step returns the loss as a device tensor, and ``fit``
+reads it on the host only at logging boundaries and epoch ends.
+
+``fit`` keeps the tiles on the card (``DeviceTileStore``: each step moves
+only its index vector and gathers just the crop windows there), or streams
+host batches when the set exceeds the store's budget; it has the JAX
+loop's epoch and step budgets, logs the mean loss every ``logging_freq``
+steps and raises when it is NaN, validates (sliding windows, one mask per
+chunk from a seed folded with the chunk index) and steps the scheduler on
+completed epochs only. Not ported yet (ROADMAP.md): the superstep (CUDA
+graphs later), resume and checkpoints, the tracker, multi-host.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from maskedsst_tpu_torch.config import Config
+from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
+from maskedsst_tpu_torch.data.pipeline import DataLoader, split_dataset
+from maskedsst_tpu_torch.models import SimMIMSpatialSpectral, ViTSpatialSpectral
+from maskedsst_tpu_torch.train.optim import (
+    CosineAnnealingLR,
+    build_pretrain_optimizer,
+    build_scheduler,
+    clamp_gradients_,
+    get_learning_rates,
+)
+from maskedsst_tpu_torch.train.train_state import TrainState
+from maskedsst_tpu_torch.train.windows import window_tiles
+
+VAL_SEED = 7  # the JAX loop's validation key, PRNGKey(7)
+
+
+def largest_divisor(n: int, cap: int) -> int:
+    """Largest divisor of ``n`` that is <= ``cap`` (1 when n <= 0)."""
+    if n <= 0:
+        return 1
+    d = min(cap, n)
+    while n % d:
+        d -= 1
+    return d
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """A seed for item ``i`` of a stream keyed by ``seed`` (``fold_in``)."""
+    return int(np.random.SeedSequence((seed, i)).generate_state(1, np.uint64)[0] >> 1)
+
+
+def build_pretrain_model(config: Config, dtype: Optional[torch.dtype] = None,
+                         device: str = "cuda") -> SimMIMSpatialSpectral:
+    """Encoder + SimMIM wrapper from a merged pretrain config, with weights
+    made from ``config.seed``, on ``device``. ``dtype`` is the compute dtype
+    of the fused ops (None = fp32; parameters stay fp32)."""
+    if config.encoder_name != "ViTSpatialSpectral":
+        raise NotImplementedError(f"encoder {config.encoder_name} is not ported yet")
+    encoder = ViTSpatialSpectral(
+        image_size=config.image_size,
+        spatial_patch_size=config.patch_size,
+        spectral_patch_size=config.band_patch_size,
+        num_classes=config.n_classes,
+        dim=config.transformer_dim,
+        depth=config.transformer_depth,
+        heads=config.transformer_n_heads,
+        mlp_dim=config.transformer_mlp_dim,
+        dropout=config.transformer_dropout,
+        emb_dropout=config.transformer_emb_dropout,
+        channels=config.n_bands,
+        spectral_pos_embed=config.spectral_pos_embed,
+        spectral_pos=list(range(config.n_bands // config.band_patch_size)),
+        blockwise_patch_embed=config.blockwise_patch_embed,
+        spectral_only=config.spectral_only,
+        dtype=dtype,
+    )
+    model = SimMIMSpatialSpectral(
+        encoder,
+        masking_ratio=config.mim_masking_ratio,
+        mask_patch_size=config.mim_mask_patch_size,
+        tube_masking=config.tube_masking,
+        to_pixels_per_spectral_block=config.to_pixels_per_spectral_block,
+        intermediate_losses=config.mim_intermediate_losses,
+        dtype=dtype,
+    )
+    return model.init_weights(config.get("seed", 5)).to(device)
+
+
+class Pretrainer:
+    """Pretrains a SimMIM model built from ``config`` on ``device``.
+
+    ``tile_size``: the side of the dataset's tiles (64 for EnMAP; crops of
+    ``image_size`` are drawn from them). Every random choice of a step comes
+    from ``self.state.rng``, a CPU generator seeded by ``config.seed``."""
+
+    def __init__(self, config: Config, dtype: Optional[torch.dtype] = None,
+                 tile_size: int = 64, device: str = "cuda"):
+        self.config = config
+        self.device = torch.device(device)
+        self.tile_size = tile_size
+        self.model = build_pretrain_model(config, dtype, device)
+        optimizer = build_pretrain_optimizer(self.model, config.optimizer, config.lr,
+                                             config.weight_decay)
+        self.grad_clamp = 1.0 if config.get("clip_grad_norm") else None
+        rng = torch.Generator().manual_seed(int(config.get("seed", 5)))
+        self.state = TrainState(self.model, optimizer, rng)
+        self.scheduler = build_scheduler(config.scheduler, optimizer)
+        self.num_params = sum(p.numel() for p in self.model.parameters())
+        self.crop = config.image_size != tile_size and config.dataset in ("dfc", "enmap")
+
+    # --- one step ------------------------------------------------------------
+    def _crop_draw(self) -> Tuple[int, int]:
+        """One crop origin per batch, uniform in [0, tile - image_size)."""
+        hi = self.tile_size - self.config.image_size
+        x0, y0 = torch.randint(0, hi, (2,), generator=self.state.rng).tolist()
+        return x0, y0
+
+    def _update(self, img: torch.Tensor, bool_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Loss, backward, clamp, AdamW; the mask drawn when not given."""
+        model = self.model
+        model.train()
+        model.zero_grad(set_to_none=True)
+        if bool_mask is None:
+            bool_mask = model.sample_mask(img.shape[0], img.device, self.state.rng)
+        loss = model(img, rng=self.state.rng, bool_mask=bool_mask)
+        loss.backward()
+        if self.grad_clamp is not None:
+            clamp_gradients_(model.parameters(), self.grad_clamp)
+        self.state.apply_gradients()
+        return loss.detach()
+
+    def train_step(self, tiles, xy: Optional[Tuple[int, int]] = None,
+                   bool_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One update on a batch of tiles [B, C, T, T] (numpy or a tensor);
+        the crop is taken where the batch lies, before the copy to the card.
+        ``xy`` and ``bool_mask`` inject the crop origin and the mask."""
+        s = self.config.image_size
+        tiles = torch.as_tensor(tiles)
+        if self.crop:
+            x0, y0 = xy if xy is not None else self._crop_draw()
+            tiles = tiles[:, :, x0 : x0 + s, y0 : y0 + s]
+        else:
+            tiles = tiles[:, :, :s, :s]
+        img = tiles.to(self.device, torch.float32)
+        return {"loss": self._update(img, bool_mask)}
+
+    def _gather_crop(self, store_img: torch.Tensor, idx: torch.Tensor, xy: Tuple[int, int],
+                     s: int) -> torch.Tensor:
+        """Gather + crop on the card: reads only the [B, C, s, s] windows of
+        the indexed tiles."""
+        x0, y0 = xy
+        return store_img[:, :, x0 : x0 + s, y0 : y0 + s][idx]
+
+    def train_step_idx(self, store_img: torch.Tensor, idx,
+                       xy: Optional[Tuple[int, int]] = None,
+                       bool_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One update on the store's tiles at ``idx`` ([B] indices)."""
+        s = self.config.image_size
+        idx = torch.as_tensor(idx, dtype=torch.int64).to(store_img.device)
+        if self.crop:
+            img = self._gather_crop(store_img, idx, xy if xy is not None else self._crop_draw(), s)
+        else:
+            img = store_img[idx][:, :, :s, :s]
+        return {"loss": self._update(img, bool_mask)}
+
+    @torch.no_grad()
+    def _step_val(self, tiles: torch.Tensor, seed: int,
+                  bool_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """Mean loss over every ``image_size`` window of the tiles (stride =
+        window), in chunks of ``largest_divisor(windows, 512)``, each masked
+        by a generator seeded with ``fold_seed(seed, chunk)`` or by
+        ``bool_masks[chunk]``; deterministic forward."""
+        s = self.config.image_size
+        (windows,) = window_tiles(tiles, s)
+        n = windows.shape[0]
+        chunk = largest_divisor(n, 512)
+        self.model.eval()
+        losses = []
+        for i in range(n // chunk):
+            w = windows[i * chunk : (i + 1) * chunk]
+            mask = bool_masks[i] if bool_masks is not None else None
+            rng = torch.Generator().manual_seed(fold_seed(seed, i))
+            losses.append(self.model(w, rng=rng, bool_mask=mask))
+        return torch.stack(losses).mean()
+
+    # --- loop ----------------------------------------------------------------
+    def fit(self, dataset, epochs: Optional[int] = None, max_steps: Optional[int] = None,
+            log: Callable[[dict], None] = print) -> dict:
+        cfg = self.config
+        seed = int(cfg.get("seed", 5))
+        bs = cfg.batch_size
+        val_ds, train_ds = split_dataset(dataset, cfg.train_fraction, cfg.data_fraction, seed)
+
+        # tiles on the card when they fit the budget (and the dataset does
+        # not draw fresh samples per item), else host streaming
+        train_store = val_store = None
+        if cfg.get("device_data", True) and not getattr(train_ds, "stochastic", False):
+            try:
+                train_store = DeviceTileStore(train_ds, self.device)
+                if len(val_ds) >= bs:
+                    val_store = DeviceTileStore(val_ds, self.device)
+            except MemoryError as exc:
+                print(f"[pretrain] streaming from host: {exc}")
+                train_store = val_store = None
+        if train_store is not None:
+            loader = IndexBatcher(len(train_store), bs, shuffle=True, seed=seed)
+            val_loader = (IndexBatcher(len(val_store), bs, shuffle=False)
+                          if val_store is not None else [])
+            if not cfg.get("skip_val", False) and val_store is None:
+                print(f"[pretrain] WARNING: val split ({len(val_ds)} tiles) is smaller than "
+                      f"batch_size ({bs}); no validation will run and ReduceLROnPlateau will "
+                      "never step (the reference's drop_last=True val loader is empty in this "
+                      "regime too)")
+        else:
+            loader = DataLoader(train_ds, bs, shuffle=True, seed=seed, drop_last=True)
+            val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=True)
+
+        epochs = epochs if epochs is not None else cfg.epoch
+        steps_per_epoch = max(1, len(loader))
+        start = step = self.state.step
+        freq = cfg.logging_freq
+        window: deque = deque(maxlen=freq)  # device scalars until a logging boundary
+        history: dict = {"train_loss": [], "val_loss": []}
+        train_seconds = 0.0
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        for epoch in range(epochs):
+            if max_steps is not None and step >= max_steps:
+                break
+            last = None
+            t0 = time.perf_counter()
+            for batch in loader:
+                if train_store is not None:
+                    last = self.train_step_idx(train_store.arrays["img"], batch)["loss"]
+                else:
+                    last = self.train_step(batch["img"])["loss"]
+                window.append(last)
+                step += 1
+                if step % freq == 0:
+                    loss = float(torch.stack(list(window)).float().mean())
+                    if np.isnan(loss):
+                        raise ValueError("Loss is NaN")
+                    log({"step": step, "epoch": epoch, "loss": loss,
+                         "lr": get_learning_rates(self.state.optimizer)[0]})
+                if max_steps is not None and step >= max_steps:
+                    break
+            sync()
+            train_seconds += time.perf_counter() - t0
+            # epoch-end hooks fire only for completed epochs
+            epoch_complete = step - start >= (epoch + 1) * steps_per_epoch
+            if last is not None and epoch_complete:
+                history["train_loss"].append(float(last))
+                log({"step": step, "epoch": epoch, "loss": history["train_loss"][-1]})
+            if not cfg.get("skip_val", False) and epoch_complete:
+                val_losses = []
+                for vi, batch in enumerate(val_loader):
+                    if val_store is not None:
+                        idx = torch.as_tensor(batch, dtype=torch.int64).to(self.device)
+                        tiles = val_store.arrays["img"][idx]
+                    else:
+                        tiles = torch.as_tensor(batch["img"]).to(self.device, torch.float32)
+                    vseed = fold_seed(VAL_SEED, epoch * 10000 + vi)
+                    val_losses.append(float(self._step_val(tiles, vseed)))
+                if val_losses:
+                    val_loss = float(np.mean(val_losses))
+                    history["val_loss"].append(val_loss)
+                    log({"step": step, "epoch": epoch, "val_loss": val_loss})
+                    if isinstance(self.scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau):
+                        self.scheduler.step(val_loss)
+            if isinstance(self.scheduler, CosineAnnealingLR) and epoch_complete:
+                self.scheduler.step()
+            if max_steps is not None and step >= max_steps:
+                break
+        steps = step - start
+        history["throughput"] = (
+            {"steps_per_s": steps / train_seconds, "cubes_per_s": steps * bs / train_seconds}
+            if steps and train_seconds > 0 else {}
+        )
+        return history

@@ -14,21 +14,24 @@ input and compute types, both forms of the layer forward (tensor cores for
 bf16 compute at widths that are multiples of 16, FMA loops otherwise),
 dropout, the backward kernels, the masks each kernel applies read bit for
 bit (ops/dropout_probe.py), the gradients' run-to-run determinism, and the
-wrappers' refusals.
+wrappers' refusals; for the SimMIM decode + weighted-L1 kernels, all-zero
+and all-one weight rows, a diff of exactly 0 and the loss's determinism.
 
 Tolerances on max |kernel - plain| / max(1, |plain|): fp32 1e-4 (summation
 order and fast intrinsics only), bf16 3e-2 (both round every product
 operand to bf16 at the same points, but a one-ulp difference before a
 rounding flips a bf16 value, 2^-8 relative, and the output itself may be
 bf16). Forward outputs are held elementwise, gradients per tensor
-(relative to max(1, max|plain|)).
+(relative to max(1, max|plain|)). The SimMIM loss is one large sum: it is
+held relative to |plain| (1e-5 fp32, 1e-3 bf16), and its gradients, far
+below 1, relative to their own max|plain|.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from maskedsst_tpu_torch.ops import dropout_probe, fused_embed, fused_layer
+from maskedsst_tpu_torch.ops import dropout_probe, fused_embed, fused_layer, fused_simmim
 from maskedsst_tpu_torch.ops.fused_layer import LayerParams
 
 pytestmark = pytest.mark.cuda
@@ -294,3 +297,106 @@ def test_embed_autograd_routes_to_the_kernels(cuda):
     fused_embed.fused_embed_mask(*args, torch.float32).sum().backward()
     assert (fused_embed.launches, fused_embed.bwd_launches) == (fwd + 1, bwd + 1)
     assert all(a.grad is not None for a in args[2:])
+
+
+def _simmim_args(rng, b, g, p, n, d, device, enc_dtype=torch.float32):
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+
+    weights = torch.from_numpy((rng.random((b, g * n)) < 0.6).astype(np.float32))
+    weights[0] = 0.0  # an all-zero row
+    weights[-1] = 1.0  # an all-one row (the same row when b == 1)
+    args = (r(b, g, n, d).to(enc_dtype), r(b, g, p, n), r(g, d, p, scale=d**-0.5),
+            r(g, p, scale=0.1), weights)
+    return tuple(a.to(device) for a in args)
+
+
+SIMMIM_SHAPES = [
+    (3, 20, 10, 64, 96),  # the recipe's blocks, a short batch
+    (64, 20, 10, 64, 96),  # the recipe, the last block's batch range part-empty
+    (2, 5, 10, 64, 96),  # Houston, 5 blocks
+    (2, 3, 4, 9, 16),  # narrow
+    (300, 2, 4, 9, 16),  # many rows per block
+]
+SIMMIM_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                 (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+SIMMIM_LOSS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.parametrize("b,g,p,n,d", SIMMIM_SHAPES)
+@pytest.mark.parametrize("enc_dtype,compute_dtype", SIMMIM_DTYPES)
+def test_simmim_fwd_kernel_matches_plain(cuda, b, g, p, n, d, enc_dtype, compute_dtype):
+    args = _simmim_args(np.random.default_rng(13), b, g, p, n, d, cuda, enc_dtype)
+    before = fused_simmim.launches
+    got = fused_simmim._launch(*args, compute_dtype)
+    torch.cuda.synchronize()
+    assert fused_simmim.launches == before + 1
+    want = fused_simmim.fused_decode_l1_reference(*args, compute_dtype)
+    assert got.dtype == torch.float32 and got.shape == ()
+    tol = max(SIMMIM_LOSS_TOL[enc_dtype], SIMMIM_LOSS_TOL[compute_dtype])
+    assert abs(float(got) - float(want)) <= tol * abs(float(want))
+
+
+def _rel_to_max(got, want):
+    return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+
+
+@pytest.mark.parametrize("b,g,p,n,d", SIMMIM_SHAPES)
+@pytest.mark.parametrize("enc_dtype,compute_dtype", SIMMIM_DTYPES)
+def test_simmim_bwd_kernel_matches_plain(cuda, b, g, p, n, d, enc_dtype, compute_dtype):
+    args = _simmim_args(np.random.default_rng(14), b, g, p, n, d, cuda, enc_dtype)
+    gout = torch.tensor(1.9e-9, device=cuda)  # the recipe's 1/(64*896*10)/896
+    before = fused_simmim.bwd_launches
+    got = fused_simmim._launch_bwd(*args, gout, compute_dtype)
+    torch.cuda.synchronize()
+    assert fused_simmim.bwd_launches == before + 1
+    want = fused_simmim.fused_decode_l1_reference_bwd(*args, gout, compute_dtype)
+    assert got[0].dtype == enc_dtype and got[0].shape == args[0].shape
+    tol = max(TOL[enc_dtype], TOL[compute_dtype])
+    for name, gv, wv in zip(("encoded", "kernel", "bias"), got, want):
+        assert gv.shape == wv.shape and torch.isfinite(gv.float()).all(), name
+        assert _rel_to_max(gv, wv) <= tol, f"{name}: {_rel_to_max(gv, wv):.3e}"
+    # the all-zero weight row gets no encoded gradient
+    assert float(got[0][0].float().abs().max()) == 0.0
+
+
+def test_simmim_zero_diff_has_zero_sign(cuda):
+    """Predictions equal to their pixels: loss 0 and every gradient 0."""
+    b, g, p, n, d = 2, 3, 4, 9, 16
+    enc = torch.zeros(b, g, n, d, device=cuda)
+    kernel = torch.randn(g, d, p, device=cuda)
+    bias = torch.randn(g, p, device=cuda)
+    patches = bias[None, :, :, None].expand(b, g, p, n).contiguous()
+    weights = torch.ones(b, g * n, device=cuda)
+    assert float(fused_simmim._launch(enc, patches, kernel, bias, weights, torch.float32)) == 0.0
+    grads = fused_simmim._launch_bwd(enc, patches, kernel, bias, weights,
+                                     torch.tensor(1.0, device=cuda), torch.float32)
+    assert all(float(t.abs().max()) == 0.0 for t in grads)
+
+
+@pytest.mark.parametrize("enc_dtype,compute_dtype", SIMMIM_DTYPES[:2])
+def test_simmim_kernels_are_deterministic(cuda, enc_dtype, compute_dtype):
+    args = _simmim_args(np.random.default_rng(15), 64, 20, 10, 64, 96, cuda, enc_dtype)
+    gout = torch.tensor(3e-4, device=cuda)
+    assert torch.equal(fused_simmim._launch(*args, compute_dtype),
+                       fused_simmim._launch(*args, compute_dtype))
+    first = fused_simmim._launch_bwd(*args, gout, compute_dtype)
+    second = fused_simmim._launch_bwd(*args, gout, compute_dtype)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_simmim_wrapper_refusals_and_autograd(cuda):
+    args = list(_simmim_args(np.random.default_rng(16), 2, 3, 4, 9, 16, cuda))
+    with pytest.raises(ValueError, match="B == 0"):
+        fused_simmim.fused_decode_l1(args[0][:0], args[1][:0], args[2], args[3], args[4][:0],
+                                     torch.float32)
+    with pytest.raises(TypeError, match="fp32/bf16"):
+        fused_simmim.fused_decode_l1(args[0].half(), *args[1:], torch.float32)
+    with pytest.raises(ValueError, match="weights must be"):
+        fused_simmim.fused_decode_l1(*args[:4], args[4][:, :5], torch.float32)
+    for i in (0, 2, 3):
+        args[i].requires_grad_()
+    fwd, bwd = fused_simmim.launches, fused_simmim.bwd_launches
+    fused_simmim.fused_decode_l1(*args, torch.float32).backward()
+    assert (fused_simmim.launches, fused_simmim.bwd_launches) == (fwd + 1, bwd + 1)
+    assert all(args[i].grad is not None for i in (0, 2, 3))
