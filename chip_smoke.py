@@ -16,7 +16,8 @@ Phases:
      the bound;
   1b. backward kernels vs plain, at the training shapes of batch 64 (layer
      spatial [1280, 64, 96], spectral [4096, 20, 96], Houston [4096, 5, 96]
-     at dropout 0 and 0.1; embed [64, 20, 10, 64] -> 96), fp32 and bf16:
+     at dropout 0 and 0.1; embed [64, 20, 10, 64] and Houston's
+     [64, 5, 10, 64] -> 96, every gradient), fp32 and bf16:
      the error per gradient, the dropout masks that the forward and
      backward kernels apply, read out of their outputs by the probes of
      ops/dropout_probe.py and held bit for bit against dropout_mask, two
@@ -52,7 +53,31 @@ Phases:
      chunk, one step's loss and gradients against the same step through
      the plain versions on the card (same crop, mask and dropout seeds),
      and that the loss falls over 60 steps; then measures steps/s and
-     cubes/s at batch 64 in bf16 and fp32 with a torch.profiler breakdown.
+     cubes/s at batch 64 in bf16 and fp32 with a torch.profiler breakdown;
+  5. tools (maskedsst_tpu_torch.tools): kernel_check run in full at the
+     Houston2018 shapes, its checks counted here: layer parity against its
+     own oracle, the SimMIM kernels, and the dropout-sample kernel
+     (csrc/dropout_sample.cu, the drop_mult of the layer kernels drawn
+     alone) held to the dropout invariants and bit for bit to dropout_mask
+     at [512, 128] and [1280, 8, 64, 64], also from index 2^32 + 12345; its
+     launches on this path, none on the model paths; the kernels' device
+     times at the Houston shapes (phases 1b and 1c time the EnMAP ones) and
+     kernel #7's against its plain version; Houston2018 pretraining at full
+     width (50 bands, 5 blocks; batch 64, bf16) from bench_geometries: exact
+     launches of all six kernels at each of 20 steps, steps/s over three
+     windows of 10 steps with a profile, then one step's loss and gradients
+     against the plain versions on fresh weights and on the trained ones:
+     fp32 every gradient within TOL_STEP; bf16 on fresh weights every
+     gradient within TOL_STEP of the plain bf16 step or, above it, no
+     further from the fp32 plain step than 1.5x the plain bf16 step (d
+     pos_embedding, the sum of 64 tokens' gradients, takes whole the flips
+     of the L1's sign that one bf16 rounding makes; printed with the same
+     distance under a smooth L1); bf16 on trained weights, where either
+     bf16 route sits percents from fp32 in many leaves, every gradient
+     nearer the plain bf16 step than other dropout masks are, both routes'
+     distances from fp32 printed;
+     serving_bench at batch 256 and a 1-cube request; bf16_soak at 32 steps
+     per leg (both finite, step-1 losses within 1e-2).
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -68,14 +93,28 @@ import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 without tensor cores; bf16 dense
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# the timing policy and the kernels' costs live in the package; these
+# imports fail when the repo (the maskedsst_tpu_torch package) is not
+# beside this file
+from maskedsst_tpu_torch.tools.kernel_check import (  # noqa: E402
+    decode_cost,
+    embed_cost,
+    layer_cost,
+)
+from maskedsst_tpu_torch.utils.profiling import (  # noqa: E402
+    bound_ms,
+    card_line,
+    cuda_ms,
+    device_ms,
+    profile_step,
+)
+
 BATCH = 256
 TRAIN_BATCH = 64
 REQUESTS = (300, 256, 1, 0)
@@ -107,6 +146,8 @@ LIBRARY_NONE = {
     "weighted L1 sum; plain_ms is the einsum + abs + weighted-sum composition",
     "fused_simmim_bwd": "no single PyTorch call computes the per-block decode's backward "
     "with the sign of the weighted L1; plain_ms is the einsum composition",
+    "dropout_sample": "no PyTorch call computes this hash: torch.rand and torch.bernoulli "
+    "draw other bits (Philox), so none gives the same function; plain_ms is the int64 hash",
 }
 # The SimMIM loss is one sum over 819,200 terms: held relative to |plain|;
 # fp32 differs in summation order only, bf16 in one-ulp flips of a few
@@ -122,74 +163,11 @@ def check(cond: bool, msg: str) -> None:
         failures.append(msg)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, in ms."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 20, names=None) -> float:
-    """Device time of one call of ``fn``, in ms: torch.profiler's CUDA-side
-    self time over ``reps`` calls (after a warm-up), summed over the events
-    whose name holds one of ``names`` (all device events when None), per
-    call. For kernels of a few microseconds, where a CUDA-event time would
-    measure the host's launch path; NaN when the profiler records no device
-    time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        if names is not None and not any(n in e.key for n in names):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        total += dev_us
-    return total / 1e3 / reps if total > 0 else float("nan")
-
-
 def rel_err(got, want) -> tuple:
     """(max |got - want|, max |got - want| / max(1, |want|))."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     return float(diff.max()), float((diff / want.abs().clamp_min(1.0)).max())
-
-
-def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def random_layer_params(gen, d, heads, dh, f, device):
@@ -236,10 +214,7 @@ def phase_layer(gen):
                   f"max|d|/max(1,|ref|) {err:.3e} <= {TOL_OP[name]:.0e}")
             ms = cuda_ms(lambda: fused_layer.fused_transformer_layer(x, params, heads, dh, dtype))
             plain = cuda_ms(lambda: fused_layer.reference_layer(x, params, heads, dh, dtype))
-            tokens = b * s
-            flops = tokens * (2 * d * 3 * i + 2 * 2 * s * i + 2 * i * d + 2 * 2 * d * f)
-            item = x.element_size()
-            nbytes = 2 * tokens * d * item + (d * 3 * i + i * d + 2 * d * f) * item + 4 * (6 * d + f)
+            nbytes, flops = layer_cost(b, s, x.element_size(), d, i, f)["fwd"]
             bms, by = bound_ms(nbytes, flops, name)
             cases.append(dict(shape=label, dims=[b, s, d], dtype=name, max_abs_err=abs_err,
                               rel_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -278,11 +253,7 @@ def phase_embed(gen):
               f"max|d| {abs_err:.3e}, max|d|/max(1,|ref|) {err:.3e} <= {TOL_OP[name]:.0e}")
         ms = cuda_ms(lambda: fused_embed.fused_embed_mask(*args, dtype))
         plain = cuda_ms(lambda: fused_embed.fused_embed_mask_reference(*args, dtype))
-        tokens = b * g * n
-        flops = tokens * 2 * p * d
-        out_item = 2 if dtype == torch.bfloat16 else 4
-        nbytes = (patches.numel() * 4 + mask.numel() * 4 + tokens * d * out_item
-                  + g * p * d * out_item + 4 * (2 * p + g * d + 2 * d + g * n * d + d))
+        nbytes, flops = embed_cost(b, g, p, n, d, got.element_size())["fwd"]
         bms, by = bound_ms(nbytes, flops, name)
         cases.append(dict(shape="embed", dims=[b, g, p, n, d], dtype=name, max_abs_err=abs_err,
                           rel_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
@@ -317,12 +288,10 @@ def phase_layer_bwd(gen):
         x32 = torch.randn(b, s, d, generator=gen).cuda()
         dy32 = torch.randn(b, s, d, generator=gen).cuda()
         seed = 1000 + s
-        tokens = b * s
-        fwd_flops = tokens * (2 * d * 3 * i + 2 * 2 * s * i + 2 * i * d + 2 * 2 * d * f)
-        count = 2 * d + d * 3 * i + i * d + 3 * d + d * f + f + f * d + d
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             x, dy = x32.to(dtype), dy32.to(dtype)
+            cost = layer_cost(b, s, x.element_size(), d, i, f)
             # the masks the kernels apply, read out of their outputs
             for r in dropout_probe.read_layer_masks(
                     fused_layer._launch, fused_layer._launch_bwd, b, s, d, heads, dh, f, dtype,
@@ -331,8 +300,6 @@ def phase_layer_bwd(gen):
                       f"dropout masks {label} {name}, {r.what}: {r.bits} bits read from the "
                       f"kernels == dropout_mask, bit for bit (decode margin {r.margin:.3f})")
             torch.cuda.empty_cache()
-            item = x.element_size()
-            wbytes = (d * 3 * i + i * d + 2 * d * f) * item + 4 * (6 * d + f)
             for rate in (0.0, 0.1):
                 cfg = (heads, dh, dtype, rate, rate > 0, seed, True)
                 # the forward with dropout: its time, and that it keeps the
@@ -347,7 +314,7 @@ def phase_layer_bwd(gen):
                     del got, want
                     ms = cuda_ms(lambda: fused_layer.fused_transformer_layer(x, params, *cfg),
                                  reps=10)
-                    bms, by = bound_ms(2 * tokens * d * item + wbytes, fwd_flops, name)
+                    bms, by = bound_ms(*cost["fwd"], name)
                     fwd_cases.append(dict(shape=f"{label}_train", dims=[b, s, d], dtype=name,
                                           dropout=rate,
                                           ms=ms, bound_ms=bms, bound_by=by))
@@ -372,8 +339,7 @@ def phase_layer_bwd(gen):
                              warmup=1)
                 plain = cuda_ms(lambda: fused_layer.reference_layer_bwd(x, dy, params, *cfg),
                                 reps=5, warmup=1)
-                flops = 3 * fwd_flops
-                nbytes = 3 * tokens * d * item + wbytes + 4 * count
+                nbytes, flops = cost["bwd"]
                 bms, by = bound_ms(nbytes, flops, name)
                 bwd_cases.append(dict(shape=label, dims=[b, s, d], dtype=name, dropout=rate,
                                       max_abs_err=max(errs.values()), rel_err=errs, ms=ms,
@@ -387,54 +353,52 @@ def phase_layer_bwd(gen):
 
 
 def phase_embed_bwd(gen):
-    """fused_embed_bwd against fused_embed_mask_reference_bwd at [64, 20, 10, 64]."""
+    """fused_embed_bwd against fused_embed_mask_reference_bwd at the EnMAP
+    [64, 20, 10, 64] and Houston2018 [64, 5, 10, 64] training shapes, every
+    gradient, d pos included."""
     import torch
 
     from maskedsst_tpu_torch.ops import fused_embed
 
-    b, g, p, n, d = TRAIN_BATCH, 20, 10, 64, 96
+    p, n, d = 10, 64, 96
     names = ("preln_scale", "preln_bias", "kernel", "bias", "postln_scale", "postln_bias",
              "pos", "mask_token")
-    patches = torch.randn(b, g, p, n, generator=gen).cuda()
-    mask = (torch.rand(b, g, n, generator=gen) < 0.7).float().cuda()
-
-    def r(*shape, base=0.0, scale=0.1):
-        return (base + scale * torch.randn(*shape, generator=gen)).cuda()
-
-    args = (patches, mask, r(p, base=1.0), r(p), r(g, p, d, scale=p**-0.5), r(g, d),
-            r(d, base=1.0), r(d), r(g, n, d, scale=1.0), r(d, scale=1.0))
-    dtok32 = torch.randn(b, g, n, d, generator=gen).cuda()
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        dtok = dtok32.to(fused_embed._out_dtype(dtype))
-        got = fused_embed._launch_bwd(*args, dtok, dtype)
-        want = fused_embed.fused_embed_mask_reference_bwd(*args, dtok, dtype)
-        torch.cuda.synchronize()
-        errs = {}
-        for gname, gv, wv in zip(names, got, want):
-            abs_err, err = grad_err(gv, wv)
-            errs[gname] = err
-            check(bool(torch.isfinite(gv).all()) and err <= TOL_OP[name],
-                  f"fused_embed_bwd [{b},{g},{p},{n}]->{d} {name} {gname}: max|d| {abs_err:.3e}, "
-                  f"rel {err:.3e} <= {TOL_OP[name]:.0e}")
-        again = fused_embed._launch_bwd(*args, dtok, dtype)
-        check(all(torch.equal(a, c) for a, c in zip(got, again)),
-              f"fused_embed_bwd {name}: two calls give bit-identical gradients")
-        ms = cuda_ms(lambda: fused_embed._launch_bwd(*args, dtok, dtype))
-        plain = cuda_ms(lambda: fused_embed.fused_embed_mask_reference_bwd(*args, dtok, dtype))
-        tokens = b * g * n
-        flops = tokens * 6 * p * d
-        nbytes = (patches.numel() * 4 + mask.numel() * 4 + tokens * d * dtok.element_size()
-                  + g * p * d * (2 if dtype == torch.bfloat16 else 4)
-                  + 4 * (2 * p + g * d + 2 * d)
-                  + 4 * (2 * p + g * p * d + g * d + 2 * d + g * n * d + d))
-        bms, by = bound_ms(nbytes, flops, name)
-        cases.append(dict(shape="embed", dims=[b, g, p, n, d], dtype=name,
-                          max_abs_err=max(errs.values()), rel_err=errs, ms=ms, plain_ms=plain,
-                          bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
-        print(f"     fused_embed_bwd {name}: ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
-              f"{bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} GB/s", flush=True)
+    for label, b, g in (("embed", TRAIN_BATCH, 20), ("houston_embed", TRAIN_BATCH, 5)):
+        patches = torch.randn(b, g, p, n, generator=gen).cuda()
+        mask = (torch.rand(b, g, n, generator=gen) < 0.7).float().cuda()
+
+        def r(*shape, base=0.0, scale=0.1):
+            return (base + scale * torch.randn(*shape, generator=gen)).cuda()
+
+        args = (patches, mask, r(p, base=1.0), r(p), r(g, p, d, scale=p**-0.5), r(g, d),
+                r(d, base=1.0), r(d), r(g, n, d, scale=1.0), r(d, scale=1.0))
+        dtok32 = torch.randn(b, g, n, d, generator=gen).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            dtok = dtok32.to(fused_embed._out_dtype(dtype))
+            got = fused_embed._launch_bwd(*args, dtok, dtype)
+            want = fused_embed.fused_embed_mask_reference_bwd(*args, dtok, dtype)
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, gv, wv in zip(names, got, want):
+                abs_err, err = grad_err(gv, wv)
+                errs[gname] = err
+                check(bool(torch.isfinite(gv).all()) and err <= TOL_OP[name],
+                      f"fused_embed_bwd [{b},{g},{p},{n}]->{d} {name} {gname}: max|d| "
+                      f"{abs_err:.3e}, rel {err:.3e} <= {TOL_OP[name]:.0e}")
+            again = fused_embed._launch_bwd(*args, dtok, dtype)
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"fused_embed_bwd {label} {name}: two calls give bit-identical gradients")
+            ms = cuda_ms(lambda: fused_embed._launch_bwd(*args, dtok, dtype))
+            plain = cuda_ms(lambda: fused_embed.fused_embed_mask_reference_bwd(*args, dtok, dtype))
+            nbytes, flops = embed_cost(b, g, p, n, d, dtok.element_size())["bwd"]
+            bms, by = bound_ms(nbytes, flops, name)
+            cases.append(dict(shape=label, dims=[b, g, p, n, d], dtype=name,
+                              max_abs_err=max(errs.values()), rel_err=errs, ms=ms, plain_ms=plain,
+                              bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
+            print(f"     fused_embed_bwd {label} {name}: ms {ms:.4f} plain_ms {plain:.4f} "
+                  f"bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} GB/s", flush=True)
     return cases
 
 
@@ -470,12 +434,11 @@ def phase_simmim(gen):
         weights[0] = 0.0  # an all-zero weight row
         # the recipe's cotangent: 1 / (B * num_masked * p) / num_masked
         gout = torch.tensor(1.0 / (b * int(0.7 * g * n) * p) / int(0.7 * g * n), device="cuda")
-        tokens = b * g * n
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
             enc = enc32.to(dtype)
             args = (enc, patches, kernel, bias, weights)
-            item = enc.element_size()
+            cost = decode_cost(b, g, n, d, p, enc.element_size())
             got = fused_simmim._launch(*args, dtype)
             want = fused_simmim.fused_decode_l1_reference(*args, dtype)
             again = fused_simmim._launch(*args, dtype)
@@ -495,9 +458,7 @@ def phase_simmim(gen):
             event_ms = cuda_ms(lambda: fused_simmim._launch(*args, dtype))
             check(math.isfinite(ms) and math.isfinite(plain),
                   f"fused_simmim_fwd {label} {name}: the profiler measured device time")
-            flops = 2 * tokens * d * p + 5 * tokens * p
-            nbytes = (tokens * d * item + tokens * p * 4 + g * d * p * item + g * p * 4
-                      + tokens * 4 + 4)
+            nbytes, flops = cost["fwd"]
             bms, by = bound_ms(nbytes, flops, name)
             fwd_cases.append(dict(shape=label, dims=[b, g, n, d, p], dtype=name,
                                   max_abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain,
@@ -529,9 +490,7 @@ def phase_simmim(gen):
             event_ms = cuda_ms(lambda: fused_simmim._launch_bwd(*args, gout, dtype))
             check(math.isfinite(ms) and math.isfinite(plain),
                   f"fused_simmim_bwd {label} {name}: the profiler measured device time")
-            flops = 6 * tokens * d * p + 5 * tokens * p
-            nbytes = (2 * tokens * d * item + tokens * p * 4 + g * d * p * item + g * p * 4
-                      + tokens * 4 + 4 + 4 * (g * d * p + g * p))
+            nbytes, flops = cost["bwd"]
             bms, by = bound_ms(nbytes, flops, name)
             bwd_cases.append(dict(shape=label, dims=[b, g, n, d, p], dtype=name,
                                   max_abs_err=max(abs_errs.values()), rel_err=errs, ms=ms,
@@ -655,51 +614,6 @@ def step_grads(trainer, img, label, seed):
     grads = {n: q.grad.detach().clone() for n, q in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return float(loss.detach()), grads
-
-
-def profile_step(step, steps: int = 3) -> dict:
-    """Device time by kernel over a few calls of ``step`` (one training
-    step; torch.profiler with CUDA activity), against the host clock of the
-    same steps; an empty result when the profiler records no device
-    time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): the host ops that
-        # launched them carry the same time and would count it twice
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((e.key, dev_us / 1e3 / steps, e.count / steps))
-    if not rows:
-        return {}
-    rows.sort(key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    groups = {}
-    for key, ms, _ in rows:
-        group = next((g for g in ("fused_layer_bwd", "fused_layer_fwd", "fused_embed_bwd",
-                                  "fused_embed_fwd", "fused_simmim_bwd", "fused_simmim_fwd",
-                                  "reduce_partials", "sum_partials", "Memcpy") if g in key),
-                     "other")
-        groups[group] = groups.get(group, 0.0) + ms
-    return {"steps": steps, "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
-            "busy_share": device_ms / wall_ms, "groups_ms_per_step": groups,
-            "by_name": [{"name": k[:120], "ms_per_step": ms, "calls_per_step": n}
-                        for k, ms, n in rows]}
 
 
 def phase_train(card: str):
@@ -1012,6 +926,221 @@ def phase_pretrain(card: str):
     return main_counts, seen[0]
 
 
+@contextlib.contextmanager
+def smooth_l1():
+    """Route the SimMIM model's decode + weighted L1 to a plain decode with
+    a smooth L1, sum w * sqrt(diff^2 + 1e-2): the same step without the
+    kink of |diff|, whose sign (the gradient of the loss) one rounding can
+    flip where a residual is near 0."""
+    from maskedsst_tpu_torch.models import simmim
+    from maskedsst_tpu_torch.ops import fused_simmim
+
+    def smooth(encoded, patches, kernel, bias, weights, dtype):
+        diff = fused_simmim._diff(encoded, patches, kernel, bias, dtype)
+        return ((diff * diff + 1e-2).sqrt() * fused_simmim._w4(weights, encoded)).sum()
+
+    saved = simmim.fused_decode_l1
+    simmim.fused_decode_l1 = smooth
+    try:
+        yield
+    finally:
+        simmim.fused_decode_l1 = saved
+
+
+# On fresh weights the bf16 step's leaves are held to the bf16 plain step
+# within TOL_STEP; a leaf above that is held instead by its distance from
+# the fp32 plain step on the same inputs: the kernel route no further from
+# it than NEARER_FP32 x the plain bf16 route's distance (both bf16 routes
+# round at the same points; other dropout masks, the fault printed beside,
+# read several times more).
+NEARER_FP32 = 1.5
+
+
+def houston_step_check(label: str, cfg, state: dict, img, trained: bool) -> None:
+    """One Houston2018 pretraining step's loss and gradients on the weights
+    ``state`` (the same crop, mask and dropout seeds throughout): the
+    kernels against the plain versions in fp32, every leaf within TOL_STEP,
+    and the loss in both types. bf16 leaves on fresh weights: within
+    TOL_STEP of the plain bf16 step or, above it, no further than
+    NEARER_FP32 x as far from the fp32 plain step as the plain bf16 step
+    is. On trained weights, where the bf16 step itself (either route) sits
+    percents from fp32 in many leaves, each bf16 leaf nearer the plain
+    bf16 step than that step with other dropout masks is, and both routes'
+    distances from fp32 printed. Prints d pos_embedding's distances from
+    fp32, and the plain bf16 route's with the L1 made smooth."""
+    import torch
+
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+
+    pos = "encoder.pos_embedding"
+    grads, smooth, bool_mask = {}, {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        trainer = Pretrainer(cfg, dtype=dtype, tile_size=cfg.image_size, device="cuda")
+        trainer.model.load_state_dict(state)
+        if bool_mask is None:
+            bool_mask = trainer.model.sample_mask(img.shape[0], "cuda",
+                                                  torch.Generator().manual_seed(3))
+        loss_k, g_k = pretrain_step_grads(trainer, img, bool_mask, seed=77)
+        with plain_versions():
+            loss_p, g_p = pretrain_step_grads(trainer, img, bool_mask, seed=77)
+            # a fault to hold the limit against: the step with other dropout masks
+            _, g_f = pretrain_step_grads(trainer, img, bool_mask, seed=78)
+            with smooth_l1():
+                smooth[name] = pretrain_step_grads(trainer, img, bool_mask, seed=77)[1][pos]
+        del trainer
+        grads[name] = g_k, g_p, g_f
+        errs = {n: rel_to_max(g_k[n], ref) for n, ref in g_p.items()}
+        faults = {n: rel_to_max(g_f[n], ref) for n, ref in g_p.items()}
+        ranked = sorted(faults.values())
+        print(f"     houston pretrain {label} {name} step: the five largest gradient errors "
+              + ", ".join(f"{n} {errs[n]:.3e}" for n in sorted(errs, key=errs.get)[-5:])
+              + f" (other dropout masks read {ranked[-1]:.3e} at worst, "
+              f"{ranked[len(ranked) // 2]:.3e} median)", flush=True)
+        check(abs(loss_k - loss_p) <= TOL_LOSS[name] * abs(loss_p),
+              f"houston pretrain {label} {name} step: loss {loss_k:.8e} vs plain {loss_p:.8e} "
+              f"(rel {abs(loss_k - loss_p) / abs(loss_p):.3e} <= {TOL_LOSS[name]:.0e})")
+        if dtype == torch.float32:
+            worst = max(errs, key=errs.get)
+            check(errs[worst] <= TOL_STEP[name],
+                  f"houston pretrain {label} {name} step: each of {len(errs)} gradients vs plain "
+                  f"versions on the card, worst {worst} max|d|/max|ref| {errs[worst]:.3e} <= "
+                  f"{TOL_STEP[name]:.1e}")
+            continue
+        ref32 = grads["float32"][1]
+
+        def from_fp32(n):
+            return rel_to_max(g_k[n], ref32[n]), max(rel_to_max(g_p[n], ref32[n]), 1e-30)
+
+        over = {n: e for n, e in errs.items() if e > TOL_STEP[name]}
+        if trained:
+            ratio = {n: e / max(faults[n], 1e-30) for n, e in errs.items()}
+            worst = max(ratio, key=ratio.get)
+            check(ratio[worst] < 1.0,
+                  f"houston pretrain {label} {name} step: each of {len(errs)} gradients nearer "
+                  f"the plain bf16 step than the plain bf16 step with other dropout masks is; "
+                  f"worst {worst} {errs[worst]:.3e} vs {faults[worst]:.3e} ({ratio[worst]:.2f}x)")
+            dist = {n: from_fp32(n) for n in over}
+            if dist:
+                far = max(dist, key=lambda n: dist[n][0] / dist[n][1])
+                print(f"     houston pretrain {label} {name} step: {len(over)} of {len(errs)} "
+                      f"gradients above {TOL_STEP[name]:.1e} of the plain bf16 step (worst "
+                      f"{max(over.values()):.3e}); on them, from the fp32 plain step, the kernels "
+                      f"read up to {max(k for k, _ in dist.values()):.3e} and the plain bf16 "
+                      f"step up to {max(p for _, p in dist.values()):.3e}; kernels / plain "
+                      f"{statistics.mean(k / p for k, p in dist.values()):.2f}x on average, "
+                      f"{dist[far][0] / dist[far][1]:.2f}x at most ({far})", flush=True)
+        else:
+            for n, e in over.items():
+                k32, p32 = from_fp32(n)
+                check(k32 <= NEARER_FP32 * p32,
+                      f"houston pretrain {label} {name} step: {n} reads {e:.3e} vs the plain "
+                      f"bf16 step (> {TOL_STEP[name]:.1e}); from the fp32 plain step the kernels "
+                      f"read {k32:.3e} <= {NEARER_FP32} x the plain bf16 step's {p32:.3e}")
+            held = {n: e for n, e in errs.items() if n not in over} or {"none": 0.0}
+            worst = max(held, key=held.get)
+            check(held[worst] <= TOL_STEP[name],
+                  f"houston pretrain {label} {name} step: {len(errs) - len(over)} of {len(errs)} "
+                  f"gradients within {TOL_STEP[name]:.1e} of the plain bf16 step, worst {worst} "
+                  f"{held[worst]:.3e}; {len(over)} held by the fp32 step above")
+        k32, p32 = from_fp32(pos)
+        s32 = rel_to_max(smooth[name], smooth["float32"])
+        print(f"     houston pretrain {label}: d pos_embedding {errs[pos]:.3e} from the plain "
+              f"bf16 step; from the fp32 plain step: bf16 kernels {k32:.3e}, bf16 plain "
+              f"{p32:.3e}; with a smooth L1, bf16 plain {s32:.3e}", flush=True)
+        torch.cuda.empty_cache()
+
+
+def phase_tools(card: str):
+    """The tools path: tools.kernel_check in full at the Houston2018 shapes
+    (its checks counted here, kernel #7 among them; phases 1b and 1c time
+    the EnMAP shapes), then kernel #7's times; Houston2018 pretraining at
+    full width through bench_geometries' workload, its step held to the
+    plain versions on fresh and on trained weights; serving_bench at batch
+    256 with a 1-cube request; bf16_soak at 32 steps per leg."""
+    import torch
+
+    from maskedsst_tpu_torch.ops import dropout_sample, fused_layer
+    from maskedsst_tpu_torch.tools import bench_geometries, bf16_soak, kernel_check, serving_bench
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+
+    # --- (a) the kernel-check path, counted --------------------------------
+    model_paths = dropout_sample.launches  # phases 1-4 never launch it
+    dropout_sample.launches = 0
+    kernel_check.run(check, "cuda", "houston")
+    check_path = dropout_sample.launches
+    check(model_paths == 0 and check_path > 0,
+          f"dropout_sample: launched {model_paths} times on the model paths, {check_path} on "
+          "the kernel-check path")
+    drop_cases = kernel_check.dropout_sample_cases("cuda")
+    torch.cuda.empty_cache()
+
+    # --- (b) Houston2018 pretraining at full width, counted -----------------
+    steps, window, windows = 20, 10, bench_geometries.WINDOWS
+    taken = steps + bench_geometries.WARMUP + window * windows + bench_geometries.PROFILED
+    cfg = bench_geometries.houston_pretrain_config()
+    fresh = Pretrainer(cfg, dtype=torch.bfloat16, tile_size=cfg.image_size,
+                       device="cuda").model.state_dict()
+    trainer, store, idx = bench_geometries.houston_pretrainer(torch.bfloat16, "cuda", taken + 1)
+    depth = trainer.config.transformer_depth
+    want = {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth, "fused_embed_fwd": 1,
+            "fused_embed_bwd": 1, "fused_simmim_fwd": 1, "fused_simmim_bwd": 1}
+    reset_counts()
+    losses, seen = [], []
+    for k in range(steps):
+        before = launch_counts()
+        losses.append(float(trainer.train_step_idx(store, idx[k])["loss"]))
+        after = launch_counts()
+        per_step = {n: after[n] - before[n] for n in after}
+        if per_step not in seen:
+            seen.append(per_step)
+    houston_counts = launch_counts()
+    check(seen == [want], f"houston pretrain bf16 [{len(idx[0])}, 50, 8, 8]: launches at every "
+                          f"one of {steps} steps {seen} == {want}")
+    check(all(math.isfinite(v) for v in losses),
+          f"houston pretrain bf16: {steps} losses finite (last {losses[-1]:.6e})")
+    it = iter(idx[steps:-1])
+    m = bench_geometries.measure(lambda: trainer.train_step_idx(store, next(it)), window, "cuda")
+    prof = m["profile"]
+    batch = trainer.config.batch_size
+    rates = [batch / s for s in m["window_step_s"]]
+    print(f"     houston pretraining bfloat16: {1 / m['step_s']:.3f} steps/s, "
+          f"{batch / m['step_s']:.1f} cubes/s (batch {batch}, {windows} windows of {window} "
+          f"steps, one synchronize each; windows {min(rates):.1f}-{max(rates):.1f} cubes/s); "
+          f"device {prof.get('device_ms_per_step', float('nan')):.2f} ms, span "
+          f"{prof.get('span_ms_per_step', float('nan')):.2f} ms per step, idle share "
+          f"{prof.get('idle_share', float('nan')):.1%} on {card}", flush=True)
+
+    # --- (c) one step's gradients against the plain versions, on fresh
+    # weights (as phase 4) and on the weights after the steps above ---------
+    img = store[torch.as_tensor(idx[-1], device="cuda")]
+    trained = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    houston_step_check("fresh", cfg, fresh, img, trained=False)
+    houston_step_check(f"trained ({taken} steps)", cfg, trained, img, trained=True)
+    del store
+
+    # --- (d) serving_bench at batch 256, a 1-cube request -------------------
+    fused_layer.launches = 0
+    rows = serving_bench.run([BATCH], [1], reps=3)
+    check(fused_layer.launches > 0 and len(rows) == 3
+          and all(math.isfinite(r["value"]) and r["value"] > 0 for r in rows),
+          f"serving_bench: {len(rows)} rows (cubes/s at batch {BATCH}, 1-cube latency padded "
+          f"and exact), finite; fused_layer_fwd launched {fused_layer.launches} times")
+    torch.cuda.empty_cache()
+
+    # --- (e) the bf16 soak, 32 steps per leg ---------------------------------
+    rec = bf16_soak.soak(32, 8, 0.05, "cuda")
+    check(all(leg["nan_free"] for leg in rec["legs"].values()) and rec["first_rel_delta"] <= 1e-2,
+          f"bf16_soak 32 steps: both legs finite, step-1 losses bf16 "
+          f"{rec['legs']['bf16']['first_loss']:.6e} vs fp32 {rec['legs']['fp32']['first_loss']:.6e}"
+          f" (rel {rec['first_rel_delta']:.2e} <= 1e-2); final-window rel delta "
+          f"{rec['final_rel_delta']:.3e}")
+    torch.cuda.empty_cache()
+    return check_path, model_paths, drop_cases, houston_counts, seen[0]
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
@@ -1039,10 +1168,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test runs "
               "only on a CUDA card", file=sys.stderr)
         return 1
-    root = os.path.dirname(os.path.abspath(__file__))
-    os.chdir(root)
-    sys.path.insert(0, root)
-    # fails here when the repo (the maskedsst_tpu_torch package) is not beside this file
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))
     from maskedsst_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1080,6 +1206,10 @@ def main() -> int:
     pre_counts, per_step["pretrain"] = timed(
         "phase 4 pretraining path: SimMIM Pretrainer on the EnMAP pretrain recipe",
         phase_pretrain, card)
+    (drop_launches, drop_model_paths, drop_cases, houston_counts,
+     per_step["houston_pretrain"]) = timed(
+        "phase 5 tools: kernel_check (kernel #7), Houston2018 pretraining, serving_bench, "
+        "bf16_soak", phase_tools, card)
 
     batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
 
@@ -1114,6 +1244,17 @@ def main() -> int:
     ]
     for entry in kernels[:4]:
         entry["launches_pretrain"] = pre_counts[entry["name"]]
+    for entry in kernels:
+        entry["launches_houston_pretrain"] = houston_counts[entry["name"]]
+    attn = next(c for c in drop_cases if c["shape"] == "attention_site")
+    kernels.append(dict(
+        name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",
+        replaces="scripts/tpu_kernel_check.py:167", launches=drop_launches,
+        launches_model_paths=drop_model_paths,
+        max_abs_err=max(c["max_abs_err"] for c in drop_cases),
+        ms=attn["ms"], plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
+        bound_by=attn["bound_by"], library_ms=None, library_note=LIBRARY_NONE["dropout_sample"],
+        cases=drop_cases))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
         for msg in failures:

@@ -15,7 +15,10 @@ bf16 compute at widths that are multiples of 16, FMA loops otherwise),
 dropout, the backward kernels, the masks each kernel applies read bit for
 bit (ops/dropout_probe.py), the gradients' run-to-run determinism, and the
 wrappers' refusals; for the SimMIM decode + weighted-L1 kernels, all-zero
-and all-one weight rows, a diff of exactly 0 and the loss's determinism.
+and all-one weight rows, a diff of exactly 0 and the loss's determinism;
+for the dropout-sample kernel, its bits against the plain hash from first
+indices below and above 2^32 (held exactly), its determinism and launch
+count, and its refusals.
 
 Tolerances on max |kernel - plain| / max(1, |plain|): fp32 1e-4 (summation
 order and fast intrinsics only), bf16 3e-2 (both round every product
@@ -31,7 +34,13 @@ import numpy as np
 import pytest
 import torch
 
-from maskedsst_tpu_torch.ops import dropout_probe, fused_embed, fused_layer, fused_simmim
+from maskedsst_tpu_torch.ops import (
+    dropout_probe,
+    dropout_sample,
+    fused_embed,
+    fused_layer,
+    fused_simmim,
+)
 from maskedsst_tpu_torch.ops.fused_layer import LayerParams
 
 pytestmark = pytest.mark.cuda
@@ -400,3 +409,37 @@ def test_simmim_wrapper_refusals_and_autograd(cuda):
     fused_simmim.fused_decode_l1(*args, torch.float32).backward()
     assert (fused_simmim.launches, fused_simmim.bwd_launches) == (fwd + 1, bwd + 1)
     assert all(args[i].grad is not None for i in (0, 2, 3))
+
+
+@pytest.mark.parametrize("shape,seed,site,rate,base", [
+    ((512, 128), 7, 1, 0.1, 0),  # the TPU check's sample
+    ((1280, 8, 64, 64), 1064, fused_layer.SITE_ATTN, 0.1, 0),  # attention site, batch 64
+    ((512, 128), 7, 1, 0.1, 2**32 + 12345),  # the hash's high-word branch
+    ((3, 1000, 7), 2**31 + 5, 7, 0.5, 2**40 - 3000),  # a range across 2^40, ragged size
+    ((129,), 3, 5, 0.0, 0),  # rate 0: every element kept at scale 1
+])
+def test_dropout_sample_kernel_matches_plain_bitwise(cuda, shape, seed, site, rate, base):
+    got = dropout_sample.dropout_sample(torch.empty(shape, device=cuda), seed, site, rate, base)
+    torch.cuda.synchronize()
+    want = dropout_sample.dropout_sample_reference(got.numel(), seed, site, rate, base, cuda)
+    assert torch.equal(got.reshape(-1), want)
+    if base == 0:
+        assert torch.equal(got, fused_layer.dropout_mask(shape, seed, site, rate, cuda))
+
+
+def test_dropout_sample_kernel_is_deterministic_and_counted(cuda):
+    before = dropout_sample.launches
+    a = dropout_sample.dropout_sample(torch.empty(4096, device=cuda), 9, 3, 0.25, 2**33)
+    b = dropout_sample.dropout_sample(torch.empty(4096, device=cuda), 9, 3, 0.25, 2**33)
+    assert torch.equal(a, b) and dropout_sample.launches == before + 2
+
+
+def test_dropout_sample_wrapper_refusals(cuda):
+    with pytest.raises(TypeError, match="fp32"):
+        dropout_sample.dropout_sample(torch.empty(8, device=cuda, dtype=torch.bfloat16), 1, 1, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        dropout_sample.dropout_sample(torch.empty(8, 8, device=cuda).t(), 1, 1, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dropout_sample._launch(torch.empty(8), 1, 1, 0.1)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        dropout_sample.dropout_sample(torch.empty(8, device=cuda), 1, 1, 1.0)

@@ -1,0 +1,246 @@
+"""The port's on-card tools on the CPU: the profiling helpers' trace
+accounting on synthetic device events (as tests/test_bench_tools.py holds
+the JAX parser), the Houston2018 pretraining step of bench_geometries
+against the JAX SimMIM value_and_grad, and ``--cpu`` rehearsals of the
+tools at narrow widths (their records' keys, their default output paths),
+with the kernel check's layer oracle held to the plain version.
+
+Tolerances of the Houston step, as tests/test_torch_pretrainer.py: the loss
+within 2e-5·|ref|, every gradient within 1e-4·max|ref| per tensor (fp32
+on both sides; the two differ in summation order)."""
+
+import contextlib
+import io
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from maskedsst_tpu.config import get_pretrain_config as jax_config
+from maskedsst_tpu.ops.masking import MaskGenerator as JaxMaskGenerator
+from maskedsst_tpu.parallel.mesh import get_mesh
+from maskedsst_tpu.train.pretrainer import build_pretrain_model as jax_build
+from maskedsst_tpu_torch.io.flax_params import flax_from_params, grads_to_flax
+from maskedsst_tpu_torch.ops import fused_layer
+from maskedsst_tpu_torch.tools import bench_geometries, bf16_soak, kernel_check, profile_step
+from maskedsst_tpu_torch.tools import serving_bench
+from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+from maskedsst_tpu_torch.utils import profiling
+
+NARROW = dict(transformer_dim=16, transformer_depth=1, transformer_n_heads=2,
+              transformer_mlp_dim=12)
+# the tools' --set form; dim 18 keeps the finetune configs' sin-cos tables whole
+NARROW_SET = ["--set", "transformer_dim=18", "--set", "transformer_depth=1",
+              "--set", "transformer_n_heads=2", "--set", "transformer_mlp_dim=12"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's torch CPU work (see
+    tests/test_torch_pretrainer.py: the default pool oversubscribes the
+    cores under the suite's parallel workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# --- profiling ------------------------------------------------------------
+
+def _ev(name, ts, dur, cat="kernel"):
+    return {"name": name, "ts": ts, "dur": dur, "cat": cat}
+
+
+def test_parse_device_trace_busy_span_idle_and_names():
+    """Busy sums the kernels and copies (us -> ms), the span runs from the
+    first device event's start to the last one's end, an annotation range
+    mirrored onto the device (a container) counts for neither."""
+    tr = profiling.parse_device_trace([
+        _ev("fused_layer_fwd_kernel", 0.0, 300.0),
+        _ev("Memcpy HtoD", 400.0, 100.0),
+        _ev("fused_layer_fwd_kernel", 600.0, 300.0),
+        _ev("Optimizer.step#AdamW.step", 0.0, 2000.0, cat="annotation"),
+    ])
+    assert abs(tr.busy_ms - 0.7) < 1e-12
+    assert abs(tr.span_ms - 0.9) < 1e-12
+    assert abs(tr.idle_share - (1 - 0.7 / 0.9)) < 1e-12
+    assert sorted(tr.by_name) == ["Memcpy HtoD", "fused_layer_fwd_kernel"]
+    assert tr.by_name["fused_layer_fwd_kernel"] == [0.3, 0.3]
+    assert abs(tr.ms(["fused_layer"]) - 0.6) < 1e-12 and abs(tr.ms() - 0.7) < 1e-12
+    assert not tr.overcounted
+
+
+def test_parse_device_trace_flags_overcounting():
+    """Busy above 1.02 x span (overlapping streams, or a container counted
+    as work) is flagged; within 2 % it is not."""
+    over = profiling.parse_device_trace([_ev("a", 0.0, 1000.0), _ev("b", 0.0, 1000.0)])
+    assert over.overcounted and abs(over.busy_ms - 2.0) < 1e-12 and abs(over.span_ms - 1.0) < 1e-12
+    near = profiling.parse_device_trace([_ev("a", 0.0, 1000.0), _ev("b", 990.0, 20.0)])
+    assert not near.overcounted
+
+
+def test_no_device_events_give_none_and_nan():
+    assert profiling.parse_device_trace([]) is None
+    assert profiling.parse_device_trace([_ev("range", 0.0, 9.0, cat="annotation")]) is None
+    calls = []
+    assert profiling.traced_busy_ms(lambda: calls.append(1)) is None
+    assert np.isnan(profiling.device_ms(lambda: calls.append(1), reps=2))
+    assert profiling.profile_step(lambda: calls.append(1), steps=2) == {}
+    assert len(calls) == 1 + 5 + 4  # each helper still ran the work
+    with profiling.trace() as info:
+        pass
+    assert info["events"] == [] and info["wall_s"] >= 0
+
+
+def test_bound_ms_takes_the_larger_bound():
+    ms, by = profiling.bound_ms(3.35e9, 0, "float32")  # 3.35 GB at 3.35 TB/s
+    assert by == "bytes" and abs(ms - 1.0) < 1e-12
+    ms, by = profiling.bound_ms(0, 989e9, "bfloat16")
+    assert by == "operations" and abs(ms - 1.0) < 1e-12
+
+
+# --- the Houston2018 pretraining step against JAX ---------------------------
+
+def _tube_masks(seed, n, blocks, ratio=0.7):
+    gen = JaxMaskGenerator(8, 4, 1, ratio)
+    return np.array(gen.batch_masks(jax.random.PRNGKey(seed), n, blocks, True))
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_houston_pretrain_step_matches_jax():
+    """bench_geometries' Houston config (50 bands: 5 spectral blocks, 20
+    classes) at narrow widths, batch 2, 8x8 samples (no crop), dropout 0,
+    the same injected tube masks (g = 5): the port's step against
+    ``jax.value_and_grad`` of the JAX SimMIM loss on the port's initial
+    weights."""
+    changes = dict(NARROW, transformer_dropout=0.0, transformer_emb_dropout=0.0, batch_size=2)
+    cfg = bench_geometries.houston_pretrain_config([f"{k}={v}" for k, v in changes.items()])
+    assert (cfg.dataset, cfg.n_bands, cfg.n_classes) == ("houston2018", 50, 20)
+    trainer = Pretrainer(cfg, tile_size=cfg.image_size, device="cpu")
+    assert not trainer.crop and trainer.model.num_tokens == 320
+    params = jax.tree_util.tree_map(jnp.asarray, flax_from_params(trainer.model.state_dict()))
+
+    jcfg = jax_config("configs/pretrain_config.yaml", "configs/config.yaml")
+    jcfg.dataset, jcfg.n_bands, jcfg.n_classes = "houston2018", 50, 20
+    for key, value in changes.items():
+        setattr(jcfg, key, value)
+    jcfg.fused = False  # the JAX package's plain route: the Pallas kernels' reference
+    model = jax_build(jcfg, mesh=get_mesh(devices=jax.devices()[:1]))
+    img = np.random.default_rng(1).standard_normal((2, 50, 8, 8)).astype(np.float32)
+    masks = _tube_masks(1, 2, 5)
+    value, grads = jax.jit(jax.value_and_grad(
+        lambda p: model.apply({"params": p}, jnp.asarray(img), deterministic=True,
+                              bool_mask=jnp.asarray(masks))))(params)
+    want = _leaves(grads)
+
+    loss = float(trainer.train_step(img, bool_mask=torch.from_numpy(masks))["loss"])
+    assert abs(loss - float(value)) <= 2e-5 * abs(float(value))
+    got = _leaves(grads_to_flax(trainer.model))
+    assert got.keys() == want.keys()
+    for name, ref in want.items():
+        err = np.abs(got[name] - ref).max()
+        assert err <= 1e-4 * np.abs(ref).max(), f"{name}: {err:.3e}"
+
+
+# --- the tools, rehearsed on the CPU ----------------------------------------
+
+def _json_lines(fn, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    assert rc == 0
+    return [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+
+
+def test_bench_geometries_cpu_records(monkeypatch):
+    # one warm-up step, two windows of one step, one profiled step: the
+    # rehearsal checks the control flow
+    monkeypatch.setattr(bench_geometries, "WARMUP", 1)
+    monkeypatch.setattr(bench_geometries, "WINDOWS", 2)
+    monkeypatch.setattr(bench_geometries, "PROFILED", 1)
+    rows = _json_lines(bench_geometries.main,
+                       ["--cpu", "--steps", "1", "--set", "batch_size=2", *NARROW_SET])
+    assert [(r["workload"], r["dtype"]) for r in rows] == [
+        ("houston_pretrain", "bf16"), ("finetune_enmap", "fp32"), ("finetune_enmap", "fp32"),
+        ("finetune_enmap", "bf16"), ("finetune_houston2018", "bf16"),
+        ("finetune_houston2018", "fp32")]
+    for r in rows:
+        assert {"metric", "value", "steps_per_s", "window_cubes_per_s", "device_ms_per_step",
+                "span_ms_per_step", "idle_share", "batch", "device"} <= r.keys()
+        assert r["device"] == "cpu" and r["batch"] == 2 and r["value"] > 0
+        # the value is the windows' work over their time: between the windows' rates
+        assert len(r["window_cubes_per_s"]) == 2
+        assert min(r["window_cubes_per_s"]) <= r["value"] * (1 + 1e-9)
+        assert r["value"] <= max(r["window_cubes_per_s"]) * (1 + 1e-9)
+        # no device time is measured on the CPU
+        assert r["device_ms_per_step"] is None and r["idle_share"] is None
+
+
+def test_serving_bench_cpu_records_and_writes_no_file_by_default(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    rows = _json_lines(serving_bench.main, ["--cpu", "--batches", "4", "--requests", "1,3",
+                                            "--reps", "1", "--set", "n_bands=20", *NARROW_SET])
+    assert [(r["metric"], r.get("batch"), r.get("cubes"), r.get("padded_to")) for r in rows] == [
+        ("serving_cubes_per_s", 4, None, None), ("request_latency_ms", None, 1, 4),
+        ("request_latency_ms", None, 1, 1), ("request_latency_ms", None, 3, 4),
+        ("request_latency_ms", None, 3, 3)]
+    assert all(r["value"] > 0 and r["device"] == "cpu" for r in rows)
+    assert list(tmp_path.iterdir()) == []  # never SERVING_BENCH.json, nor any file
+    out = tmp_path / "serving.json"
+    _json_lines(serving_bench.main, ["--cpu", "--batches", "2", "--requests", "1", "--reps", "1",
+                                     "--set", "n_bands=20", *NARROW_SET, "--json-out", str(out)])
+    assert len(json.loads(out.read_text())["rows"]) == 3
+
+
+def test_profile_step_cpu_records():
+    for extra in ([], ["--serve", "--batch", "2"]):
+        (row,) = _json_lines(profile_step.main, ["--cpu", "--steps", "2", "--set", "n_bands=20",
+                                                 "--set", "batch_size=2", *NARROW_SET, *extra])
+        assert row["profile"] == ("serve" if extra else "pretrain") and row["device"] == "cpu"
+        assert row["device_ms_per_step"] is None and row["by_name"] is None
+
+
+def test_bf16_soak_cpu_record(tmp_path):
+    assert bf16_soak.DEFAULT_OUT.startswith("chiprun_out")
+    assert "SOAK_r05" not in bf16_soak.DEFAULT_OUT
+    out = tmp_path / "soak.json"
+    rows = _json_lines(bf16_soak.main, ["--cpu", "--steps", "3", "--window", "2", "--out", str(out),
+                                        "--set", "n_bands=20", "--set", "batch_size=2",
+                                        *NARROW_SET])
+    record = json.loads(out.read_text())
+    assert rows[-1]["pass"] == record["pass"]
+    assert record["steps"] == 3 and set(record["legs"]) == {"bf16", "fp32"}
+    for leg in record["legs"].values():
+        assert leg["nan_free"] and len(leg["trajectory"]) == 1 and leg["steps"] == 3
+    # same weights, streams and seeds: the legs differ only by the compute type
+    assert record["first_rel_delta"] < 1e-2
+
+
+def test_kernel_check_oracle_agrees_with_reference_layer():
+    rng = np.random.default_rng(0)
+    params = kernel_check.make_params(rng, "cpu", d=16, inner=16, mlp=12)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
+    want = fused_layer.reference_layer(x, params, 2, 8, torch.float32)
+    torch.testing.assert_close(kernel_check.oracle_layer(x, params, 2, 8), want,
+                               rtol=0, atol=1e-5)
+
+
+def test_kernel_check_cpu_checks_pass():
+    """The dropout generator's and the SimMIM checks through the plain
+    versions (what the card runs through the kernels)."""
+    failures = []
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    kernel_check.check_dropout_prng(check, "cpu")
+    kernel_check.check_simmim_kernels(check, "cpu", np.random.default_rng(0))
+    assert failures == []
