@@ -53,6 +53,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "layer_grads.cuh"
 
 using namespace msst;
 using namespace nvcuda;
@@ -63,27 +64,6 @@ constexpr int kThreads = 256;
 constexpr int kRowTile = 8;
 
 __host__ __device__ inline int seqs_per_block(int S) { return S >= 64 ? 1 : 64 / S; }
-
-// offsets of the 11 gradients in the flat fp32 vector (and in each partial)
-struct GradLayout {
-  size_t ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2, total;
-
-  __host__ __device__ GradLayout(int D, int I, int F) {
-    size_t o = 0;
-    ln1s = o; o += D;
-    ln1b = o; o += D;
-    wqkv = o; o += static_cast<size_t>(D) * 3 * I;
-    wout = o; o += static_cast<size_t>(I) * D;
-    bout = o; o += D;
-    ln2s = o; o += D;
-    ln2b = o; o += D;
-    w1 = o;   o += static_cast<size_t>(D) * F;
-    b1 = o;   o += F;
-    w2 = o;   o += static_cast<size_t>(F) * D;
-    b2 = o;   o += D;
-    total = o;
-  }
-};
 
 // shared-memory plan, in floats
 struct BwdPlan {
@@ -514,7 +494,7 @@ fused_layer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __r
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core form (bf16 compute)
+// Tensor-core form (bf16 compute): the row kernel of the split backward
 
 using bf16 = __nv_bfloat16;
 
@@ -526,8 +506,7 @@ __host__ __device__ inline size_t larger(size_t a, size_t b) { return a > b ? a 
 
 // Byte offsets of the tensor-core form's shared memory, every buffer on a
 // 128-byte boundary. R is the block's row count rounded up to 16; rows past
-// the block's real rows are kept zero in every operand that a product sums
-// over rows (the weight gradients), so they add nothing.
+// the block's real rows are kept zero in the products' operands.
 struct TcBwdPlan {
   int R, ld_h, ld_q, ld_sc, ld_p, ld_u, ld_g, ld_w3, ld_wd, ld_w1;
   size_t xs, acc, hb, dp1, q, k, v, dO, sc, dsc, p, u, dgd, g, dp2, wst, wst2, w1s, w2s;
@@ -578,29 +557,28 @@ struct TcBwdPlan {
 };
 
 // dst [K, N] (row stride ldd) = src [K, N] (row stride lds), both bf16 with
-// 16-byte aligned rows and N a multiple of 8
-__device__ void stage_weights(const bf16* __restrict__ src, int lds, int K, int N, bf16* dst,
-                              int ldd) {
+// 16-byte aligned rows and N a multiple of 8: weight slices from L2 into
+// shared memory, and the weight-gradient operands out to device memory
+__device__ void copy_rows(const bf16* __restrict__ src, size_t lds, int K, int N,
+                          bf16* __restrict__ dst, size_t ldd) {
   const int vec = N / 8;
   for (int i = threadIdx.x; i < K * vec; i += blockDim.x) {
     const int r = i / vec, c = (i % vec) * 8;
     *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-        __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * lds + c));
+        *reinterpret_cast<const uint4*>(src + r * lds + c);
   }
 }
 
-enum TcOut { kTcBf16, kTcF32, kTcAccF32, kTcBiasF32, kTcPartial };
+enum TcOut { kTcBf16, kTcF32, kTcAccF32, kTcBiasF32 };
 
 // out [M, N] <op>= A [M, K] x B [K, N] on the tensor cores, one 16x16
 // output tile per warp at a time (the same warp owns the same tile in every
 // call with the same M and N). A is row-major (A[m * lda + k]) or, with
 // wmma::col_major, a transposed view (A[k * lda + m]); B likewise
-// (B[k * ldb + n], or B[n * ldb + k]). kTcPartial adds into the block's
-// partial sums in device memory (written on the block's first row block).
+// (B[k * ldb + n], or B[n * ldb + k]).
 template <int EPI, typename AL, typename BL>
 __device__ void tcmm(const bf16* A, int lda, int M, int K, const bf16* B, int ldb, int N,
-                     void* out, int ldo, const float* __restrict__ bias, float* stage,
-                     bool first = false) {
+                     void* out, int ldo, const float* __restrict__ bias, float* stage) {
   const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32, lane = threadIdx.x % 32;
   const int tn = N / 16, tiles = (M / 16) * tn;
   float* st = stage + warp * 256;
@@ -608,7 +586,7 @@ __device__ void tcmm(const bf16* A, int lda, int M, int K, const bf16* B, int ld
     const int r0 = (t / tn) * 16, c0 = (t % tn) * 16;
     float* o32 = static_cast<float*>(out) + static_cast<size_t>(r0) * ldo + c0;
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (EPI == kTcAccF32 || (EPI == kTcPartial && !first))
+    if (EPI == kTcAccF32)
       wmma::load_matrix_sync(acc, o32, ldo, wmma::mem_row_major);
     else
       wmma::fill_fragment(acc, 0.f);
@@ -625,7 +603,7 @@ __device__ void tcmm(const bf16* A, int lda, int M, int K, const bf16* B, int ld
         wmma::load_matrix_sync(b, B + c0 * ldb + kk, ldb);
       wmma::mma_sync(acc, a, b, acc);
     }
-    if (EPI == kTcF32 || EPI == kTcAccF32 || EPI == kTcPartial) {
+    if (EPI == kTcF32 || EPI == kTcAccF32) {
       wmma::store_matrix_sync(o32, acc, ldo, wmma::mem_row_major);
       continue;
     }
@@ -668,6 +646,9 @@ __device__ void ln_rows_bf16(const float* src, int rows, int D, const float* __r
   }
 }
 
+// The row kernel: dx, the weight gradients' bf16 operands (OperandLayout)
+// and the block's partial sums of the small vectors (SmallLayout), with no
+// weight-gradient product of its own.
 template <typename T>
 __global__ void __launch_bounds__(kTcThreads)
 fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
@@ -677,14 +658,15 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
                           const float* __restrict__ ln2s, const float* __restrict__ ln2b,
                           const bf16* __restrict__ w1, const float* __restrict__ b1,
                           const bf16* __restrict__ w2, const float* __restrict__ b2,
-                          float* __restrict__ ws, int B, int S, int D, int H, int dh, int F,
-                          DropCfg dc) {
+                          bf16* __restrict__ ops, float* __restrict__ ws, int B, int S, int D,
+                          int H, int dh, int F, DropCfg dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid % 32, nwarps = nthr / 32;
   const TcBwdPlan pl(S, D, dh, F, nwarps);
   const int R = pl.R, I = H * dh;
-  const GradLayout gl(D, I, F);
+  const SmallLayout sl(D, F);
+  const OperandLayout ol(static_cast<long long>(B) * S, D, I, F);
   float* xs = reinterpret_cast<float*>(smem_raw + pl.xs);
   float* acc = reinterpret_cast<float*>(smem_raw + pl.acc);
   bf16* hb = reinterpret_cast<bf16*>(smem_raw + pl.hb);
@@ -709,7 +691,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
   float* rs1 = mu1 + R;
   float* mu2 = rs1 + R;
   float* rs2 = mu2 + R;
-  float* part = ws + static_cast<size_t>(blockIdx.x) * gl.total;
+  float* part = ws + static_cast<size_t>(blockIdx.x) * sl.total;
   const bf16 zero = __float2bfloat16(0.f);
 
   const int seqs = seqs_per_block(S);
@@ -720,8 +702,8 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
   // out-projection rows
   auto stage_head = [&](int h) {
     for (int j = 0; j < 3; ++j)
-      stage_weights(wqkv + j * I + h * dh, 3 * I, D, dh, wst + j * dh, pl.ld_w3);
-    stage_weights(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wst2, pl.ld_wd);
+      copy_rows(wqkv + j * I + h * dh, 3 * I, D, dh, wst + j * dh, pl.ld_w3);
+    copy_rows(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wst2, pl.ld_wd);
   };
   // q, k, v of head h from hb and the staged slices; scores into sc
   auto qkv_scores = [&]() {
@@ -804,11 +786,12 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
     }
     __syncthreads();
     ln_rows_bf16(xs, rows, D, ln2s, ln2b, mu2, rs2, hb, pl.ld_h);
-    stage_weights(w1, F, D, F, w1s, pl.ld_w1);
-    stage_weights(w2, D, F, D, w2s, pl.ld_wd);
+    copy_rows(w1, F, D, F, w1s, pl.ld_w1);
+    copy_rows(w2, D, F, D, w2s, pl.ld_wd);
     __syncthreads();
 
     // ---- MLP: forward, then backward ---------------------------------------
+    copy_rows(hb, pl.ld_h, rows, D, ops + ol.h2 + row0 * D, D);
     tcmm<kTcBiasF32, wmma::row_major, wmma::row_major>(hb, pl.ld_h, R, D, w1s, pl.ld_w1, F, u,
                                                        pl.ld_u, b1, stage);
     for (int c = tid; c < D; c += nthr) {  // dp2 = dy * mask7; db2
@@ -822,9 +805,10 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
         }
         dp2[r * pl.ld_h + c] = __float2bfloat16(val);
       }
-      put(part + gl.b2 + c, s, first);
+      put(part + sl.b2 + c, s, first);
     }
     __syncthreads();
+    copy_rows(dp2, pl.ld_h, rows, D, ops + ol.dp2 + row0 * D, D);
     for (int i = tid; i < R * F; i += nthr) {
       const int r = i / F, c = i % F;
       g[r * pl.ld_g + c] = __float2bfloat16(
@@ -833,8 +817,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
                    : 0.f);
     }
     __syncthreads();
-    tcmm<kTcPartial, wmma::col_major, wmma::row_major>(g, pl.ld_g, F, R, dp2, pl.ld_h, D,
-                                                       part + gl.w2, D, nullptr, stage, first);
+    copy_rows(g, pl.ld_g, rows, F, ops + ol.gd + row0 * F, F);
     tcmm<kTcF32, wmma::row_major, wmma::col_major>(dp2, pl.ld_h, R, D, w2s, pl.ld_wd, F, dgd,
                                                    pl.ld_u, nullptr, stage);  // dp2 w2^T
     __syncthreads();
@@ -850,15 +833,14 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
         }
         g[r * pl.ld_g + c] = __float2bfloat16(du);
       }
-      put(part + gl.b1 + c, s, first);
+      put(part + sl.b1 + c, s, first);
     }
     __syncthreads();
-    tcmm<kTcPartial, wmma::col_major, wmma::row_major>(hb, pl.ld_h, D, R, g, pl.ld_g, F,
-                                                       part + gl.w1, F, nullptr, stage, first);
+    copy_rows(g, pl.ld_g, rows, F, ops + ol.du + row0 * F, F);
     tcmm<kTcF32, wmma::row_major, wmma::col_major>(g, pl.ld_g, R, F, w1s, pl.ld_w1, D, acc, D,
                                                    nullptr, stage);  // dh2 = du w1^T
     __syncthreads();
-    ln_param_partials(acc, xs, mu2, rs2, rows, D, part + gl.ln2s, part + gl.ln2b, first);
+    ln_param_partials(acc, xs, mu2, rs2, rows, D, part + sl.ln2s, part + sl.ln2b, first);
     __syncthreads();
     ln_bwd_rows(acc, xs, mu2, rs2, rows, D, ln2s, dyb);  // acc = dx1 = dy + LN2'(dh2)
     __syncthreads();
@@ -870,7 +852,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
         s += val;
         dp1[r * pl.ld_h + c] = __float2bfloat16(val);
       }
-      put(part + gl.bout + c, s, first);
+      put(part + sl.bout + c, s, first);
     }
     for (int i = tid; i < rows * D; i += nthr) {  // h1 again, from the saved statistics
       const int r = i / D, c = i % D;
@@ -879,6 +861,8 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
     }
     for (int i = tid; i < R * D; i += nthr) xs[i] = 0.f;  // the dh1 accumulator
     __syncthreads();
+    copy_rows(dp1, pl.ld_h, rows, D, ops + ol.dp1 + row0 * D, D);
+    copy_rows(hb, pl.ld_h, rows, D, ops + ol.h1 + row0 * D, D);
 
     // ---- attention backward, one head at a time ----------------------------
     for (int h = 0; h < H; ++h) {
@@ -890,9 +874,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
       tcmm<kTcBf16, wmma::row_major, wmma::row_major>(p, pl.ld_p, R, R, v, pl.ld_q, dh, dO,
                                                       pl.ld_q, nullptr, stage);  // o_h
       __syncthreads();
-      tcmm<kTcPartial, wmma::col_major, wmma::row_major>(
-          dO, pl.ld_q, dh, R, dp1, pl.ld_h, D, part + gl.wout + static_cast<size_t>(h) * dh * D,
-          D, nullptr, stage, first);  // dwout_h = o_h^T dp1
+      copy_rows(dO, pl.ld_q, rows, dh, ops + ol.o + row0 * I + h * dh, I);
       __syncthreads();
       tcmm<kTcBf16, wmma::row_major, wmma::col_major>(dp1, pl.ld_h, R, D, wst2, pl.ld_wd, dh, dO,
                                                       pl.ld_q, nullptr, stage);  // dO
@@ -928,11 +910,9 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
       __syncthreads();
       const bf16* dqkv[3] = {dO, k, v};
       for (int j = 0; j < 3; ++j) {
-        // dwqkv[:, j*I + h*dh ...] = h1^T dq/dk/dv; dh1 += dq/dk/dv W_j,h^T
-        // (the same warp owns the same dh1 tile in all three products)
-        tcmm<kTcPartial, wmma::col_major, wmma::row_major>(
-            hb, pl.ld_h, D, R, dqkv[j], pl.ld_q, dh, part + gl.wqkv + j * I + h * dh, 3 * I,
-            nullptr, stage, first);
+        // dqkv[:, j*I + h*dh ...] out to device memory; dh1 += dq/dk/dv W_j,h^T
+        copy_rows(dqkv[j], pl.ld_q, rows, dh, ops + ol.dqkv + row0 * 3 * I + j * I + h * dh,
+                  3 * I);
         tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(dqkv[j], pl.ld_q, R, dh, wst + j * dh,
                                                           pl.ld_w3, D, xs, D, nullptr, stage);
       }
@@ -940,7 +920,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
     }
 
     // ---- LN1 backward: dx0 = dx1 + LN1'(dh1) --------------------------------
-    ln_param_partials(xs, x0, mu1, rs1, rows, D, part + gl.ln1s, part + gl.ln1b, first);
+    ln_param_partials(xs, x0, mu1, rs1, rows, D, part + sl.ln1s, part + sl.ln1b, first);
     __syncthreads();
     ln_bwd_rows(xs, x0, mu1, rs1, rows, D, ln1s, acc);
     __syncthreads();
@@ -960,35 +940,43 @@ __global__ void reduce_partials(const float* __restrict__ ws, float* __restrict_
   }
 }
 
-// the block kernel of the chosen form, then the reduction of the partials
-template <typename T, typename C, bool TC>
+// the small vectors' entries of the gradient vector: the row kernel's
+// partials (SmallLayout) summed over blocks in order
+__global__ void reduce_small(const float* __restrict__ ws, float* __restrict__ grads, int nparts,
+                             int D, int I, int F) {
+  const SmallLayout sl(D, F);
+  const GradLayout gl(D, I, F);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < sl.total; i += gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int b = 0; b < nparts; ++b) s += ws[static_cast<size_t>(b) * sl.total + i];
+    // ln1 scale/bias and bout, ln2 scale/bias are runs of the gradient vector
+    const size_t at = i < sl.bout ? gl.ln1s + i
+                      : i < sl.b1 ? gl.bout + (i - sl.bout)
+                      : i < sl.b2 ? gl.b1 + (i - sl.b1)
+                                  : gl.b2 + (i - sl.b2);
+    grads[at] = s;
+  }
+}
+
+// the FMA form's block kernel, then the reduction of its partials
+template <typename T, typename C>
 cudaError_t launch(const void* x, const void* dy, void* dx, const void* ln1s, const void* ln1b,
                    const void* wqkv, const void* wout, const void* bout, const void* ln2s,
                    const void* ln2b, const void* w1, const void* b1, const void* w2,
                    const void* b2, void* ws, void* grads, int B, int S, int D, int H, int dh,
                    int F, int nparts, DropCfg dc, cudaStream_t stream) {
-  auto run = [&](auto kernel, int threads, size_t bytes) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = fused_layer_bwd_kernel<T, C>;
+  const size_t bytes = BwdPlan(S, D, dh, F).floats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    kernel<<<nparts, threads, bytes, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx),
-        static_cast<const float*>(ln1s), static_cast<const float*>(ln1b),
-        static_cast<const C*>(wqkv), static_cast<const C*>(wout),
-        static_cast<const float*>(bout),
-        static_cast<const float*>(ln2s), static_cast<const float*>(ln2b),
-        static_cast<const C*>(w1), static_cast<const float*>(b1),
-        static_cast<const C*>(w2), static_cast<const float*>(b2),
-        static_cast<float*>(ws), B, S, D, H, dh, F, dc);
-    return cudaSuccess;
-  };
-  cudaError_t err;
-  if constexpr (TC)
-    err = run(fused_layer_bwd_tc_kernel<T>, kTcThreads,
-              TcBwdPlan(S, D, dh, F, kTcThreads / 32).bytes);
-  else
-    err = run(fused_layer_bwd_kernel<T, C>, kThreads, BwdPlan(S, D, dh, F).floats * sizeof(float));
   if (err != cudaSuccess) return err;
+  kernel<<<nparts, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx),
+      static_cast<const float*>(ln1s), static_cast<const float*>(ln1b),
+      static_cast<const C*>(wqkv), static_cast<const C*>(wout), static_cast<const float*>(bout),
+      static_cast<const float*>(ln2s), static_cast<const float*>(ln2b),
+      static_cast<const C*>(w1), static_cast<const float*>(b1), static_cast<const C*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(ws), B, S, D, H, dh, F, dc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = GradLayout(D, H * dh, F).total;
@@ -999,20 +987,52 @@ cudaError_t launch(const void* x, const void* dy, void* dx, const void* ln1s, co
   return cudaGetLastError();
 }
 
+// the row kernel, then the reduction of its small-vector partials
+template <typename T>
+cudaError_t launch_tc(const void* x, const void* dy, void* dx, const void* ln1s,
+                      const void* ln1b, const void* wqkv, const void* wout, const void* bout,
+                      const void* ln2s, const void* ln2b, const void* w1, const void* b1,
+                      const void* w2, const void* b2, void* ops, void* ws, void* grads, int B,
+                      int S, int D, int H, int dh, int F, int nparts, DropCfg dc,
+                      cudaStream_t stream) {
+  auto kernel = fused_layer_bwd_tc_kernel<T>;
+  const size_t bytes = TcBwdPlan(S, D, dh, F, kTcThreads / 32).bytes;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<nparts, kTcThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx),
+      static_cast<const float*>(ln1s), static_cast<const float*>(ln1b),
+      static_cast<const bf16*>(wqkv), static_cast<const bf16*>(wout),
+      static_cast<const float*>(bout), static_cast<const float*>(ln2s),
+      static_cast<const float*>(ln2b), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+      static_cast<bf16*>(ops), static_cast<float*>(ws), B, S, D, H, dh, F, dc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int total = SmallLayout(D, F).total;
+  reduce_small<<<(total + 255) / 256, 256, 0, stream>>>(static_cast<const float*>(ws),
+                                                        static_cast<float*>(grads), nparts, D,
+                                                        H * dh, F);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+DropCfg drop_cfg(int on, int proj, int seed, int thr, float scale) {
+  return DropCfg{on, proj, static_cast<uint32_t>(seed), static_cast<uint32_t>(thr), scale};
+}
 
 }  // namespace
 
-// x, dy, dx: [B, S, D] in T (fp32, or bf16 when io_bf16). Weights as for
-// fused_layer_fwd (wqkv's q block pre-scaled) in the compute type (bf16
-// when compute_bf16, else fp32); LN scales/biases and biases in fp32.
-// ws: fp32 workspace of nparts x (gradient count) floats, where nparts is
-// the grid (at most the number of row blocks); grads: the fp32 gradient
+// The FMA form. x, dy, dx: [B, S, D] in T (fp32, or bf16 when io_bf16).
+// Weights as for fused_layer_fwd (wqkv's q block pre-scaled) in the compute
+// type (bf16 when compute_bf16, else fp32); LN scales/biases and biases in
+// fp32. ws: fp32 workspace of nparts x (gradient count) floats, where nparts
+// is the grid (at most the number of row blocks); grads: the fp32 gradient
 // vector in the order ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
 // b2. Dropout arguments as for fused_layer_fwd. Launches the block kernel
-// and the reduction on `stream`; returns cudaGetLastError(). bf16 compute
-// takes the tensor-core form when D, dh and F are multiples of 16 and the
-// weights are 16-byte aligned, else the FMA form.
+// and the reduction on `stream`; returns cudaGetLastError().
 extern "C" int fused_layer_bwd(const void* x, const void* dy, void* dx, const void* ln1s,
                                const void* ln1b, const void* wqkv, const void* wout,
                                const void* bout, const void* ln2s, const void* ln2b,
@@ -1022,33 +1042,51 @@ extern "C" int fused_layer_bwd(const void* x, const void* dy, void* dx, const vo
                                int drop_proj, int drop_seed, int drop_thr, float drop_scale,
                                void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const DropCfg dc{drop_on, drop_proj, static_cast<uint32_t>(drop_seed),
-                   static_cast<uint32_t>(drop_thr), drop_scale};
-  const bool tc = compute_bf16 && D % 16 == 0 && dh % 16 == 0 && F % 16 == 0 &&
-                  aligned16(wqkv) && aligned16(wout) && aligned16(w1) && aligned16(w2);
+  const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale);
   cudaError_t err;
-  if (tc && io_bf16)
-    err = launch<bf16, bf16, true>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1,
-                                   w2, b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
-  else if (tc)
-    err = launch<float, bf16, true>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1,
-                                    w2, b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
-  else if (io_bf16 && compute_bf16)
-    err = launch<bf16, bf16, false>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1,
-                                    w2, b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
+  if (io_bf16 && compute_bf16)
+    err = launch<bf16, bf16>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2,
+                             ws, grads, B, S, D, H, dh, F, nparts, dc, st);
   else if (io_bf16)
-    err = launch<bf16, float, false>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
+    err = launch<bf16, float>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
                               b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
   else if (compute_bf16)
-    err = launch<float, bf16, false>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
+    err = launch<float, bf16>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
                               b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
   else
-    err = launch<float, float, false>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
+    err = launch<float, float>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
                                b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
   return static_cast<int>(err);
 }
 
-// the gradient count (the length of grads and of one workspace row)
+// The tensor-core form's row kernel (bf16 compute; D, dh and F multiples of
+// 16; bf16 weights 16-byte aligned). Arguments as for fused_layer_bwd, and:
+// ops, the bf16 operand buffer of OperandLayout (N = B * S rows, 16-byte
+// aligned) that layer_wgrad.cu reads; ws, nparts x (6D + F) floats of
+// small-vector partials. Writes dx, ops and the small vectors' entries of
+// grads (layer_wgrad writes the four weight gradients).
+extern "C" int fused_layer_bwd_tc(const void* x, const void* dy, void* dx, const void* ln1s,
+                                  const void* ln1b, const void* wqkv, const void* wout,
+                                  const void* bout, const void* ln2s, const void* ln2b,
+                                  const void* w1, const void* b1, const void* w2, const void* b2,
+                                  void* ops, void* ws, void* grads, int B, int S, int D, int H,
+                                  int dh, int F, int io_bf16, int nparts, int drop_on,
+                                  int drop_proj, int drop_seed, int drop_thr, float drop_scale,
+                                  void* stream) {
+  if (D % 16 || dh % 16 || F % 16 || !aligned16(wqkv) || !aligned16(wout) || !aligned16(w1) ||
+      !aligned16(w2) || !aligned16(ops))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale);
+  const cudaError_t err =
+      io_bf16 ? launch_tc<bf16>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
+                                b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st)
+              : launch_tc<float>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
+                                 b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
+  return static_cast<int>(err);
+}
+
+// the gradient count (the length of grads and of one FMA-form workspace row)
 extern "C" long long fused_layer_bwd_grad_count(int D, int I, int F) {
   return static_cast<long long>(GradLayout(D, I, F).total);
 }

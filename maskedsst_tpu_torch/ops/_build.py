@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
 KERNELS = ("fused_embed_fwd", "fused_embed_bwd", "fused_layer_fwd", "fused_layer_bwd",
-           "fused_simmim_fwd", "fused_simmim_bwd", "dropout_sample")
+           "layer_wgrad", "fused_simmim_fwd", "fused_simmim_bwd", "dropout_sample")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -37,6 +37,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from maskedsst_tpu_torch.ops import layer_wgrad
+
 LN_EPS = 1e-5
 _FWD = "fused_layer_fwd"
 _BWD = "fused_layer_bwd"
@@ -222,9 +224,10 @@ def _ln_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
 
 
 def _ln_bwd(dout, z, rsig, scale):
+    """(the LN input's gradient, the per-row terms of the scale's gradient)."""
     dz = dout * scale.float()
     dx = rsig * (dz - dz.mean(dim=-1, keepdim=True) - z * (dz * z).mean(dim=-1, keepdim=True))
-    return dx, (dout * z).sum(dim=0), dout.sum(dim=0)
+    return dx, dout * z
 
 
 def _gelu_grad(u: torch.Tensor) -> torch.Tensor:
@@ -323,26 +326,34 @@ def reference_layer_bwd(
     gradient ``ds = (da - sum(da a)) a`` on the undropped ``a`` with ``da =
     da_d * mask``. Returns (dx in x's dtype, LayerParams of fp32 grads)."""
     cfg = LayerConfig(heads, dim_head, compute_dtype, dropout_rate, train, seed, proj_dropout)
+    dx, ops, rows = _bwd_terms(x, dy, params, cfg)
+    grads = {k: t.sum(dim=0) for k, t in rows.items()}
+    for name, left, right in layer_wgrad.PRODUCTS:
+        grads[name] = _rc(ops[left], compute_dtype).t() @ _rc(ops[right], compute_dtype)
+    grads["wqkv"][:, :heads * dim_head] *= dim_head**-0.5
+    return dx, LayerParams(**grads)
+
+
+def _bwd_terms(x, dy, params: LayerParams, cfg: LayerConfig):
+    """The plain backward short of its sums over rows: (dx in x's dtype, the
+    weight gradients' operands by layer_wgrad.OPERANDS name, [B*S, C] fp32
+    before their rounding to the compute dtype, the small vectors' per-row
+    terms by LayerParams name, [B*S, C] fp32)."""
     b, s, d = x.shape
-    cd, inner = compute_dtype, heads * dim_head
+    cd, heads, dim_head = cfg.compute_dtype, cfg.heads, cfg.dim_head
+    inner = heads * dim_head
     _, sv = _forward(x, params, cfg)
     m1, m3, m5, m7 = sv["masks"]
     dyf = dy.float().reshape(b * s, d)
 
     dp2 = _mul(dyf, m7)
-    db2 = dp2.sum(dim=0)
-    dw2 = _rc(sv["gd"], cd).t() @ _rc(dp2, cd)
     dg = _mul(_rc(dp2, cd) @ _rc(params.w2, cd).t(), m5)
     du = dg * _gelu_grad(sv["u"])
-    db1 = du.sum(dim=0)
-    dw1 = _rc(sv["h2"], cd).t() @ _rc(du, cd)
     dh2 = _rc(du, cd) @ _rc(params.w1, cd).t()
-    dx1_ln, dln2s, dln2b = _ln_bwd(dh2, sv["z2"], sv["rsig2"], params.ln2_scale)
+    dx1_ln, gz2 = _ln_bwd(dh2, sv["z2"], sv["rsig2"], params.ln2_scale)
     dx1 = dyf + dx1_ln
 
     dp1 = _mul(dx1, m3)
-    dbout = dp1.sum(dim=0)
-    dwout = _rc(sv["o"], cd).t() @ _rc(dp1, cd)
     dO = (_rc(dp1, cd) @ _rc(params.wout, cd).t()).reshape(b, s, heads, dim_head).transpose(1, 2)
     q, k, v, a, a_d = sv["q"], sv["k"], sv["v"], sv["a"], sv["a_d"]
     da = _mul(_rc(dO, cd) @ v.transpose(-1, -2), m1)
@@ -355,12 +366,40 @@ def reference_layer_bwd(
         return t.transpose(1, 2).reshape(b * s, inner)
 
     dqkv = torch.cat([flat(dq), flat(dk), flat(dv)], dim=-1)
-    dwqkv = _rc(sv["h1"], cd).t() @ _rc(dqkv, cd)
-    dwqkv[:, :inner] *= dim_head**-0.5
     dh1 = _rc(dqkv, cd) @ _rc(sv["wq"], cd).t()
-    dx0_ln, dln1s, dln1b = _ln_bwd(dh1, sv["z1"], sv["rsig1"], params.ln1_scale)
+    dx0_ln, gz1 = _ln_bwd(dh1, sv["z1"], sv["rsig1"], params.ln1_scale)
     dx = (dx1 + dx0_ln).reshape(b, s, d).to(x.dtype)
-    return dx, LayerParams(dln1s, dln1b, dwqkv, dwout, dbout, dln2s, dln2b, dw1, db1, dw2, db2)
+    ops = dict(h1=sv["h1"], dqkv=dqkv, o=sv["o"], dp1=dp1, h2=sv["h2"], du=du, gd=sv["gd"],
+               dp2=dp2)
+    rows = dict(ln1_scale=gz1, ln1_bias=dh1, bout=dp1, ln2_scale=gz2, ln2_bias=dh2, b1=du,
+                b2=dp2)
+    return dx, ops, rows
+
+
+# the small vectors, in the order of the row kernel's per-block partials
+SMALL = ("ln1_scale", "ln1_bias", "bout", "ln2_scale", "ln2_bias", "b1", "b2")
+
+
+def layer_bwd_rows_reference(x, dy, params: LayerParams, *config, nparts: int):
+    """Plain version of the tensor-core form's row kernel: (dx in x's dtype,
+    the flat operand buffer of layer_wgrad.OPERANDS in the compute dtype,
+    the small vectors' partials [nparts, 6D + F] in SMALL order). Kernel
+    block p owns row blocks p, p + nparts, ... of seqs_per_block(S) whole
+    sequences; its partial is their sum."""
+    cfg = LayerConfig(*config)
+    b, s, _ = x.shape
+    dx, ops, rows = _bwd_terms(x, dy, params, cfg)
+    buf = torch.cat([ops[k].to(cfg.compute_dtype).reshape(-1) for k in layer_wgrad.OPERANDS])
+    terms = torch.cat([rows[k] for k in SMALL], dim=1)  # [B*S, 6D + F]
+    seqs = seqs_per_block(s)
+    nblocks = -(-b // seqs)
+    per_seq = terms.view(b, s, -1).sum(dim=1)
+    per_seq = torch.cat([per_seq, per_seq.new_zeros(nblocks * seqs - b, per_seq.shape[1])])
+    per_block = per_seq.view(nblocks, seqs, -1).sum(dim=1)
+    rounds = -(-nblocks // nparts)
+    per_block = torch.cat([per_block,
+                           per_block.new_zeros(rounds * nparts - nblocks, per_block.shape[1])])
+    return dx, buf, per_block.view(rounds, nparts, -1).sum(dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -375,9 +414,10 @@ def _bind(name: str):
     if name == _FWD:
         return lib, _build.bind(lib, name, n_pointers=13, n_ints=12, n_floats=1)
     fn = _build.bind(lib, name, n_pointers=16, n_ints=13, n_floats=1)
+    tc = _build.bind(lib, name + "_tc", n_pointers=17, n_ints=12, n_floats=1)
     lib.fused_layer_bwd_grad_count.argtypes = [ctypes.c_int] * 3
     lib.fused_layer_bwd_grad_count.restype = ctypes.c_longlong
-    return lib, fn
+    return lib, (fn, tc)
 
 
 def _i32(v: int) -> int:
@@ -401,12 +441,7 @@ def _check(x, params, cfg: LayerConfig, name: str):
     b, s, d = x.shape
     inner = cfg.heads * cfg.dim_head
     f = params.w1.shape[1]
-    expect = {
-        "ln1_scale": (d,), "ln1_bias": (d,), "wqkv": (d, 3 * inner), "wout": (inner, d),
-        "bout": (d,), "ln2_scale": (d,), "ln2_bias": (d,), "w1": (d, f), "b1": (f,),
-        "w2": (f, d), "b2": (d,),
-    }
-    for pname, shape in expect.items():
+    for pname, shape in layer_wgrad.grad_shapes(d, inner, f).items():
         t = getattr(params, pname)
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(
@@ -464,22 +499,112 @@ def seqs_per_block(s: int) -> int:
     return 1 if s >= 64 else 64 // s
 
 
+def _tc_form(cfg: LayerConfig, d: int, f: int) -> bool:
+    """Whether the backward takes the tensor-core form (the row kernel, then
+    layer_wgrad) rather than the FMA form: bf16 compute at widths that are
+    multiples of 16."""
+    return (cfg.compute_dtype == torch.bfloat16 and d % 16 == 0 and cfg.dim_head % 16 == 0
+            and f % 16 == 0)
+
+
+def _nparts(b: int, s: int, device: torch.device) -> int:
+    """The backward's grid: one block per SM (132, an H100's, for the plain
+    versions on the CPU), at most one per row block."""
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 132)
+    return min(-(-b // seqs_per_block(s)), sms)
+
+
+def _check_dy(x, dy, name):
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"{name}: dy must match x {tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+
+
+def layer_bwd_rows(x, dy, params, *config):
+    """The tensor-core form's row kernel → (dx in x's dtype, the flat operand
+    buffer of layer_wgrad.OPERANDS, the flat fp32 gradient vector with the
+    small vectors' entries written). A CPU tensor takes
+    :func:`layer_bwd_rows_reference` (and sums its partials in order); a
+    CUDA tensor launches ``csrc/fused_layer_bwd.cu``'s row kernel or
+    raises. ``config`` as the fields of LayerConfig."""
+    global bwd_launches
+    cfg = LayerConfig(*config)
+    b, s, d, inner, f = _check(x, params, cfg, _BWD)
+    _check_dy(x, dy, _BWD)
+    nparts = _nparts(b, s, x.device)
+    count = sum(layer_wgrad._numel(sh) for sh in layer_wgrad.grad_shapes(d, inner, f).values())
+    grads = torch.empty(count, dtype=torch.float32, device=x.device)
+    if x.device.type == "cpu":
+        dx, ops, partials = layer_bwd_rows_reference(x, dy, params, *cfg, nparts=nparts)
+        views = layer_wgrad.split_grads(grads, d, inner, f)
+        for name, part in zip(SMALL, partials.split([views[k].numel() for k in SMALL], dim=1)):
+            total = part[0]
+            for row in part[1:]:
+                total = total + row
+            views[name].copy_(total)
+        return dx, ops, grads
+    from maskedsst_tpu_torch.ops import _build
+
+    if not _tc_form(cfg, d, f):
+        raise ValueError(f"{_BWD}: the row kernel takes bf16 compute at widths that are "
+                         f"multiples of 16, got {cfg.compute_dtype}, D {d}, dh {cfg.dim_head}, "
+                         f"F {f}")
+    args = _kernel_weights(params, cfg)
+    n = b * s
+    ops = torch.empty(n * sum(layer_wgrad.operand_widths(d, inner, f).values()),
+                      dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((nparts, 6 * d + f), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    lib, (_, fn) = _bind(_BWD)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
+            ops.data_ptr(), ws.data_ptr(), grads.data_ptr(),
+            b, s, d, cfg.heads, cfg.dim_head, f, _flags(x, cfg)[0], nparts, *_drop_args(cfg),
+            ctypes.c_void_p(stream),
+        )
+    _build.check(lib, _BWD, code)
+    bwd_launches += 1
+    return dx, ops, grads
+
+
+def layer_bwd_split(x, dy, params, *config):
+    """The tensor-core form's backward: :func:`layer_bwd_rows`, then
+    :func:`~maskedsst_tpu_torch.ops.layer_wgrad.layer_wgrad` → (dx in x's
+    dtype, LayerParams of fp32 grads). Kernels on a CUDA tensor, their plain
+    versions on a CPU one."""
+    cfg = LayerConfig(*config)
+    b, s, d = x.shape
+    inner, f = cfg.heads * cfg.dim_head, params.w1.shape[1]
+    dx, ops, grads = layer_bwd_rows(x, dy, params, *cfg)
+    layer_wgrad.layer_wgrad(ops, b * s, d, inner, f, grads)
+    return dx, _unflatten(grads, d, inner, f, cfg.dim_head)
+
+
+def _unflatten(grads, d, inner, f, dim_head) -> LayerParams:
+    out = LayerParams(**layer_wgrad.split_grads(grads, d, inner, f))
+    out.wqkv[:, :inner] *= dim_head**-0.5  # the folded q scale
+    return out
+
+
 def _launch_bwd(x, dy, params, *config):
-    """Backward kernel → (dx in x's dtype, LayerParams of fp32 grads);
-    ``config`` as the fields of LayerConfig."""
+    """Backward kernels → (dx in x's dtype, LayerParams of fp32 grads): the
+    split tensor-core form where it applies, else the FMA form; ``config``
+    as the fields of LayerConfig."""
     global bwd_launches
     from maskedsst_tpu_torch.ops import _build
 
     cfg = LayerConfig(*config)
     b, s, d, inner, f = _check(x, params, cfg, _BWD)
-    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
-        raise ValueError(f"{_BWD}: dy must match x {tuple(x.shape)} {x.dtype}, got "
-                         f"{tuple(dy.shape)} {dy.dtype}")
+    _check_dy(x, dy, _BWD)
+    if _tc_form(cfg, d, f):
+        return layer_bwd_split(x, dy, params, *cfg)
     args = _kernel_weights(params, cfg)
-    lib, fn = _bind(_BWD)
+    lib, (fn, _) = _bind(_BWD)
     count = int(lib.fused_layer_bwd_grad_count(d, inner, f))
-    nblocks = -(-b // seqs_per_block(s))
-    nparts = min(nblocks, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    nparts = _nparts(b, s, x.device)
     ws = torch.empty((nparts, count), dtype=torch.float32, device=x.device)
     grads = torch.empty(count, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -493,9 +618,4 @@ def _launch_bwd(x, dy, params, *config):
         )
     _build.check(lib, _BWD, code)
     bwd_launches += 1
-    sizes = [d, d, d * 3 * inner, inner * d, d, d, d, d * f, f, f * d, d]
-    parts = list(grads.split(sizes))
-    shapes = [t.shape for t in params]
-    out = LayerParams(*(p.view(sh) for p, sh in zip(parts, shapes)))
-    out.wqkv[:, :inner] *= cfg.dim_head**-0.5  # the folded q scale
-    return dx, out
+    return dx, _unflatten(grads, d, inner, f, cfg.dim_head)
