@@ -646,12 +646,36 @@ __device__ void ln_rows_bf16(const float* src, int rows, int D, const float* __r
   }
 }
 
+// two-pass fp32 statistics of the rows of x [rows, D] (device memory), one
+// warp per row, as ln_rows_bf16 takes them
+template <typename T>
+__device__ void ln_stats_rows(const T* x, int rows, int D, float* mu_out, float* rs_out) {
+  const int lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  for (int r = threadIdx.x / 32; r < rows; r += nwarps) {
+    const T* xr = x + static_cast<size_t>(r) * D;
+    float s = 0.f;
+    for (int c = lane; c < D; c += 32) s += to_f(xr[c]);
+    const float mu = warp_sum(s) / D;
+    float v = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float t = to_f(xr[c]) - mu;
+      v += t * t;
+    }
+    const float rsig = rsqrtf(warp_sum(v) / D + kLnEps);
+    if (lane == 0) {
+      mu_out[r] = mu;
+      rs_out[r] = rsig;
+    }
+  }
+}
+
 // The row kernel: dx, the weight gradients' bf16 operands (OperandLayout)
 // and the block's partial sums of the small vectors (SmallLayout), with no
 // weight-gradient product of its own.
 template <typename T>
 __global__ void __launch_bounds__(kTcThreads)
-fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
+                          const T* __restrict__ dy, T* __restrict__ dx,
                           const float* __restrict__ ln1s, const float* __restrict__ ln1b,
                           const bf16* __restrict__ wqkv, const bf16* __restrict__ wout,
                           const float* __restrict__ bout,
@@ -755,35 +779,13 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* 
     const T* x0 = x + row0 * D;
     const T* dyb = dy + row0 * D;
 
-    // ---- recompute the forward up to x1 = x0 + attention -------------------
-    for (int i = tid; i < R * D; i += nthr) {
-      xs[i] = i < rows * D ? to_f(x0[i]) : 0.f;
-      acc[i] = 0.f;
-    }
+    // ---- x1 from the forward; LN1's statistics from x0 -----------------------
+    for (int i = tid; i < R * D; i += nthr) xs[i] = i < rows * D ? x1[row0 * D + i] : 0.f;
     for (int i = tid; i < R * pl.ld_h; i += nthr) {
       hb[i] = zero;
       dp1[i] = zero;
     }
-    __syncthreads();
-    ln_rows_bf16(xs, rows, D, ln1s, ln1b, mu1, rs1, hb, pl.ld_h);
-    __syncthreads();
-    for (int h = 0; h < H; ++h) {
-      stage_head(h);
-      __syncthreads();
-      qkv_scores();
-      softmax(h, seq0, rows, false);
-      __syncthreads();
-      tcmm<kTcBf16, wmma::row_major, wmma::row_major>(p, pl.ld_p, R, R, v, pl.ld_q, dh, q,
-                                                      pl.ld_q, nullptr, stage);  // o_h over q
-      __syncthreads();
-      tcmm<kTcAccF32, wmma::row_major, wmma::row_major>(q, pl.ld_q, R, dh, wst2, pl.ld_wd, D, acc,
-                                                        D, nullptr, stage);
-      __syncthreads();
-    }
-    for (int i = tid; i < rows * D; i += nthr) {
-      const float m = dc.proj ? drop_mult(dc, kSiteProj, row0 * D + i) : 1.f;
-      xs[i] = xs[i] + (acc[i] + bout[i % D]) * m;
-    }
+    ln_stats_rows(x0, rows, D, mu1, rs1);
     __syncthreads();
     ln_rows_bf16(xs, rows, D, ln2s, ln2b, mu2, rs2, hb, pl.ld_h);
     copy_rows(w1, F, D, F, w1s, pl.ld_w1);
@@ -989,8 +991,8 @@ cudaError_t launch(const void* x, const void* dy, void* dx, const void* ln1s, co
 
 // the row kernel, then the reduction of its small-vector partials
 template <typename T>
-cudaError_t launch_tc(const void* x, const void* dy, void* dx, const void* ln1s,
-                      const void* ln1b, const void* wqkv, const void* wout, const void* bout,
+cudaError_t launch_tc(const void* x, const void* x1, const void* dy, void* dx,
+                      const void* ln1s, const void* ln1b, const void* wqkv, const void* wout, const void* bout,
                       const void* ln2s, const void* ln2b, const void* w1, const void* b1,
                       const void* w2, const void* b2, void* ops, void* ws, void* grads, int B,
                       int S, int D, int H, int dh, int F, int nparts, DropCfg dc,
@@ -1001,7 +1003,8 @@ cudaError_t launch_tc(const void* x, const void* dy, void* dx, const void* ln1s,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<nparts, kTcThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx),
+      static_cast<const T*>(x), static_cast<const float*>(x1), static_cast<const T*>(dy),
+      static_cast<T*>(dx),
       static_cast<const float*>(ln1s), static_cast<const float*>(ln1b),
       static_cast<const bf16*>(wqkv), static_cast<const bf16*>(wout),
       static_cast<const float*>(bout), static_cast<const float*>(ln2s),
@@ -1061,11 +1064,14 @@ extern "C" int fused_layer_bwd(const void* x, const void* dy, void* dx, const vo
 
 // The tensor-core form's row kernel (bf16 compute; D, dh and F multiples of
 // 16; bf16 weights 16-byte aligned). Arguments as for fused_layer_bwd, and:
+// x1, the fp32 [B, S, D] residual stream after attention that
+// fused_layer_fwd wrote for this x;
 // ops, the bf16 operand buffer of OperandLayout (N = B * S rows, 16-byte
 // aligned) that layer_wgrad.cu reads; ws, nparts x (6D + F) floats of
 // small-vector partials. Writes dx, ops and the small vectors' entries of
 // grads (layer_wgrad writes the four weight gradients).
-extern "C" int fused_layer_bwd_tc(const void* x, const void* dy, void* dx, const void* ln1s,
+extern "C" int fused_layer_bwd_tc(const void* x, const void* x1, const void* dy, void* dx,
+                                  const void* ln1s,
                                   const void* ln1b, const void* wqkv, const void* wout,
                                   const void* bout, const void* ln2s, const void* ln2b,
                                   const void* w1, const void* b1, const void* w2, const void* b2,
@@ -1079,10 +1085,10 @@ extern "C" int fused_layer_bwd_tc(const void* x, const void* dy, void* dx, const
   auto st = static_cast<cudaStream_t>(stream);
   const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale);
   const cudaError_t err =
-      io_bf16 ? launch_tc<bf16>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
-                                b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st)
-              : launch_tc<float>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
-                                 b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
+      io_bf16 ? launch_tc<bf16>(x, x1, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1,
+                                w2, b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st)
+              : launch_tc<float>(x, x1, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1,
+                                 w2, b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
   return static_cast<int>(err);
 }
 

@@ -15,6 +15,9 @@
 // identity), the GELU output and the MLP output, with masks from the
 // counter-based hash in common.cuh keyed by (layer seed, site, logical
 // index), so fused_layer_bwd.cu regenerates the same bits.
+// Given an x1 buffer (the training call of the tensor-core form), it also
+// writes the residual stream after attention, so that the backward's row
+// kernel starts from it instead of recomputing the attention forward.
 //
 // What bounds it on the H100: operations. At dim 96, inner width 512 and
 // seq 64 a token costs ~5.5e5 flop against 2 x 96 values of slab traffic,
@@ -371,7 +374,7 @@ __device__ void tc_mm(const bf16* A, int lda, int R, int K, const bf16* B, int l
 
 template <typename T>
 __global__ void __launch_bounds__(kTcThreads)
-fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y,
+fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ x1,
                           const float* __restrict__ ln1s, const float* __restrict__ ln1b,
                           const bf16* __restrict__ wqkv, const bf16* __restrict__ wout,
                           const float* __restrict__ bout,
@@ -473,6 +476,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y,
   for (int i = tid; i < rows * D; i += nthr) {
     const float m = dc.proj ? drop_mult(dc, kSiteProj, row0 * D + i) : 1.f;
     xs[i] = xs[i] + (proj[i] + bout[i % D]) * m;
+    if (x1) x1[base + i] = xs[i];
   }
   __syncthreads();
   layer_norm_rows<bf16, bf16>(xs, hs, plan.ld_h, rows, D, ln2s, ln2b);
@@ -518,7 +522,7 @@ cudaError_t launch_fma(const void* x, void* y, const void* ln1s, const void* ln1
 }
 
 template <typename T>
-cudaError_t launch_tc(const void* x, void* y, const void* ln1s, const void* ln1b,
+cudaError_t launch_tc(const void* x, void* y, void* x1, const void* ln1s, const void* ln1b,
                       const void* wqkv, const void* wout, const void* bout,
                       const void* ln2s, const void* ln2b, const void* w1, const void* b1,
                       const void* w2, const void* b2,
@@ -531,7 +535,7 @@ cudaError_t launch_tc(const void* x, void* y, const void* ln1s, const void* ln1b
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   kernel<<<(B + seqs - 1) / seqs, kTcThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y),
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<float*>(x1),
       static_cast<const float*>(ln1s), static_cast<const float*>(ln1b),
       static_cast<const bf16*>(wqkv), static_cast<const bf16*>(wout),
       static_cast<const float*>(bout),
@@ -555,8 +559,11 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // arrive as the int bit patterns of their uint32 values. Launches on
 // `stream`; returns cudaGetLastError(). bf16 compute takes the tensor-core
 // form when D, dh and F are multiples of 16 and the weights are 16-byte
-// aligned, else the FMA form.
-extern "C" int fused_layer_fwd(const void* x, void* y, const void* ln1s, const void* ln1b,
+// aligned, else the FMA form. x1: null, or (tensor-core form only) an fp32
+// [B, S, D] that receives the residual stream after attention, x + the
+// dropped projection, for fused_layer_bwd.cu's row kernel.
+extern "C" int fused_layer_fwd(const void* x, void* y, void* x1, const void* ln1s,
+                               const void* ln1b,
                                const void* wqkv, const void* wout, const void* bout,
                                const void* ln2s, const void* ln2b, const void* w1,
                                const void* b1, const void* w2, const void* b2,
@@ -568,12 +575,13 @@ extern "C" int fused_layer_fwd(const void* x, void* y, const void* ln1s, const v
                    static_cast<uint32_t>(drop_thr), drop_scale};
   const bool tc = compute_bf16 && D % 16 == 0 && dh % 16 == 0 && F % 16 == 0 &&
                   aligned16(wqkv) && aligned16(wout) && aligned16(w1) && aligned16(w2);
+  if (x1 && !tc) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (tc && io_bf16)
-    err = launch_tc<__nv_bfloat16>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
+    err = launch_tc<__nv_bfloat16>(x, y, x1, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
                                    w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   else if (tc)
-    err = launch_tc<float>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
+    err = launch_tc<float>(x, y, x1, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
                            w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   else if (io_bf16 && compute_bf16)
     err = launch_fma<__nv_bfloat16, __nv_bfloat16>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s,

@@ -109,7 +109,13 @@ def fused_transformer_layer(
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_transformer_layer: unsupported device {x.device}")
     cfg = _config(x, heads, dim_head, compute_dtype, dropout_rate, train, seed, proj_dropout)
-    return _LayerFn.apply(x.device.type == "cpu", cfg, x, *params)
+    plain = x.device.type == "cpu"
+    # the tensor-core backward starts from the forward's x1; a call that no
+    # gradient will reach (serving, validation) writes none
+    save_x1 = (not plain and torch.is_grad_enabled()
+               and any(t.requires_grad for t in (x, *params))
+               and _tc_form(cfg, x.shape[-1], params.w1.shape[1]))
+    return _LayerFn.apply(plain, save_x1, cfg, x, *params)
 
 
 def plain_transformer_layer(x, params, heads, dim_head, compute_dtype=torch.bfloat16,
@@ -117,7 +123,7 @@ def plain_transformer_layer(x, params, heads, dim_head, compute_dtype=torch.bflo
     """The same differentiable layer through the plain versions on any
     device (the reference the card's kernels are held to)."""
     cfg = _config(x, heads, dim_head, compute_dtype, dropout_rate, train, seed, proj_dropout)
-    return _LayerFn.apply(True, cfg, x, *params)
+    return _LayerFn.apply(True, False, cfg, x, *params)
 
 
 def _config(x, heads, dim_head, compute_dtype, dropout_rate, train, seed, proj_dropout):
@@ -131,22 +137,23 @@ def _config(x, heads, dim_head, compute_dtype, dropout_rate, train, seed, proj_d
 
 class _LayerFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, plain: bool, cfg: LayerConfig, x: torch.Tensor, *tensors):
+    def forward(ctx, plain: bool, save_x1: bool, cfg: LayerConfig, x: torch.Tensor, *tensors):
         params = LayerParams(*tensors)
-        y = reference_layer(x, params, *cfg) if plain else _launch(x, params, *cfg)
-        ctx.save_for_backward(x, *tensors)
+        x1 = torch.empty(x.shape, dtype=torch.float32, device=x.device) if save_x1 else None
+        y = reference_layer(x, params, *cfg) if plain else _launch(x, params, *cfg, x1=x1)
+        ctx.save_for_backward(x, x1, *tensors)
         ctx.plain, ctx.cfg = plain, cfg
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, *tensors = ctx.saved_tensors
+        x, x1, *tensors = ctx.saved_tensors
         params = LayerParams(*tensors)
         if ctx.plain:
             dx, grads = reference_layer_bwd(x, dy, params, *ctx.cfg)
         else:
-            dx, grads = _launch_bwd(x, dy.contiguous(), params, *ctx.cfg)
-        return (None, None, dx, *(g.to(t.dtype) for g, t in zip(grads, tensors)))
+            dx, grads = _launch_bwd(x, dy.contiguous(), params, *ctx.cfg, x1=x1)
+        return (None, None, None, dx, *(g.to(t.dtype) for g, t in zip(grads, tensors)))
 
 
 # ---------------------------------------------------------------------------
@@ -412,9 +419,9 @@ def _bind(name: str):
 
     lib = _build.load(name)
     if name == _FWD:
-        return lib, _build.bind(lib, name, n_pointers=13, n_ints=12, n_floats=1)
+        return lib, _build.bind(lib, name, n_pointers=14, n_ints=12, n_floats=1)
     fn = _build.bind(lib, name, n_pointers=16, n_ints=13, n_floats=1)
-    tc = _build.bind(lib, name + "_tc", n_pointers=17, n_ints=12, n_floats=1)
+    tc = _build.bind(lib, name + "_tc", n_pointers=18, n_ints=12, n_floats=1)
     lib.fused_layer_bwd_grad_count.argtypes = [ctypes.c_int] * 3
     lib.fused_layer_bwd_grad_count.restype = ctypes.c_longlong
     return lib, (fn, tc)
@@ -472,8 +479,10 @@ def _flags(x, cfg):
     return int(x.dtype == torch.bfloat16), int(cfg.compute_dtype == torch.bfloat16)
 
 
-def _launch(x, params, *config):
-    """Forward kernel; ``config`` as the fields of LayerConfig."""
+def _launch(x, params, *config, x1=None):
+    """Forward kernel; ``config`` as the fields of LayerConfig. ``x1``: an
+    fp32 tensor shaped as x that receives the residual stream after
+    attention (the tensor-core form only), or None."""
     global launches
     from maskedsst_tpu_torch.ops import _build
 
@@ -485,7 +494,8 @@ def _launch(x, params, *config):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(
-            x.data_ptr(), y.data_ptr(), *(a.data_ptr() for a in args),
+            x.data_ptr(), y.data_ptr(), None if x1 is None else x1.data_ptr(),
+            *(a.data_ptr() for a in args),
             b, s, d, cfg.heads, cfg.dim_head, f, *_flags(x, cfg), *_drop_args(cfg),
             ctypes.c_void_p(stream),
         )
@@ -521,13 +531,15 @@ def _check_dy(x, dy, name):
                          f"{tuple(dy.shape)} {dy.dtype}")
 
 
-def layer_bwd_rows(x, dy, params, *config):
+def layer_bwd_rows(x, dy, params, *config, x1=None):
     """The tensor-core form's row kernel → (dx in x's dtype, the flat operand
     buffer of layer_wgrad.OPERANDS, the flat fp32 gradient vector with the
     small vectors' entries written). A CPU tensor takes
     :func:`layer_bwd_rows_reference` (and sums its partials in order); a
     CUDA tensor launches ``csrc/fused_layer_bwd.cu``'s row kernel or
-    raises. ``config`` as the fields of LayerConfig."""
+    raises. ``config`` as the fields of LayerConfig; ``x1``, the residual
+    stream after attention that the forward kernel wrote for this x (None:
+    a forward launch writes it first)."""
     global bwd_launches
     cfg = LayerConfig(*config)
     b, s, d, inner, f = _check(x, params, cfg, _BWD)
@@ -550,6 +562,11 @@ def layer_bwd_rows(x, dy, params, *config):
         raise ValueError(f"{_BWD}: the row kernel takes bf16 compute at widths that are "
                          f"multiples of 16, got {cfg.compute_dtype}, D {d}, dh {cfg.dim_head}, "
                          f"F {f}")
+    if x1 is None:
+        x1 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        _launch(x, params, *cfg, x1=x1)
+    if x1.shape != x.shape or x1.dtype != torch.float32 or not x1.is_contiguous():
+        raise ValueError(f"{_BWD}: x1 must be a contiguous fp32 {tuple(x.shape)}")
     args = _kernel_weights(params, cfg)
     n = b * s
     ops = torch.empty(n * sum(layer_wgrad.operand_widths(d, inner, f).values()),
@@ -560,8 +577,8 @@ def layer_bwd_rows(x, dy, params, *config):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(
-            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
-            ops.data_ptr(), ws.data_ptr(), grads.data_ptr(),
+            x.data_ptr(), x1.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            *(a.data_ptr() for a in args), ops.data_ptr(), ws.data_ptr(), grads.data_ptr(),
             b, s, d, cfg.heads, cfg.dim_head, f, _flags(x, cfg)[0], nparts, *_drop_args(cfg),
             ctypes.c_void_p(stream),
         )
@@ -570,7 +587,7 @@ def layer_bwd_rows(x, dy, params, *config):
     return dx, ops, grads
 
 
-def layer_bwd_split(x, dy, params, *config):
+def layer_bwd_split(x, dy, params, *config, x1=None):
     """The tensor-core form's backward: :func:`layer_bwd_rows`, then
     :func:`~maskedsst_tpu_torch.ops.layer_wgrad.layer_wgrad` → (dx in x's
     dtype, LayerParams of fp32 grads). Kernels on a CUDA tensor, their plain
@@ -578,7 +595,7 @@ def layer_bwd_split(x, dy, params, *config):
     cfg = LayerConfig(*config)
     b, s, d = x.shape
     inner, f = cfg.heads * cfg.dim_head, params.w1.shape[1]
-    dx, ops, grads = layer_bwd_rows(x, dy, params, *cfg)
+    dx, ops, grads = layer_bwd_rows(x, dy, params, *cfg, x1=x1)
     layer_wgrad.layer_wgrad(ops, b * s, d, inner, f, grads)
     return dx, _unflatten(grads, d, inner, f, cfg.dim_head)
 
@@ -589,10 +606,11 @@ def _unflatten(grads, d, inner, f, dim_head) -> LayerParams:
     return out
 
 
-def _launch_bwd(x, dy, params, *config):
+def _launch_bwd(x, dy, params, *config, x1=None):
     """Backward kernels → (dx in x's dtype, LayerParams of fp32 grads): the
-    split tensor-core form where it applies, else the FMA form; ``config``
-    as the fields of LayerConfig."""
+    split tensor-core form where it applies (``x1`` as for
+    :func:`layer_bwd_rows`), else the FMA form; ``config`` as the fields of
+    LayerConfig."""
     global bwd_launches
     from maskedsst_tpu_torch.ops import _build
 
@@ -600,7 +618,7 @@ def _launch_bwd(x, dy, params, *config):
     b, s, d, inner, f = _check(x, params, cfg, _BWD)
     _check_dy(x, dy, _BWD)
     if _tc_form(cfg, d, f):
-        return layer_bwd_split(x, dy, params, *cfg)
+        return layer_bwd_split(x, dy, params, *cfg, x1=x1)
     args = _kernel_weights(params, cfg)
     lib, (fn, _) = _bind(_BWD)
     count = int(lib.fused_layer_bwd_grad_count(d, inner, f))
