@@ -1,51 +1,55 @@
 // fused_layer_bwd: one pre-norm transformer layer, backward.
 //
 // Replaces the Pallas kernel maskedsst_tpu/ops/fused_layer.py::_layer_bwd_kernel
-// (rule _bwd_rule, pallas_call there). Given x [B, S, D] and dy, it
-// recomputes the layer's forward per block of whole sequences, regenerating
-// the dropout masks of fused_layer_fwd.cu from the same hash (common.cuh),
-// and returns dx [B, S, D] in x's type plus the 11 parameter gradients in
-// fp32 (ln1 scale/bias, wqkv, wout, bout, ln2 scale/bias, w1, b1, w2, b2) as
-// one flat vector in that order. The gradient of the folded q scale is not
-// undone here: the wrapper multiplies the q block of dwqkv by dh^-1/2.
+// (rule _bwd_rule, pallas_call there) together with layer_wgrad.cu. Given x
+// [B, S, D] and dy, it returns dx [B, S, D] in x's type and the 11 parameter
+// gradients in fp32 (ln1 scale/bias, wqkv, wout, bout, ln2 scale/bias, w1,
+// b1, w2, b2) as one flat vector in that order (layer_grads.cuh), the
+// dropout masks of fused_layer_fwd.cu regenerated from the same hash
+// (common.cuh). The gradient of the folded q scale is not undone here: the
+// wrapper multiplies the q block of dwqkv by dh^-1/2.
 //
 // Numeric contract (the TPU kernel's): every product operand rounded to the
 // compute type C at the points where _layer_bwd_kernel casts them (LN
 // outputs, q/k/v, the dropped probabilities a_d, dO, ds, dq/dk/dv, the
 // dropped GELU output, dp2, du, dp1, the head outputs); fp32 accumulation,
 // fp32 LN statistics, softmax and residual stream; ds = (da - sum(da a)) a
-// with da = da_d * mask on the undropped a.
+// with da = da_d * mask on the undropped a. Sums run in a fixed order: two
+// calls give the same bits (no atomics).
 //
-// What bounds it on the H100: operations, about 4x the forward's (the
-// forward is recomputed twice, once to rebuild the residual stream for the
-// MLP backward and once per head inside the attention backward, plus two
-// products per forward product).
+// Two forms, chosen by the wrapper:
 //
-// What this design does about it (correct first, fast later):
-//  - a persistent grid of at most one block per SM; each block walks its
-//    share of row blocks (up to 64 rows of whole sequences) in a fixed
-//    order and adds each row block's parameter gradients into its own fp32
-//    partial vector in a global workspace (no atomics); a second kernel sums
-//    the partials in block order, so the gradients are the same bits from
-//    run to run;
-//  - the whole row block lives in dynamic shared memory (215 KB in the FMA
-//    form, all fp32; 226 KB in the tensor-core form, bf16 operands beside
-//    fp32 streams, at S = 64, D = 96, dh = 64): the residual stream, the
-//    gradient stream, the LN outputs, q/k/v/dO of one head, the scores,
-//    probabilities and their gradients; the MLP buffers alias the attention
-//    buffers, which are dead while the MLP backward runs;
-//  - two forms of the products, chosen at launch from what the call gives:
-//    tensor cores (bf16 compute; dim, dim_head and mlp dim multiples of
-//    16): every product is a 16x16x16 bf16 WMMA with fp32 accumulation,
-//    operands in shared memory as bf16 next to the fp32 streams, weight
-//    slices staged from L2 into shared memory, attention as one
-//    block-diagonal [rows, rows] tile per head (entries outside a row's own
-//    sequence are exact zeros in a and ds), and the weight gradients
-//    accumulated by WMMA straight into the block's partials in device
-//    memory; FMA loops otherwise (fp32 compute, other widths): an 8-row
-//    register tile per thread for products with a weight from L2, an
-//    8-column tile for the weight gradients, per-sequence attention loops.
-//    wgmma and TMA are later work.
+// Tensor cores (bf16 compute; D, dh and F multiples of 16): the row kernel
+// here, then layer_wgrad.cu. What bounds it on the H100: latency, not
+// operations or bytes: ~60 small products per row block of 64 rows, each
+// ending in a barrier, at one 512-thread block per SM (226 KB of shared
+// memory at S = 64, D = 96, dh = 64). What the design does about it:
+//  - the forward wrote x1 = x0 + attention (fp32) in the training call, so
+//    the kernel starts from it and recomputes the attention only once, per
+//    head inside its backward (q/k/v, scores, softmax);
+//  - the four weight gradients are not summed here: the kernel writes
+//    their bf16 operands to device memory (5,120 bytes a row at the EnMAP
+//    widths) and layer_wgrad.cu takes the products over all rows at once;
+//    only the small vectors (LN scales/biases, biases) are summed, into a
+//    per-block partial row that a second kernel sums in block order;
+//  - the whole row block lives in shared memory (the residual and gradient
+//    streams in fp32, the product operands in bf16 with padded rows; the
+//    MLP buffers alias the attention buffers); every product is a 16x16x16
+//    bf16 WMMA with fp32 accumulation; attention is one block-diagonal
+//    [rows, rows] tile per head (entries outside a row's own sequence are
+//    exact zeros in a and ds);
+//  - weight slices are staged from L2 with cp.async into their buffer as
+//    soon as the previous head has read it for the last time, so the copy
+//    runs under the products of the rest of the head.
+//
+// FMA loops (fp32 compute, other widths): a persistent grid of at most one
+// block per SM walks row blocks (up to 64 rows of whole sequences) in a
+// fixed order, keeps the row block in shared memory (215 KB at S = 64), and
+// adds each row block's 11 parameter gradients into its own fp32 partial
+// row (8-row register tiles per thread for products with a weight from L2,
+// an 8-column tile for the weight gradients, per-sequence attention loops);
+// a second kernel sums the partials in block order. The forward is
+// recomputed twice (once for the residual stream, once per head).
 
 #include <mma.h>
 
@@ -569,6 +573,23 @@ __device__ void copy_rows(const bf16* __restrict__ src, size_t lds, int K, int N
   }
 }
 
+// dst [K, N] (row stride ldd, shared memory) = src [K, N] (row stride lds,
+// device memory), bf16 as copy_rows, issued with cp.async: the copy lands
+// while the block computes; cp_async_wait_all() and a barrier come before
+// dst is read
+__device__ void stage_async(const bf16* __restrict__ src, size_t lds, int K, int N, bf16* dst,
+                            int ldd) {
+  const int vec = N / 8;
+  for (int i = threadIdx.x; i < K * vec; i += blockDim.x) {
+    const int r = i / vec, c = (i % vec) * 8;
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * ldd + c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + r * lds + c));
+  }
+}
+
+// wait until this thread's cp.async copies have landed
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
 enum TcOut { kTcBf16, kTcF32, kTcAccF32, kTcBiasF32 };
 
 // out [M, N] <op>= A [M, K] x B [K, N] on the tensor cores, one 16x16
@@ -722,12 +743,18 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
   const int nblocks = (B + seqs - 1) / seqs;
   bool first = true;
 
-  // the weight slices of head h: q/k/v columns side by side, then its
-  // out-projection rows
-  auto stage_head = [&](int h) {
-    for (int j = 0; j < 3; ++j)
-      copy_rows(wqkv + j * I + h * dh, 3 * I, D, dh, wst + j * dh, pl.ld_w3);
-    copy_rows(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wst2, pl.ld_wd);
+  // the weight slices, staged with cp.async as soon as their buffer is free:
+  // head h's q, k or v columns (j = 0, 1, 2) side by side in wst, its
+  // out-projection rows in wst2; w1 and w2 over them for the MLP phase
+  auto stage_qkv = [&](int h, int j) {
+    stage_async(wqkv + j * I + h * dh, 3 * I, D, dh, wst + j * dh, pl.ld_w3);
+  };
+  auto stage_out = [&](int h) {
+    stage_async(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wst2, pl.ld_wd);
+  };
+  auto stage_mlp = [&]() {
+    stage_async(w1, F, D, F, w1s, pl.ld_w1);
+    stage_async(w2, D, F, D, w2s, pl.ld_wd);
   };
   // q, k, v of head h from hb and the staged slices; scores into sc
   auto qkv_scores = [&]() {
@@ -771,6 +798,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
   for (size_t i = tid; i < pl.bytes / sizeof(uint4); i += nthr)
     reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
+  stage_mlp();
 
   for (int blk = blockIdx.x; blk < nblocks; blk += gridDim.x, first = false) {
     const int seq0 = blk * seqs;
@@ -788,8 +816,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
     ln_stats_rows(x0, rows, D, mu1, rs1);
     __syncthreads();
     ln_rows_bf16(xs, rows, D, ln2s, ln2b, mu2, rs2, hb, pl.ld_h);
-    copy_rows(w1, F, D, F, w1s, pl.ld_w1);
-    copy_rows(w2, D, F, D, w2s, pl.ld_wd);
+    cp_async_wait_all();  // w1, w2
     __syncthreads();
 
     // ---- MLP: forward, then backward ---------------------------------------
@@ -842,6 +869,8 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
     tcmm<kTcF32, wmma::row_major, wmma::col_major>(g, pl.ld_g, R, F, w1s, pl.ld_w1, D, acc, D,
                                                    nullptr, stage);  // dh2 = du w1^T
     __syncthreads();
+    for (int j = 0; j < 3; ++j) stage_qkv(0, j);  // w1 and w2 are done with
+    stage_out(0);
     ln_param_partials(acc, xs, mu2, rs2, rows, D, part + sl.ln2s, part + sl.ln2b, first);
     __syncthreads();
     ln_bwd_rows(acc, xs, mu2, rs2, rows, D, ln2s, dyb);  // acc = dx1 = dy + LN2'(dh2)
@@ -867,8 +896,13 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
     copy_rows(hb, pl.ld_h, rows, D, ops + ol.h1 + row0 * D, D);
 
     // ---- attention backward, one head at a time ----------------------------
+    // Head h + 1's slices are staged into each buffer once head h has read
+    // it for the last time: the out-projection after dO, v, q and k after
+    // the dh1 product that uses each; after the last head, w1 and w2 of the
+    // block's next row block.
     for (int h = 0; h < H; ++h) {
-      stage_head(h);
+      const bool next = h + 1 < H;
+      cp_async_wait_all();
       __syncthreads();
       qkv_scores();
       softmax(h, seq0, rows, true);  // sc = a, p = a * mask1
@@ -881,12 +915,18 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
       tcmm<kTcBf16, wmma::row_major, wmma::col_major>(dp1, pl.ld_h, R, D, wst2, pl.ld_wd, dh, dO,
                                                       pl.ld_q, nullptr, stage);  // dO
       __syncthreads();
+      if (next) stage_out(h + 1);
       tcmm<kTcF32, wmma::row_major, wmma::col_major>(dO, pl.ld_q, R, dh, v, pl.ld_q, R, dsc,
                                                      pl.ld_sc, nullptr, stage);  // da_d = dO v^T
       __syncthreads();
       tcmm<kTcBf16, wmma::col_major, wmma::row_major>(p, pl.ld_p, R, R, dO, pl.ld_q, dh, v,
                                                       pl.ld_q, nullptr, stage);  // dv = a_d^T dO
       __syncthreads();
+      // dv out to device memory; dh1 += dv W_v,h^T (the dh1 products touch
+      // only xs, so each overlaps the product beside it)
+      copy_rows(v, pl.ld_q, rows, dh, ops + ol.dqkv + row0 * 3 * I + 2 * I + h * dh, 3 * I);
+      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(v, pl.ld_q, R, dh, wst + 2 * dh, pl.ld_w3,
+                                                        D, xs, D, nullptr, stage);
       for (int r = tid / 32; r < rows; r += nwarps) {  // ds = (da - sum(da a)) a, over p
         const int lo = r / S * S, hi = lo + S;
         const uint64_t idx0 = ((static_cast<uint64_t>(seq0 + r / S) * H + h) * S + r % S) * S;
@@ -904,21 +944,25 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
           p[r * pl.ld_p + c] = __float2bfloat16(c >= lo && c < hi ? (da[c] - s) * a[c] : 0.f);
       }
       __syncthreads();
+      if (next) stage_qkv(h + 1, 2);
       tcmm<kTcBf16, wmma::row_major, wmma::row_major>(p, pl.ld_p, R, R, k, pl.ld_q, dh, dO,
                                                       pl.ld_q, nullptr, stage);  // dq = ds k
       __syncthreads();
+      copy_rows(dO, pl.ld_q, rows, dh, ops + ol.dqkv + row0 * 3 * I + h * dh, 3 * I);
+      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(dO, pl.ld_q, R, dh, wst, pl.ld_w3, D, xs,
+                                                        D, nullptr, stage);  // dh1 += dq W_q,h^T
       tcmm<kTcBf16, wmma::col_major, wmma::row_major>(p, pl.ld_p, R, R, q, pl.ld_q, dh, k,
                                                       pl.ld_q, nullptr, stage);  // dk = ds^T q
       __syncthreads();
-      const bf16* dqkv[3] = {dO, k, v};
-      for (int j = 0; j < 3; ++j) {
-        // dqkv[:, j*I + h*dh ...] out to device memory; dh1 += dq/dk/dv W_j,h^T
-        copy_rows(dqkv[j], pl.ld_q, rows, dh, ops + ol.dqkv + row0 * 3 * I + j * I + h * dh,
-                  3 * I);
-        tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(dqkv[j], pl.ld_q, R, dh, wst + j * dh,
-                                                          pl.ld_w3, D, xs, D, nullptr, stage);
-      }
+      if (next) stage_qkv(h + 1, 0);
+      copy_rows(k, pl.ld_q, rows, dh, ops + ol.dqkv + row0 * 3 * I + I + h * dh, 3 * I);
+      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(k, pl.ld_q, R, dh, wst + dh, pl.ld_w3, D,
+                                                        xs, D, nullptr, stage);  // dh1 += dk W_k,h^T
       __syncthreads();
+      if (next)
+        stage_qkv(h + 1, 1);
+      else if (blk + static_cast<int>(gridDim.x) < nblocks)
+        stage_mlp();
     }
 
     // ---- LN1 backward: dx0 = dx1 + LN1'(dh1) --------------------------------
