@@ -7,8 +7,9 @@ Run from the repo root on a machine with a CUDA card and nvcc:
 
 Phases:
   0. build: compiles every CUDA kernel (layer, embed and SimMIM decode,
-     forward and backward) from csrc/ with nvcc for sm_90a into build/kernels/ (one nvcc
-     per source, in parallel);
+     forward and backward, the layer's weight gradients) from csrc/ with
+     nvcc for sm_90a into build/kernels/ (one nvcc per source, in
+     parallel);
   1. forward kernels vs plain: each forward kernel against its plain
      PyTorch version on the card, at the serving shapes (batch 256) in fp32
      (TF32 off) and bf16, plus the Houston spectral shape (seq 5) for the
@@ -16,13 +17,17 @@ Phases:
      the bound;
   1b. backward kernels vs plain, at the training shapes of batch 64 (layer
      spatial [1280, 64, 96], spectral [4096, 20, 96], Houston [4096, 5, 96]
-     at dropout 0 and 0.1; embed [64, 20, 10, 64] and Houston's
-     [64, 5, 10, 64] -> 96, every gradient), fp32 and bf16:
-     the error per gradient, the dropout masks that the forward and
-     backward kernels apply, read out of their outputs by the probes of
-     ops/dropout_probe.py and held bit for bit against dropout_mask, two
-     calls giving the same gradient bits, timings and bounds; plus the
-     forward's times with dropout;
+     in fp32 and bf16, Houston spatial [320, 64, 96] in bf16, at dropout 0
+     and 0.1; embed [64, 20, 10, 64] and Houston's [64, 5, 10, 64] -> 96,
+     every gradient, fp32 and bf16): the error per gradient, the dropout
+     masks that the forward and backward kernels apply, read out of their
+     outputs by the probes of ops/dropout_probe.py and held bit for bit
+     against dropout_mask, two calls giving the same gradient bits, timings
+     and bounds; in bf16 (the tensor-core form) also the row kernel's dx,
+     operands and small vectors against its plain version and layer_wgrad
+     against its plain version, each repeated bit for bit, and the device
+     time of the whole backward, the row kernel and layer_wgrad beside
+     their bounds; plus the forward's times with dropout;
   2. serving path: the EnMAP-DFC classifier (configs/finetune_config_enmap.yaml
      + configs/config.yaml, seeded weights) in bf16 and fp32 behind
      Predictor(batch_size=256) answers requests of N = 300, 256, 1, 0 cubes;
@@ -52,8 +57,9 @@ Phases:
      2, 20 at batch 64, bf16), one validation pass and its launches per
      chunk, one step's loss and gradients against the same step through
      the plain versions on the card (same crop, mask and dropout seeds),
-     and that the loss falls over 60 steps; then measures steps/s and
-     cubes/s at batch 64 in bf16 and fp32 with a torch.profiler breakdown;
+     and that the loss falls over 60 steps; then measures steps/s,
+     cubes/s and the peak of allocated device memory at batch 64 in bf16
+     and fp32 with a torch.profiler breakdown;
   5. tools (maskedsst_tpu_torch.tools): kernel_check run in full at the
      Houston2018 shapes, its checks counted here: layer parity against its
      own oracle, the SimMIM kernels, and the dropout-sample kernel
@@ -103,6 +109,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # imports fail when the repo (the maskedsst_tpu_torch package) is not
 # beside this file
 from maskedsst_tpu_torch.tools.kernel_check import (  # noqa: E402
+    SPLIT_NAMES,
     decode_cost,
     embed_cost,
     layer_cost,
@@ -138,6 +145,8 @@ LIBRARY_NONE = {
     "(8 x 64 = 512) differs from dim 96, so nn.TransformerEncoderLayer does not fit",
     "fused_layer_bwd": "no single PyTorch call computes the fused layer backward "
     "(recompute, dropout masks and all 11 parameter gradients)",
+    "layer_wgrad": "no single PyTorch call computes the four weight-gradient products (four "
+    "shapes, two stored transposed); plain_ms is their chunked matmul composition",
     "fused_embed_fwd": "no single PyTorch call computes the per-block pre-LN, "
     "product, post-LN, + pos and mask select",
     "fused_embed_bwd": "no single PyTorch call computes the per-block embed backward "
@@ -269,9 +278,64 @@ def grad_err(got, want) -> tuple:
     return diff, diff / max(1.0, float(want.float().abs().max()))
 
 
+def check_layer_split(x, dy, params, cfg, tag):
+    """The tensor-core backward's two kernels at x's shape: the row kernel
+    (dx, the weight gradients' bf16 operands, the small vectors) against
+    its plain version, layer_wgrad against its plain version on the row
+    kernel's operands, two calls of each giving the same bits. Returns
+    layer_wgrad's error."""
+    import torch
+
+    from maskedsst_tpu_torch.ops import fused_layer, layer_wgrad
+
+    b, s, d = x.shape
+    heads, dh = cfg[0], cfg[1]
+    i, f, n = heads * dh, params.w1.shape[1], b * s
+    x1 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    fused_layer._launch(x, params, *cfg, x1=x1)
+    dx, ops, grads = fused_layer.layer_bwd_rows(x, dy, params, *cfg, x1=x1)
+    dx2, ops2, grads2 = fused_layer.layer_bwd_rows(x, dy, params, *cfg, x1=x1)
+    want_dx, want_ops, partials = fused_layer.layer_bwd_rows_reference(
+        x, dy, params, *cfg, nparts=fused_layer._nparts(b, s, x.device))
+    got, want = (layer_wgrad.split_operands(t, n, d, i, f) for t in (ops, want_ops))
+    views = layer_wgrad.split_grads(grads, d, i, f)
+    small = partials.sum(dim=0).split([views[k].numel() for k in fused_layer.SMALL])
+    errs = {"dx": grad_err(dx, want_dx)[1]}
+    errs.update({k: grad_err(got[k], want[k])[1] for k in layer_wgrad.OPERANDS})
+    errs.update({k: grad_err(views[k], w)[1] for k, w in zip(fused_layer.SMALL, small)})
+    worst = max(errs, key=errs.get)
+    same = torch.equal(dx, dx2) and torch.equal(ops, ops2) and all(
+        torch.equal(views[k], layer_wgrad.split_grads(grads2, d, i, f)[k])
+        for k in fused_layer.SMALL)
+    check(errs[worst] <= TOL_OP["bfloat16"] and same,
+          f"fused_layer_bwd row kernel {tag}: dx, {len(layer_wgrad.OPERANDS)} operands and "
+          f"{len(fused_layer.SMALL)} small vectors vs its plain version, worst {worst} "
+          f"{errs[worst]:.3e} <= {TOL_OP['bfloat16']:.0e}; two calls bit-identical {same}")
+    del dx2, ops2, grads2, want_ops, want_dx
+    w1 = torch.empty_like(grads)
+    w2 = torch.empty_like(grads)
+    layer_wgrad.layer_wgrad(ops, n, d, i, f, w1)
+    layer_wgrad.layer_wgrad(ops, n, d, i, f, w2)
+    chunk_rows, nchunks = layer_wgrad.chunking(n, i, f)
+    ref = layer_wgrad.layer_wgrad_reference(got, chunk_rows)
+    v1, v2 = layer_wgrad.split_grads(w1, d, i, f), layer_wgrad.split_grads(w2, d, i, f)
+    werrs = {k: grad_err(v1[k], ref[k]) for k in ref}
+    wworst = max(werrs, key=lambda k: werrs[k][1])
+    wsame = all(torch.equal(v1[k], v2[k]) for k in ref)
+    check(werrs[wworst][1] <= TOL_OP["float32"] and wsame,
+          f"layer_wgrad {tag}: {nchunks} chunks of {chunk_rows} rows, the four weight gradients "
+          f"vs its plain version on the row kernel's operands, worst {wworst} max|d| "
+          f"{werrs[wworst][0]:.3e}, rel {werrs[wworst][1]:.3e} <= {TOL_OP['float32']:.0e} "
+          f"(fp32 sums of bf16 operands); two calls bit-identical {wsame}")
+    plain_ms = cuda_ms(lambda: layer_wgrad.layer_wgrad_reference(got, chunk_rows), reps=3,
+                       warmup=1)
+    return x1, werrs[wworst][0], plain_ms
+
+
 def phase_layer_bwd(gen):
     """fused_layer_bwd against reference_layer_bwd at the training shapes,
-    the masks bit for bit, determinism, and the forward's times with
+    the tensor-core form's two kernels against their plain versions, the
+    masks bit for bit, determinism, and the forward's times with
     dropout."""
     import torch
 
@@ -282,13 +346,16 @@ def phase_layer_bwd(gen):
     i = heads * dh
     params = random_layer_params(gen, d, heads, dh, f, "cuda")
     names = ("dx",) + LayerParams._fields
-    bwd_cases, fwd_cases = [], []
-    for label, b, s in (("spatial", TRAIN_BATCH * 20, 64), ("spectral", TRAIN_BATCH * 64, 20),
-                        ("houston_spectral", TRAIN_BATCH * 64, 5)):
+    bwd_cases, fwd_cases, wgrad_cases = [], [], []
+    both = (torch.float32, torch.bfloat16)
+    for label, b, s, dtypes in (
+            ("spatial", TRAIN_BATCH * 20, 64, both), ("spectral", TRAIN_BATCH * 64, 20, both),
+            ("houston_spectral", TRAIN_BATCH * 64, 5, both),
+            ("houston_spatial", TRAIN_BATCH * 5, 64, (torch.bfloat16,))):
         x32 = torch.randn(b, s, d, generator=gen).cuda()
         dy32 = torch.randn(b, s, d, generator=gen).cuda()
         seed = 1000 + s
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             name = str(dtype).split(".")[1]
             x, dy = x32.to(dtype), dy32.to(dtype)
             cost = layer_cost(b, s, x.element_size(), d, i, f)
@@ -302,6 +369,7 @@ def phase_layer_bwd(gen):
             torch.cuda.empty_cache()
             for rate in (0.0, 0.1):
                 cfg = (heads, dh, dtype, rate, rate > 0, seed, True)
+                tag = f"{label} [{b},{s},{d}] {name} dropout {rate}"
                 # the forward with dropout: its time, and that it keeps the
                 # plain version's masks
                 if rate:
@@ -320,7 +388,12 @@ def phase_layer_bwd(gen):
                                           ms=ms, bound_ms=bms, bound_by=by))
                     print(f"     fused_layer_fwd dropout 0.1 ms {ms:.4f} bound_ms {bms:.4f} "
                           f"({by})", flush=True)
-                dx, grads = fused_layer._launch_bwd(x, dy, params, *cfg)
+                # the tensor-core form (bf16) is the row kernel + layer_wgrad,
+                # started from the x1 its forward writes
+                x1 = None
+                if dtype == torch.bfloat16:
+                    x1, wgrad_err, wgrad_plain = check_layer_split(x, dy, params, cfg, tag)
+                dx, grads = fused_layer._launch_bwd(x, dy, params, *cfg, x1=x1)
                 want_dx, want = fused_layer.reference_layer_bwd(x, dy, params, *cfg)
                 torch.cuda.synchronize()
                 errs = {}
@@ -328,28 +401,53 @@ def phase_layer_bwd(gen):
                     abs_err, err = grad_err(g, w)
                     errs[gname] = err
                     check(bool(torch.isfinite(g.float()).all()) and err <= TOL_OP[name],
-                          f"fused_layer_bwd {label} [{b},{s},{d}] {name} dropout {rate} "
+                          f"fused_layer_bwd {tag} "
                           f"{gname}: max|d| {abs_err:.3e}, rel {err:.3e} <= {TOL_OP[name]:.0e}")
-                dx2, grads2 = fused_layer._launch_bwd(x, dy, params, *cfg)
+                dx2, grads2 = fused_layer._launch_bwd(x, dy, params, *cfg, x1=x1)
                 check(torch.equal(dx, dx2) and all(torch.equal(a, c) for a, c in zip(grads, grads2)),
                       f"fused_layer_bwd {label} {name} dropout {rate}: two calls give "
                       f"bit-identical dx and parameter gradients")
                 del dx, grads, want_dx, want, dx2, grads2
-                ms = cuda_ms(lambda: fused_layer._launch_bwd(x, dy, params, *cfg), reps=5,
-                             warmup=1)
+
+                def bwd():
+                    return fused_layer._launch_bwd(x, dy, params, *cfg, x1=x1)
+
+                ms = cuda_ms(bwd, reps=5, warmup=1)
                 plain = cuda_ms(lambda: fused_layer.reference_layer_bwd(x, dy, params, *cfg),
                                 reps=5, warmup=1)
-                nbytes, flops = cost["bwd"]
+                whole = "bwd_tc" if x1 is not None else "bwd"
+                nbytes, flops = cost[whole]
                 bms, by = bound_ms(nbytes, flops, name)
-                bwd_cases.append(dict(shape=label, dims=[b, s, d], dtype=name, dropout=rate,
-                                      max_abs_err=max(errs.values()), rel_err=errs, ms=ms,
-                                      plain_ms=plain, bound_ms=bms, bound_by=by, flops=flops,
-                                      bytes=nbytes))
+                case = dict(shape=label, dims=[b, s, d], dtype=name, dropout=rate,
+                            max_abs_err=max(errs.values()), rel_err=errs, ms=ms,
+                            plain_ms=plain, bound_ms=bms, bound_by=by, flops=flops,
+                            bytes=nbytes)
                 print(f"     fused_layer_bwd {label} {name} dropout {rate}: ms {ms:.4f} "
                       f"plain_ms {plain:.4f} bound_ms {bms:.4f} ({by}) -> "
                       f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)
+                if x1 is not None and rate:
+                    # device time of the whole backward and of each kernel
+                    parts = {}
+                    for part, what, kn in (
+                            ("bwd_tc", "whole backward", SPLIT_NAMES),
+                            ("rows", "row kernel", ("fused_layer_bwd", "reduce_small")),
+                            ("wgrad", "layer_wgrad", ("layer_wgrad", "reduce_chunks"))):
+                        dms = device_ms(bwd, reps=10, names=kn)
+                        pbms, pby = bound_ms(*cost[part], name)
+                        parts[part] = (dms, pbms, pby)
+                        print(f"     device ms, {tag}, {what} (with its reduction): {dms:.4f}, "
+                              f"bound {pbms:.4f} ({pby})", flush=True)
+                    case.update(device_ms=parts["bwd_tc"][0], rows_device_ms=parts["rows"][0],
+                                rows_bound_ms=parts["rows"][1])
+                    wbms, wby = parts["wgrad"][1], parts["wgrad"][2]
+                    wgrad_cases.append(dict(shape=label, dims=[b * s, d, i, f], dtype=name,
+                                            dropout=rate, max_abs_err=wgrad_err,
+                                            ms=parts["wgrad"][0], plain_ms=wgrad_plain,
+                                            bound_ms=wbms, bound_by=wby))
+                bwd_cases.append(case)
+                del x1
                 torch.cuda.empty_cache()
-    return bwd_cases, fwd_cases
+    return bwd_cases, fwd_cases, wgrad_cases
 
 
 def phase_embed_bwd(gen):
@@ -580,18 +678,19 @@ def phase_main(card: str):
 
 
 def launch_counts() -> dict:
-    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim
+    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim, layer_wgrad
 
     return {"fused_layer_fwd": fused_layer.launches, "fused_layer_bwd": fused_layer.bwd_launches,
+            "layer_wgrad": layer_wgrad.launches,
             "fused_embed_fwd": fused_embed.launches, "fused_embed_bwd": fused_embed.bwd_launches,
             "fused_simmim_fwd": fused_simmim.launches,
             "fused_simmim_bwd": fused_simmim.bwd_launches}
 
 
 def reset_counts() -> None:
-    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim
+    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim, layer_wgrad
 
-    fused_layer.launches = fused_layer.bwd_launches = 0
+    fused_layer.launches = fused_layer.bwd_launches = layer_wgrad.launches = 0
     fused_embed.launches = fused_embed.bwd_launches = 0
     fused_simmim.launches = fused_simmim.bwd_launches = 0
 
@@ -635,9 +734,10 @@ def phase_train(card: str):
     routes = {"recipe": 0.1, "emb_dropout_0": 0.0}
     per_step_want = {
         "recipe": {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth,
-                   "fused_embed_fwd": 0, "fused_embed_bwd": 0,
+                   "layer_wgrad": 2 * depth, "fused_embed_fwd": 0, "fused_embed_bwd": 0,
                    "fused_simmim_fwd": 0, "fused_simmim_bwd": 0},
         "emb_dropout_0": {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth,
+                          "layer_wgrad": 2 * depth,
                           "fused_embed_fwd": 1, "fused_embed_bwd": 1,
                           "fused_simmim_fwd": 0, "fused_simmim_bwd": 0},
     }
@@ -675,7 +775,8 @@ def phase_train(card: str):
               f"train {route} bf16: {len(losses)} losses finite (last {losses[-1]:.4f})")
         per_step_seen[route] = seen[0]
     main_counts = launch_counts()
-    for name in ("fused_layer_fwd", "fused_layer_bwd", "fused_embed_fwd", "fused_embed_bwd"):
+    for name in ("fused_layer_fwd", "fused_layer_bwd", "layer_wgrad", "fused_embed_fwd",
+                 "fused_embed_bwd"):
         check(main_counts[name] > 0, f"training path: {name} launched {main_counts[name]} times")
     torch.cuda.empty_cache()
 
@@ -788,7 +889,7 @@ def phase_pretrain(card: str):
     idx_all = batches.take(60)
     depth = base.transformer_depth
     per_step_want = {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth,
-                     "fused_embed_fwd": 1, "fused_embed_bwd": 1,
+                     "layer_wgrad": 2 * depth, "fused_embed_fwd": 1, "fused_embed_bwd": 1,
                      "fused_simmim_fwd": 1, "fused_simmim_bwd": 1}
 
     def trainer_for(dtype, batch):
@@ -833,12 +934,12 @@ def phase_pretrain(card: str):
     torch.cuda.synchronize()
     after = launch_counts()
     val_counts = {n: after[n] - before[n] for n in after}
-    val_want = {"fused_layer_fwd": 2 * depth * chunks, "fused_layer_bwd": 0,
+    val_want = {"fused_layer_fwd": 2 * depth * chunks, "fused_layer_bwd": 0, "layer_wgrad": 0,
                 "fused_embed_fwd": chunks, "fused_embed_bwd": 0,
                 "fused_simmim_fwd": chunks, "fused_simmim_bwd": 0}
     check(math.isfinite(vloss) and val_counts == val_want,
           f"pretrain validation: {windows} windows in {chunks} chunks, loss {vloss:.6e} finite, "
-          f"launches {val_counts} == {chunks} x (8 / 0 / 1 / 0 / 1 / 0)")
+          f"launches {val_counts} == {chunks} x (8 / 0 / 0 / 1 / 0 / 1 / 0)")
     del main_trainer, tiles
     torch.cuda.empty_cache()
 
@@ -900,6 +1001,7 @@ def phase_pretrain(card: str):
         for _ in range(2):  # warm-up
             step()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         walls = []
         for _ in range(7):
             t0 = time.perf_counter()
@@ -907,6 +1009,9 @@ def phase_pretrain(card: str):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         step_s = statistics.median(walls)
+        print(f"     pretraining {name}: peak allocated device memory over 7 steps "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (the store, weights and "
+              f"optimizer state included)", flush=True)
         prof = profile_step(step)
         if prof:
             print(f"     profile pretrain {name}: {prof['device_ms_per_step']:.2f} ms of device "
@@ -1083,8 +1188,9 @@ def phase_tools(card: str):
                        device="cuda").model.state_dict()
     trainer, store, idx = bench_geometries.houston_pretrainer(torch.bfloat16, "cuda", taken + 1)
     depth = trainer.config.transformer_depth
-    want = {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth, "fused_embed_fwd": 1,
-            "fused_embed_bwd": 1, "fused_simmim_fwd": 1, "fused_simmim_bwd": 1}
+    want = {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth,
+            "layer_wgrad": 2 * depth, "fused_embed_fwd": 1, "fused_embed_bwd": 1,
+            "fused_simmim_fwd": 1, "fused_simmim_bwd": 1}
     reset_counts()
     losses, seen = [], []
     for k in range(steps):
@@ -1194,7 +1300,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     layer_cases, embed_cases = timed("phase 1 forward kernels vs plain versions",
                                      lambda: (phase_layer(gen), phase_embed(gen)))
-    (layer_bwd_cases, layer_drop_cases), embed_bwd_cases = timed(
+    (layer_bwd_cases, layer_drop_cases, wgrad_cases), embed_bwd_cases = timed(
         "phase 1b backward kernels vs plain versions (training shapes, batch 64)",
         lambda: (phase_layer_bwd(gen), phase_embed_bwd(gen)))
     simmim_fwd_cases, simmim_bwd_cases = timed(
@@ -1225,6 +1331,9 @@ def main() -> int:
         kernel_entry("fused_layer_bwd", "maskedsst_tpu_torch/csrc/fused_layer_bwd.cu",
                      "maskedsst_tpu/ops/fused_layer.py:476", layer_bwd_cases,
                      counts["fused_layer_bwd"], launches_per_step=steps_of("fused_layer_bwd")),
+        kernel_entry("layer_wgrad", "maskedsst_tpu_torch/csrc/layer_wgrad.cu",
+                     "maskedsst_tpu/ops/fused_layer.py:476", wgrad_cases,
+                     counts["layer_wgrad"], launches_per_step=steps_of("layer_wgrad")),
         kernel_entry("fused_embed_fwd", "maskedsst_tpu_torch/csrc/fused_embed_fwd.cu",
                      "maskedsst_tpu/ops/fused_embed.py:89", embed_cases,
                      counts["fused_embed_fwd"], launches_per_step=steps_of("fused_embed_fwd"),
@@ -1242,7 +1351,7 @@ def main() -> int:
                      pre_counts["fused_simmim_bwd"],
                      launches_per_step=steps_of("fused_simmim_bwd")),
     ]
-    for entry in kernels[:4]:
+    for entry in kernels[:5]:
         entry["launches_pretrain"] = pre_counts[entry["name"]]
     for entry in kernels:
         entry["launches_houston_pretrain"] = houston_counts[entry["name"]]

@@ -1135,8 +1135,3 @@ extern "C" int fused_layer_bwd_tc(const void* x, const void* x1, const void* dy,
                                  w2, b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
   return static_cast<int>(err);
 }
-
-// the gradient count (the length of grads and of one FMA-form workspace row)
-extern "C" long long fused_layer_bwd_grad_count(int D, int I, int F) {
-  return static_cast<long long>(GradLayout(D, I, F).total);
-}

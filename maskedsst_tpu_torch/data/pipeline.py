@@ -41,6 +41,12 @@ class Subset:
         self.dataset = dataset
         self.indices = [int(i) for i in indices]
 
+    @property
+    def stochastic(self) -> bool:
+        """The wrapped dataset's flag (False when it has none): a subset of
+        a dataset that draws anew on every read draws anew too."""
+        return bool(getattr(self.dataset, "stochastic", False))
+
     def __len__(self) -> int:
         return len(self.indices)
 

@@ -422,8 +422,6 @@ def _bind(name: str):
         return lib, _build.bind(lib, name, n_pointers=14, n_ints=12, n_floats=1)
     fn = _build.bind(lib, name, n_pointers=16, n_ints=13, n_floats=1)
     tc = _build.bind(lib, name + "_tc", n_pointers=18, n_ints=12, n_floats=1)
-    lib.fused_layer_bwd_grad_count.argtypes = [ctypes.c_int] * 3
-    lib.fused_layer_bwd_grad_count.restype = ctypes.c_longlong
     return lib, (fn, tc)
 
 
@@ -545,15 +543,12 @@ def layer_bwd_rows(x, dy, params, *config, x1=None):
     b, s, d, inner, f = _check(x, params, cfg, _BWD)
     _check_dy(x, dy, _BWD)
     nparts = _nparts(b, s, x.device)
-    count = sum(layer_wgrad._numel(sh) for sh in layer_wgrad.grad_shapes(d, inner, f).values())
-    grads = torch.empty(count, dtype=torch.float32, device=x.device)
+    grads = torch.empty(layer_wgrad.grad_count(d, inner, f), dtype=torch.float32,
+                        device=x.device)
     if x.device.type == "cpu":
         dx, ops, partials = layer_bwd_rows_reference(x, dy, params, *cfg, nparts=nparts)
         views = layer_wgrad.split_grads(grads, d, inner, f)
-        for name, part in zip(SMALL, partials.split([views[k].numel() for k in SMALL], dim=1)):
-            total = part[0]
-            for row in part[1:]:
-                total = total + row
+        for name, total in zip(SMALL, partials.sum(dim=0).split([views[k].numel() for k in SMALL])):
             views[name].copy_(total)
         return dx, ops, grads
     from maskedsst_tpu_torch.ops import _build
@@ -621,7 +616,7 @@ def _launch_bwd(x, dy, params, *config, x1=None):
         return layer_bwd_split(x, dy, params, *cfg, x1=x1)
     args = _kernel_weights(params, cfg)
     lib, (fn, _) = _bind(_BWD)
-    count = int(lib.fused_layer_bwd_grad_count(d, inner, f))
+    count = layer_wgrad.grad_count(d, inner, f)
     nparts = _nparts(b, s, x.device)
     ws = torch.empty((nparts, count), dtype=torch.float32, device=x.device)
     grads = torch.empty(count, dtype=torch.float32, device=x.device)

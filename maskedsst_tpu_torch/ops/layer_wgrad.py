@@ -21,6 +21,7 @@ the same products in its body over its sequential grid.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -64,25 +65,24 @@ def grad_shapes(d: int, inner: int, f: int) -> dict:
 def split_grads(grads: torch.Tensor, d: int, inner: int, f: int) -> dict:
     """The views of each gradient in the flat fp32 gradient vector."""
     shapes = grad_shapes(d, inner, f)
-    parts = grads.split([_numel(s) for s in shapes.values()])
+    parts = grads.split([math.prod(s) for s in shapes.values()])
     return {k: p.view(s) for (k, s), p in zip(shapes.items(), parts)}
 
 
-def _numel(shape) -> int:
-    n = 1
-    for s in shape:
-        n *= s
-    return n
+def grad_count(d: int, inner: int, f: int) -> int:
+    """The length of the flat gradient vector."""
+    return sum(math.prod(s) for s in grad_shapes(d, inner, f).values())
 
 
-def chunking(n: int, d: int, inner: int, f: int) -> tuple:
-    """(chunk_rows, nchunks): the row chunks each output tile is summed over,
-    as many as keep about BLOCK_SLOTS blocks in flight (at least one, at
-    most one per TILE rows); chunk_rows is a multiple of TILE."""
-    del d  # the tiles are columns of `left`; all products share D
+def chunking(n: int, inner: int, f: int) -> tuple:
+    """(chunk_rows, nchunks): the row chunks each output tile (TILE columns
+    of a product's `left`) is summed over, as many as keep about
+    BLOCK_SLOTS blocks in flight (at least one, at most one per TILE rows);
+    chunk_rows is a multiple of TILE."""
     tiles = sum(-(-m // TILE) for m in (3 * inner, inner, f, f))
     want = max(1, min(BLOCK_SLOTS // tiles, -(-n // TILE)))
-    rows = -(-(-(-n // want)) // TILE) * TILE
+    per_chunk = -(-n // want)
+    rows = -(-per_chunk // TILE) * TILE
     return rows, -(-n // rows)
 
 
@@ -116,7 +116,7 @@ def layer_wgrad(ops: torch.Tensor, n: int, d: int, inner: int, f: int,
     buffer ``ops`` (:data:`OPERANDS`, n rows). The q block of wqkv is left
     as the pre-scaled weights give it."""
     global launches
-    chunk_rows, nchunks = chunking(n, d, inner, f)
+    chunk_rows, nchunks = chunking(n, inner, f)
     if ops.device.type == "cpu":
         views = split_grads(grads, d, inner, f)
         for name, g in layer_wgrad_reference(split_operands(ops, n, d, inner, f),
@@ -128,8 +128,10 @@ def layer_wgrad(ops: torch.Tensor, n: int, d: int, inner: int, f: int,
     if ops.dtype != torch.bfloat16 or not ops.is_contiguous() or ops.numel() != n * sum(
             operand_widths(d, inner, f).values()):
         raise ValueError(f"{_KERNEL}: ops must be the contiguous bf16 operand buffer of {n} rows")
-    if grads.dtype != torch.float32 or grads.device != ops.device:
-        raise ValueError(f"{_KERNEL}: grads must be fp32 on {ops.device}")
+    if (grads.dtype != torch.float32 or grads.device != ops.device or not grads.is_contiguous()
+            or grads.numel() != grad_count(d, inner, f)):
+        raise ValueError(f"{_KERNEL}: grads must be the contiguous fp32 gradient vector on "
+                         f"{ops.device}")
     ws = torch.empty((nchunks, d * (4 * inner + 2 * f)), dtype=torch.float32, device=ops.device)
     lib, fn = _bind()
     with torch.cuda.device(ops.device):

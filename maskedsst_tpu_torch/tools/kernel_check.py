@@ -26,7 +26,8 @@ Checks, each printed as one "ok"/"FAIL" line (exit code 1 when one fails):
   the value, < 1e-3 for each gradient against its max;
 - then each kernel's device time (torch.profiler) beside its bound and the
   share of the bound, at the batch-64 training shapes of ``--geometry``:
-  EnMAP (20 spectral blocks) or Houston2018 (5).
+  EnMAP (20 spectral blocks) or Houston2018 (5); the bf16 layer backward
+  whole, its row kernel and its weight-gradient kernel (``layer_wgrad``).
 
 ``--cpu`` rehearses it through the plain versions with every batch cut
 64-fold; no time is measured there.
@@ -58,6 +59,9 @@ D, H, DH, MLP = 96, 8, 64, 64
 INNER = H * DH
 LAYER_CASES = ((1280, 64, torch.float32), (4096, 20, torch.float32), (4096, 5, torch.bfloat16))
 LAYER_TOL = {torch.float32: (5e-3, 1e-2), torch.bfloat16: (5e-2, 5e-2)}
+# the device kernels of one tensor-core layer backward: the row kernel, the
+# weight-gradient kernel and their reductions
+SPLIT_NAMES = ("fused_layer_bwd", "reduce_small", "layer_wgrad", "reduce_chunks")
 ROWS, COLS, BLOCKS, RATE = 256, 128, 2, 0.1  # the TPU check's sample
 BASE_HIGH = 2**32 + 12345
 TRAIN_BATCH = 64
@@ -259,16 +263,37 @@ def check_simmim_kernels(check: Callable, device, rng) -> None:
 
 def layer_cost(b: int, s: int, item: int, d: int = D, inner: int = INNER,
                mlp: int = MLP) -> dict:
-    """One fused layer over [b, s, d]: the forward reads x and the weights
-    (fp32 LN parameters and biases) and writes y; the backward also reads
-    dy and writes dx and the fp32 parameter gradients, for three times the
-    forward's operations."""
+    """(bytes, operations) of one fused layer over [b, s, d]. "fwd": reads x
+    and the weights (fp32 LN parameters and biases), writes y. "bwd", the
+    FMA form: also reads dy, writes dx and the fp32 parameter gradients,
+    for three times the forward's operations. The tensor-core form's split:
+    "bwd_tc", the whole (as "bwd", and reads the forward's fp32 x1);
+    "rows", its row kernel (writes the small vectors' gradients and the
+    weight gradients' bf16 operands, and leaves the weight-gradient
+    operations out); "wgrad", its weight-gradient kernel
+    (:func:`wgrad_cost`)."""
     tokens = b * s
     flops = tokens * (2 * d * 3 * inner + 2 * 2 * s * inner + 2 * inner * d + 2 * 2 * d * mlp)
     wbytes = (d * 3 * inner + inner * d + 2 * d * mlp) * item + 4 * (6 * d + mlp)
     grads = 2 * d + d * 3 * inner + inner * d + 3 * d + d * mlp + mlp + mlp * d + d
+    bwd = 3 * tokens * d * item + wbytes + 4 * grads
+    wg_bytes, wg_flops = wgrad_cost(tokens, d, inner, mlp)
+    weights = d * (4 * inner + 2 * mlp)  # the four weight gradients' entries
+    operands = 2 * tokens * (4 * inner + 2 * mlp + 4 * d)
     return {"fwd": (2 * tokens * d * item + wbytes, flops),
-            "bwd": (3 * tokens * d * item + wbytes + 4 * grads, 3 * flops)}
+            "bwd": (bwd, 3 * flops),
+            "bwd_tc": (bwd + 4 * tokens * d, 3 * flops),
+            "rows": (bwd + 4 * tokens * d - 4 * weights + operands, 3 * flops - wg_flops),
+            "wgrad": (wg_bytes, wg_flops)}
+
+
+def wgrad_cost(n: int, d: int = D, inner: int = INNER, mlp: int = MLP) -> tuple:
+    """(bytes, operations) of ``layer_wgrad`` over n rows: it reads the bf16
+    operands (h1, dqkv, o, dp1, h2, du, gd, dp2: 2 (4I + 2F + 4D) bytes a
+    row) and writes the four fp32 weight gradients, d (4I + 2F) entries,
+    each an n-term sum of products."""
+    m = 4 * inner + 2 * mlp
+    return 2 * n * (m + 4 * d) + 4 * d * m, 2 * n * d * m
 
 
 def embed_cost(b: int, g: int, p: int, n: int, d: int, item: int) -> dict:
@@ -356,10 +381,20 @@ def kernel_table(device, geometry: str = "enmap") -> List[dict]:
         cost = layer_cost(bb, s, 2)
         row("fused_layer_fwd", label, [bb, s, D],
             lambda: fused_layer._launch(x, params, *cfg), ("fused_layer_fwd",), cost["fwd"])
-        row("fused_layer_bwd", label, [bb, s, D],
-            lambda: fused_layer._launch_bwd(x, dy, params, *cfg),
-            ("fused_layer_bwd", "reduce_partials"), cost["bwd"])
-        del x, dy
+        # the backward's split (row kernel + layer_wgrad) from the x1 its
+        # forward writes; timed whole, then each part from the same calls
+        x1 = torch.empty(x.shape, dtype=torch.float32, device=device)
+        fused_layer._launch(x, params, *cfg, x1=x1)
+
+        def bwd():
+            return fused_layer._launch_bwd(x, dy, params, *cfg, x1=x1)
+
+        for kernel, names, part in (
+                ("fused_layer_bwd", SPLIT_NAMES, "bwd_tc"),
+                ("fused_layer_bwd rows", ("fused_layer_bwd", "reduce_small"), "rows"),
+                ("layer_wgrad", ("layer_wgrad", "reduce_chunks"), "wgrad")):
+            row(kernel, label, [bb, s, D], bwd, names, cost[part])
+        del x, dy, x1
     patches = torch.randn(b, g, p, n, generator=gen).to(device)
     mask = (torch.rand(b, g, n, generator=gen) < 0.7).float().to(device)
     args = (patches, mask, r(p, base=1.0), r(p), r(g, p, D, scale=p**-0.5), r(g, D),

@@ -9,7 +9,9 @@ pretrain_config.yaml``, batch 64, bf16) on the store path (tiles in a
 of the serving workload through ``Predictor`` (``serving_bench``'s model).
 Two warm-up calls, then K under torch.profiler. Prints each kernel's device
 ms and launches per step and share of device time, the totals (device busy
-ms, span, host wall ms per step, idle share), then one JSON line of them.
+ms, span, host wall ms per step, idle share), the peak of allocated device
+memory over the calls (weights, optimizer state and data included), then
+one JSON line of them.
 """
 
 from __future__ import annotations
@@ -70,7 +72,10 @@ def main(argv=None) -> int:
         step = serve_step(dtype, device, args.batch, args.overrides)
     else:
         step = pretrain_step(dtype, device, WARMUP + args.steps, args.overrides)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     prof = profile_step(step, steps=args.steps, warmup=WARMUP)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20 if device == "cuda" else None
     what = f"serving batch of {args.batch}" if args.serve else "pretraining step"
     print(card_line() if device == "cuda" else "cpu (plain versions; no device time)")
     if not prof:
@@ -84,11 +89,14 @@ def main(argv=None) -> int:
         print(f"device busy {busy:.3f} ms, span {prof['span_ms_per_step']:.3f} ms, host wall "
               f"{prof['wall_ms_per_step']:.3f} ms per {what}; idle share of the span "
               f"{prof['idle_share']:.1%}{' (OVERCOUNTED)' if prof['overcounted'] else ''}")
+    if peak_mb is not None:
+        print(f"peak allocated device memory {peak_mb:.1f} MiB")
     print(json.dumps({
         "profile": "serve" if args.serve else "pretrain", "steps": args.steps,
         "dtype": "fp32" if args.fp32 else "bf16", "device": device_name(device),
         **{k: finite_or_none(prof.get(k)) for k in ("wall_ms_per_step", "device_ms_per_step",
                                                     "span_ms_per_step", "idle_share")},
+        "peak_memory_mib": peak_mb,
         "groups_ms_per_step": prof.get("groups_ms_per_step"), "by_name": prof.get("by_name"),
     }))
     return 0

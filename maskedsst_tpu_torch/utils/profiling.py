@@ -37,9 +37,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 without tensor cores; bf16 dense
 
 # kernel-name groups of a training step's breakdown, matched in this order
-STEP_GROUPS = ("fused_layer_bwd", "fused_layer_fwd", "fused_embed_bwd", "fused_embed_fwd",
-               "fused_simmim_bwd", "fused_simmim_fwd", "reduce_partials", "sum_partials",
-               "Memcpy")
+STEP_GROUPS = ("fused_layer_bwd", "layer_wgrad", "fused_layer_fwd", "fused_embed_bwd",
+               "fused_embed_fwd", "fused_simmim_bwd", "fused_simmim_fwd", "reduce_partials",
+               "reduce_small", "reduce_chunks", "sum_partials", "Memcpy")
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -180,17 +180,25 @@ def device_ms(fn: Callable, reps: int = 20, names: Optional[Sequence[str]] = Non
     ``reps`` calls (after a warm-up) of the kernels whose name holds one of
     ``names`` (all device work when None), per call. For kernels of a few
     microseconds, where a CUDA-event time would measure the host's launch
-    path; NaN when the profiler records no device time."""
+    path. A trace that records none of those kernels is taken again, up
+    to three traces in all (on an H100 one trace of a 40 us kernel in
+    several hundred came back empty while the next, of the same calls, did
+    not); NaN when none records them."""
     for _ in range(3):
         fn()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    with trace() as info:
-        for _ in range(reps):
-            fn()
-    tr = parse_device_trace(info["events"])
-    total = tr.ms(names) if tr is not None else 0.0
-    return total / reps if total > 0 else float("nan")
+    for _ in range(3):
+        with trace() as info:
+            for _ in range(reps):
+                fn()
+        tr = parse_device_trace(info["events"])
+        total = tr.ms(names) if tr is not None else 0.0
+        if total > 0:
+            return total / reps
+        if not torch.cuda.is_available():
+            break
+    return float("nan")
 
 
 def profile_step(step: Callable, steps: int = 3, warmup: int = 2) -> dict:

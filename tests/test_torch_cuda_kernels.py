@@ -12,8 +12,10 @@ They cover what the shapes in chip_smoke.py do not: batches that leave a
 kernel block part-empty, narrow widths, the identity projection, mixed
 input and compute types, both forms of the layer forward (tensor cores for
 bf16 compute at widths that are multiples of 16, FMA loops otherwise),
-dropout, the backward kernels, the masks each kernel applies read bit for
-bit (ops/dropout_probe.py), the gradients' run-to-run determinism, and the
+dropout, the backward kernels (the tensor-core form's row kernel and
+weight-gradient kernel each against its plain version too, ragged row
+chunks included), the masks each kernel applies read bit for bit
+(ops/dropout_probe.py), the gradients' run-to-run determinism, and the
 wrappers' refusals; for the SimMIM decode + weighted-L1 kernels, all-zero
 and all-one weight rows, a diff of exactly 0 and the loss's determinism;
 for the dropout-sample kernel, its bits against the plain hash from first
@@ -40,6 +42,7 @@ from maskedsst_tpu_torch.ops import (
     fused_embed,
     fused_layer,
     fused_simmim,
+    layer_wgrad,
 )
 from maskedsst_tpu_torch.ops.fused_layer import LayerParams
 
@@ -258,6 +261,93 @@ def test_layer_bwd_gradients_are_deterministic(cuda):
     second = fused_layer._launch_bwd(x, dy, params, *cfg)
     assert torch.equal(first[0], second[0])
     assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+SPLIT_SHAPES = [
+    (3, 64, 96, 8, 64, 64),  # spatial
+    (7, 20, 96, 8, 64, 64),  # spectral, last block part-empty, one chunk of 140 rows
+    (13, 5, 96, 8, 64, 64),  # Houston spectral, odd seq
+    (101, 20, 96, 8, 64, 64),  # N = 2,020: seven chunks of 320 rows, the last of 100
+    (5, 8, 32, 2, 16, 16),  # narrow
+    (2, 80, 32, 2, 16, 16),  # a sequence longer than 64 rows
+]
+
+
+@pytest.mark.parametrize("b,s,d,heads,dh,f", SPLIT_SHAPES)
+@pytest.mark.parametrize("io_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_layer_split_kernels_match_plain(cuda, b, s, d, heads, dh, f, io_dtype, rate):
+    """The tensor-core backward's row kernel (from the x1 its forward
+    writes) against its plain version: dx, the weight gradients' operands
+    and the small vectors; layer_wgrad against its plain version on the row
+    kernel's operands (fp32 sums of the same bf16 values: the fp32 limit);
+    each launch counted once."""
+    rng = np.random.default_rng(10)
+    params = _layer_params(rng, d, heads, dh, f, cuda)
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(cuda, io_dtype)
+    dy = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(cuda, io_dtype)
+    cfg = (heads, dh, torch.bfloat16, rate, rate > 0, 4321, True)
+    n, i = b * s, heads * dh
+    x1 = torch.empty(x.shape, dtype=torch.float32, device=cuda)
+    fused_layer._launch(x, params, *cfg, x1=x1)
+    before = (fused_layer.bwd_launches, layer_wgrad.launches)
+    dx, ops, grads = fused_layer.layer_bwd_rows(x, dy, params, *cfg, x1=x1)
+    layer_wgrad.layer_wgrad(ops, n, d, i, f, grads)
+    torch.cuda.synchronize()
+    assert (fused_layer.bwd_launches, layer_wgrad.launches) == (before[0] + 1, before[1] + 1)
+    want_dx, want_ops, partials = fused_layer.layer_bwd_rows_reference(
+        x, dy, params, *cfg, nparts=fused_layer._nparts(b, s, x.device))
+    assert _grad_err(dx, want_dx) <= TOL[torch.bfloat16]
+    got, want = (layer_wgrad.split_operands(t, n, d, i, f) for t in (ops, want_ops))
+    for k in layer_wgrad.OPERANDS:
+        assert _grad_err(got[k], want[k]) <= TOL[torch.bfloat16], k
+    views = layer_wgrad.split_grads(grads, d, i, f)
+    small = partials.sum(dim=0).split([views[k].numel() for k in fused_layer.SMALL])
+    for k, w in zip(fused_layer.SMALL, small):
+        assert _grad_err(views[k], w) <= TOL[torch.bfloat16], k
+    ref = layer_wgrad.layer_wgrad_reference(got, layer_wgrad.chunking(n, i, f)[0])
+    for k, w in ref.items():
+        assert _grad_err(views[k], w) <= TOL[torch.float32], k
+
+
+def test_layer_autograd_tc_route_saves_x1(cuda):
+    """A training call of the bf16 layer launches the forward once (writing
+    x1), the row kernel once and layer_wgrad once; a call under no_grad
+    launches the forward only; the gradients match the plain route's."""
+    rng = np.random.default_rng(11)
+    params = LayerParams(*(t.requires_grad_() for t in _layer_params(rng, 96, 8, 64, 64, cuda)))
+    x = torch.randn(7, 20, 96, device=cuda, requires_grad=True)
+    counts = (fused_layer.launches, fused_layer.bwd_launches, layer_wgrad.launches)
+    y = fused_layer.fused_transformer_layer(x, params, 8, 64, torch.bfloat16, 0.1, True, 5)
+    (y.float() * y.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (fused_layer.launches, fused_layer.bwd_launches, layer_wgrad.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    got = [x.grad] + [t.grad for t in params]
+    for t in (x, *params):
+        t.grad = None
+    y = fused_layer.plain_transformer_layer(x, params, 8, 64, torch.bfloat16, 0.1, True, 5)
+    (y.float() * y.float()).sum().backward()
+    for g, t in zip(got, (x, *params)):
+        assert _grad_err(g, t.grad) <= TOL[torch.bfloat16]
+    with torch.no_grad():
+        before = (fused_layer.launches, fused_layer.bwd_launches)
+        fused_layer.fused_transformer_layer(x, params, 8, 64, torch.bfloat16)
+    assert (fused_layer.launches, fused_layer.bwd_launches) == (before[0] + 1, before[1])
+
+
+def test_layer_wgrad_wrapper_refusals(cuda):
+    n, d, i, f = 64, 32, 32, 16
+    size = n * sum(layer_wgrad.operand_widths(d, i, f).values())
+    grads = torch.empty(d * (4 * i + 2 * f) + 6 * d + f, device=cuda)
+    with pytest.raises(ValueError, match="bf16 operand buffer"):
+        layer_wgrad.layer_wgrad(torch.zeros(size, device=cuda), n, d, i, f, grads)
+    with pytest.raises(ValueError, match="bf16 operand buffer"):
+        layer_wgrad.layer_wgrad(torch.zeros(size - 8, device=cuda, dtype=torch.bfloat16), n, d,
+                                i, f, grads)
+    with pytest.raises(ValueError, match="fp32"):
+        layer_wgrad.layer_wgrad(torch.zeros(size, device=cuda, dtype=torch.bfloat16), n, d, i, f,
+                                grads.bfloat16())
 
 
 def test_layer_autograd_routes_to_the_kernels(cuda):

@@ -9,6 +9,19 @@ import torch
 from maskedsst_tpu_torch.ops import dropout_probe, fused_layer
 from maskedsst_tpu_torch.ops.fused_layer import SITE_ATTN, SITE_FF_MID, SITE_FF_OUT, SITE_PROJ
 
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this module's full-width torch CPU work: the
+    suite runs files in parallel workers, and torch's default pool (one
+    thread per core in every worker) oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = [
     (3, 64, 96, 8, 64, 64),  # spatial
     (7, 20, 96, 8, 64, 64),  # spectral

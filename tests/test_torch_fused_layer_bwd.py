@@ -66,7 +66,19 @@ def _assert_close(got, want):
         assert err <= TOL, f"{name}: max|d|/max(1,max|ref|) = {err:.3e} > {TOL}"
 
 
-def _check_against_jax(b, s, d, heads, dh, f, identity_proj=False, seed=0):
+def _split_grads(x, dy, p, heads, dh, identity_proj=False):
+    """dx and the 11 parameter gradients through the tensor-core backward's
+    split on CPU tensors: the plain row kernel, then the plain
+    weight-gradient kernel over the wrapper's row chunks."""
+    params = LayerParams(*(torch.from_numpy(a) for a in p.values()))
+    dx, grads = fused_layer.layer_bwd_split(torch.from_numpy(x), torch.from_numpy(dy), params,
+                                            heads, dh, torch.float32, 0.0, True, 0,
+                                            not identity_proj)
+    return [dx.numpy()] + [g.numpy() for g in grads]
+
+
+def _check_against_jax(b, s, d, heads, dh, f, identity_proj=False, seed=0,
+                       port_grads=_port_grads):
     rng = np.random.default_rng(seed)
     p = _params(rng, d, heads, dh, f, identity_proj)
     x = rng.standard_normal((b, s, d)).astype(np.float32)
@@ -80,7 +92,7 @@ def _check_against_jax(b, s, d, heads, dh, f, identity_proj=False, seed=0):
     jp = JaxLayerParams(**{k: jnp.asarray(a) for k, a in p.items()})
     gx, gp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jp)
     want = [np.asarray(gx)] + [np.asarray(t) for t in gp]
-    _assert_close(_port_grads(x, dy, p, heads, dh, identity_proj), want)
+    _assert_close(port_grads(x, dy, p, heads, dh, identity_proj), want)
 
 
 @pytest.mark.parametrize(
@@ -95,6 +107,12 @@ def _check_against_jax(b, s, d, heads, dh, f, identity_proj=False, seed=0):
 )
 def test_layer_grads_match_jax(b, s, d, heads, dh, f):
     _check_against_jax(b, s, d, heads, dh, f)
+
+
+def test_split_backward_matches_jax():
+    """The split (row kernel + weight-gradient kernel, plain versions) at
+    N = 260 rows, five chunks, the last ragged."""
+    _check_against_jax(13, 20, 32, 2, 16, 16, port_grads=_split_grads)
 
 
 def test_layer_grads_identity_projection_match_jax():

@@ -188,6 +188,28 @@ def test_window_tiles_match_jax(tile, s):
         window_tiles(img, tile + 1, label)
 
 
+@pytest.mark.parametrize("flag", [True, None])
+def test_subset_forwards_stochastic_as_jax(flag):
+    """A subset reads its dataset's ``stochastic`` flag (False where the
+    dataset has none), as the JAX Subset does: the trainers stream a
+    stochastic dataset from the host instead of freezing one draw."""
+
+    class Stub:
+        def __len__(self):
+            return 10
+
+        def __getitem__(self, i):
+            return {"img": np.zeros(2, np.float32), "label": np.int64(i)}
+
+    ds = Stub()
+    if flag is not None:
+        ds.stochastic = flag
+    val, train = pipeline.split_dataset(ds, 0.8, seed=5)
+    jval, jtrain = jax_pipeline.split_dataset(ds, 0.8, seed=5)
+    assert (val.stochastic, train.stochastic) == (jval.stochastic, jtrain.stochastic)
+    assert train.stochastic is bool(flag)
+
+
 def test_split_and_loader_match_jax():
     ds = SyntheticCubeDataset(num_tiles=23, n_bands=20, tile_size=8, n_classes=4, seed=3)
     jds = JaxCubes(num_tiles=23, n_bands=20, tile_size=8, n_classes=4, seed=3)
