@@ -10,8 +10,13 @@ bias) → softmax attention per head (+ dropout) → out-projection + bias
 implementation by the tensor's device: a CPU tensor goes to
 :func:`reference_layer` forward and :func:`reference_layer_bwd` backward,
 the plain PyTorch versions; a CUDA tensor launches ``csrc/fused_layer_fwd.cu``
-and ``csrc/fused_layer_bwd.cu`` or raises. The kernels replace the TPU
-kernels ``maskedsst_tpu/ops/fused_layer.py::_layer_fwd_kernel`` and
+and ``csrc/fused_layer_bwd.cu`` or raises. In bf16 at widths that are
+multiples of 16 the backward is split: the row kernel of
+``fused_layer_bwd.cu`` (:func:`layer_bwd_rows`), started from the residual
+stream x1 that the training forward saved, then the weight-gradient kernel
+``csrc/layer_wgrad.cu`` (:mod:`~maskedsst_tpu_torch.ops.layer_wgrad`).
+The kernels replace the TPU kernels
+``maskedsst_tpu/ops/fused_layer.py::_layer_fwd_kernel`` and
 ``_layer_bwd_kernel`` and keep their numeric contract: LN eps 1e-5 with fp32
 statistics, every matmul operand rounded to ``compute_dtype`` with fp32
 accumulation, fp32 softmax, erf GELU, an fp32 residual stream, parameter
