@@ -19,40 +19,45 @@
 // writes the residual stream after attention, so that the backward's row
 // kernel starts from it instead of recomputing the attention forward.
 //
-// What bounds it on the H100: operations. At dim 96, inner width 512 and
-// seq 64 a token costs ~5.5e5 flop against 2 x 96 values of slab traffic,
-// i.e. thousands of flop per byte; the QKV projection is over half of it.
+// What bounds it on the H100: operations, and in the tensor-core form the
+// latency between them. At dim 96, inner width 512 and seq 64 a token costs
+// ~5.5e5 flop against 2 x 96 values of slab traffic, i.e. thousands of flop
+// per byte; the QKV projection is over half of it. The WMMA kernel this form
+// replaces ran at ~3 % of the bf16 peak: ~50 block-wide barriers per 64-row
+// block between products of one 16x16 tile per warp, every epilogue and the
+// [rows, dim] projection sum round-tripping through shared memory, the
+// weight slices copied with nothing running under the copy, and 181 KB of
+// shared memory, so one 512-thread block per SM.
 //
 // What this design does about it. One block owns up to 64 rows (one
-// sequence at seq 64, three at seq 20, twelve at seq 5) and keeps the whole
-// layer in dynamic shared memory: the residual stream, the LN output, the
-// projection accumulator, q/k/v of one head, the scores and the MLP hidden
-// layer. It loops over heads; each head's output is multiplied straight
-// into the [rows, dim] projection accumulator, so the [rows, 512]
-// concatenation never exists, and only the token slab crosses device
-// memory. Two forms share that plan, chosen at launch from what the call
+// sequence at seq 64, three at seq 20, twelve at seq 5), one warp per 16
+// rows, and loops over heads. Two forms, chosen at launch from what the call
 // gives:
-//  - tensor cores (bf16 compute, dim, dim_head and mlp dim multiples of 16):
-//    every product is a 16x16x16 bf16 WMMA with fp32 accumulation, operands
-//    kept in shared memory as bf16; each weight slice is first copied from
-//    L2 into shared memory with 16-byte loads; attention runs as one
-//    block-diagonal [rows, rows] score tile per head, the entries outside a
-//    row's own sequence masked out of the softmax, so short and odd
-//    sequences need no special case;
+//  - tensor cores (bf16 compute; D, dh and F multiples of 16, tc_widths):
+//    every product is mma.sync.m16n8k16 (bf16, fp32 sums), B operands by
+//    ldmatrix from shared memory, A operands from registers. A warp keeps
+//    its rows in registers from the x load to the y store: LN1's output
+//    as A fragments for all heads, q, the scores, the softmax (quad
+//    shuffles), the dropped probabilities as the A.V product's A
+//    fragments, each head's output o, the [16, dim] out-projection sum
+//    across heads, x1, LN2 and the GELU output. Every epilogue (bf16
+//    rounding, bias + GELU + site 5, bias + site 7 + residual) works on the
+//    accumulator fragments. Only k and v of the head and the weight slices
+//    live in shared memory (70 KB at the EnMAP widths). Attention keeps a
+//    row's own sequence: the score and A.V products skip the 16-key steps
+//    outside the warp's sequences, the softmax masks the rest;
 //  - FMA loops (fp32 compute, or widths the tensor-core form does not
-//    take): an 8-row register tile per thread, weights read from L2.
-// The fp32 form is far below even the FMA peak; wgmma, TMA and pipelining
-// are later work.
-
-#include <mma.h>
+//    take): an 8-row register tile per thread, weights read from L2, the
+//    whole layer in dynamic shared memory (the residual stream, the LN
+//    output, the projection accumulator, q/k/v of one head, the scores and
+//    the MLP hidden layer), each head multiplied straight into the
+//    projection accumulator. It is far below even the FMA peak.
 
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 
 using namespace msst;
-using namespace nvcuda;
 
 namespace {
 
@@ -261,119 +266,256 @@ fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
 // ---------------------------------------------------------------------------
 // Tensor-core form (bf16 compute)
 
-constexpr int kTcThreads = 512;
-constexpr int kPad = 8;  // bf16 row padding: keeps WMMA strides a multiple of 8 and staggers banks
-
-enum TcEpilogue { kTcStoreBf16, kTcStoreF32, kTcAccumulateF32, kTcBiasGeluBf16, kTcBiasResidual };
+// bf16 row padding of the staged tiles: 16-byte rows, ldmatrix free of bank conflicts
+constexpr int kPad = 8;
 
 __host__ __device__ inline size_t align128(size_t bytes) { return (bytes + 127) / 128 * 128; }
 __host__ __device__ inline size_t larger(size_t a, size_t b) { return a > b ? a : b; }
 
-// Byte offsets of the tensor-core form's shared memory; every buffer starts
-// on a 128-byte boundary (WMMA wants 32). R is the block's row count
-// rounded up to 16; the rows past the block's real rows stay zero.
+// Byte offsets of the tensor-core form's shared memory. R is the block's row
+// count rounded up to 16 (one warp per 16 rows). Two weight buffers: `wa`
+// holds one head's q, k and v columns side by side [D, 3dh] and then w1
+// [D, F]; `wb` one head's out-projection rows [dh, D] and then w2 [F, D].
+// k and v of the head, [R, dh] each, are the only activations shared
+// between warps; everything else a warp computes stays in its registers.
 struct TcPlan {
-  int R, ld_h, ld_q, ld_sc, ld_p, ld_hid;
-  size_t xs, proj, hs, q, k, v, sc, p, hid, wst, stage, bytes;
+  int R, ld_w3, ld_w1, ld_wd, ld_kv;
+  size_t wa, wb, k, v, bytes;
 
-  __host__ __device__ TcPlan(int S, int D, int dh, int F, int nwarps) {
+  __host__ __device__ TcPlan(int S, int D, int dh, int F) {
     R = round_up(seqs_per_block(S) * S, 16);
-    ld_h = D + kPad;
-    ld_q = dh + kPad;
-    ld_sc = R + 4;
-    ld_p = R + kPad;
-    ld_hid = F + kPad;
-    // the widest weight slice staged at once: [D, 3dh] (q/k/v of one head),
-    // [dh, D] (its out-projection rows), [D, F] (fc1) or [F, D] (fc2)
-    size_t wst_elems = static_cast<size_t>(D) * (3 * dh + kPad);
-    wst_elems = larger(wst_elems, static_cast<size_t>(dh) * (D + kPad));
-    wst_elems = larger(wst_elems, static_cast<size_t>(D) * (F + kPad));
-    wst_elems = larger(wst_elems, static_cast<size_t>(F) * (D + kPad));
+    ld_w3 = 3 * dh + kPad;
+    ld_w1 = F + kPad;
+    ld_wd = D + kPad;
+    ld_kv = dh + kPad;
+    const size_t a = larger(static_cast<size_t>(D) * ld_w3, static_cast<size_t>(D) * ld_w1);
+    const size_t b = static_cast<size_t>(dh > F ? dh : F) * ld_wd;
     size_t off = 0;
-    xs = off;    off += align128(sizeof(float) * R * D);      // residual stream
-    proj = off;  off += align128(sizeof(float) * R * D);      // out-projection accumulator
-    hs = off;    off += align128(sizeof(bf16) * R * ld_h);    // LN1 / LN2 output
-    q = off;     off += align128(sizeof(bf16) * R * ld_q);    // q, then the head's output
-    k = off;     off += align128(sizeof(bf16) * R * ld_q);
-    v = off;     off += align128(sizeof(bf16) * R * ld_q);
-    sc = off;    off += align128(sizeof(float) * R * ld_sc);  // scores [R, R]
-    p = off;     off += align128(sizeof(bf16) * R * ld_p);    // probabilities [R, R]
-    hid = off;   off += align128(sizeof(bf16) * R * ld_hid);  // MLP hidden layer
-    wst = off;   off += align128(sizeof(bf16) * wst_elems);   // staged weight slice
-    stage = off; off += align128(sizeof(float) * 256 * nwarps);  // one 16x16 tile per warp
+    wa = off; off += align128(sizeof(bf16) * a);
+    wb = off; off += align128(sizeof(bf16) * b);
+    k = off;  off += align128(sizeof(bf16) * R * ld_kv);
+    v = off;  off += align128(sizeof(bf16) * R * ld_kv);
     bytes = off;
   }
 };
 
-// dst [K, N] (row stride ldd) = src [K, N] (row stride lds), both bf16 with
-// 16-byte aligned rows and N a multiple of 8: 16-byte loads, all in flight.
-__device__ void stage_weights(const bf16* __restrict__ src, int lds, int K, int N,
-                              bf16* dst, int ldd) {
+// The widths the tensor-core form takes (the same test as ops/fused_layer.py
+// ::_tc_form): bf16 compute, D, dh and F multiples of 16, D and F at most
+// 128, dh at most 64, at most 128 rows a block. The kernel below is
+// instantiated twice: at exactly the model's widths (D 96, dh 64, F 64, up
+// to 64 rows a block), and with these maxima and the widths read at run time.
+__host__ __device__ inline bool tc_widths(int S, int D, int dh, int F) {
+  return D % 16 == 0 && dh % 16 == 0 && F % 16 == 0 && D <= 128 && dh <= 64 && F <= 128 &&
+         TcPlan(S, D, dh, F).R <= 128;
+}
+
+// dst [K, N] (row stride ldd, shared) = src [K, N] (row stride lds, device
+// memory), bf16 with 16-byte aligned rows and N a multiple of 8, issued with
+// cp.async: the copy lands while the block computes. cp_async_wait_all() and
+// a barrier come before the first read.
+__device__ void stage_async(const bf16* __restrict__ src, size_t lds, int K, int N, bf16* dst,
+                            int ldd) {
   const int vec = N / 8;
   for (int i = threadIdx.x; i < K * vec; i += blockDim.x) {
     const int r = i / vec, c = (i % vec) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) =
-        __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * lds + c));
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * ldd + c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + r * lds + c));
   }
 }
 
-// out [R, N] <op>= A [R, K] x B [K, N] on the tensor cores, one 16x16
-// output tile per warp at a time. A: shared bf16, row-major. B: shared
-// bf16, row-major (BL = wmma::row_major) or, for the scores, the [N, K]
-// key matrix read as column-major. Tiles the epilogue must touch element by
-// element go through the warp's fp32 stage; rows past `rows` are left
-// alone by the residual epilogue.
-template <int EPI, typename BL>
-__device__ void tc_mm(const bf16* A, int lda, int R, int K, const bf16* B, int ldb, int N,
-                      void* out, int ldo, const float* __restrict__ bias, float* stage,
-                      int rows, const DropCfg& dc = DropCfg{}, long long row0 = 0) {
-  const int warp = threadIdx.x / 32, nwarps = blockDim.x / 32, lane = threadIdx.x % 32;
-  const int tn = N / 16, tiles = (R / 16) * tn;
-  float* st = stage + warp * 256;
-  for (int t = warp; t < tiles; t += nwarps) {
-    const int r0 = (t / tn) * 16, c0 = (t % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (EPI == kTcAccumulateF32)
-      wmma::load_matrix_sync(acc, static_cast<float*>(out) + r0 * ldo + c0, ldo,
-                             wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BL> b;
-      wmma::load_matrix_sync(a, A + r0 * lda + kk, lda);
-      if constexpr (std::is_same<BL, wmma::row_major>::value)
-        wmma::load_matrix_sync(b, B + kk * ldb + c0, ldb);
+// wait until this thread's cp.async copies have landed
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// Warp-level products on mma.sync.m16n8k16 (bf16 operands, fp32 sums). A
+// warp owns 16 rows; a thread (lane = 4 g + c) holds, of each 16 x 8 fp32
+// accumulator tile, elements (g, 2c), (g, 2c + 1) in [0], [1] and (g + 8,
+// 2c), (g + 8, 2c + 1) in [2], [3]. The A fragment of a 16 x 16 k-step is
+// the same layout over two neighbouring tiles rounded to bf16, so a result
+// feeds the next product without leaving the registers (to_afrag).
+
+// two fp32 values rounded to bf16 and packed in one register, the lower
+// column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of two neighbouring 8-column tiles (n0, n0 + 8) for the k-step
+// at k0, from shared memory by one ldmatrix: r[0], r[1] the first tile's,
+// r[2], r[3] the second's. ldsm_kn: B row-major, element (k, n) at
+// W[k * ld + n] (a weight slice, or v); ldsm_nk: B stored transposed,
+// element (k, n) at W[n * ld + k] (k, for the scores q k^T).
+__device__ __forceinline__ void ldsm_kn(uint32_t (&r)[4], const bf16* W, int ld, int k0, int n0,
+                                        int lane) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(
+      W + (k0 + (lane & 7) + (lane & 8)) * ld + n0 + (lane >> 4) * 8));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_nk(uint32_t (&r)[4], const bf16* W, int ld, int k0, int n0,
+                                        int lane) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(
+      W + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + (lane & 8)));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// acc[j] (the 8-column tile at column n0 + 8j of the product, j in [j_lo,
+// j_hi), j_lo even) += A x B over the k-steps [k_lo, k_hi): A as register
+// fragments, B from shared memory (TRANS: stored transposed, ldsm_nk). NT
+// and KS are the maxima; the run-time bounds skip the rest. k-steps
+// outside, tiles inside: each k-step issues its products back to back,
+// independent of each other.
+template <int KS, int NT, bool TRANS = false>
+__device__ __forceinline__ void warp_mm(float (&acc)[NT][4], const uint32_t (&a)[KS][4],
+                                        int k_lo, int k_hi, const bf16* W, int ld, int n0,
+                                        int j_lo, int j_hi, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    if (kk < k_lo || kk >= k_hi) continue;
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      if (j < j_lo || j >= j_hi) continue;
+      uint32_t b[4];
+      if (TRANS)
+        ldsm_nk(b, W, ld, 16 * kk, n0 + 8 * j, lane);
       else
-        wmma::load_matrix_sync(b, B + c0 * ldb + kk, ldb);
-      wmma::mma_sync(acc, a, b, acc);
+        ldsm_kn(b, W, ld, 16 * kk, n0 + 8 * j, lane);
+      mma16816(acc[j], a[kk], b[0], b[1]);
+      mma16816(acc[j + 1], a[kk], b[2], b[3]);
     }
-    if (EPI == kTcStoreF32 || EPI == kTcAccumulateF32) {
-      wmma::store_matrix_sync(static_cast<float*>(out) + r0 * ldo + c0, acc, ldo,
-                              wmma::mem_row_major);
-      continue;
-    }
-    wmma::store_matrix_sync(st, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = r0 + e / 16, c = c0 + e % 16;
-      if (EPI == kTcStoreBf16) {
-        static_cast<bf16*>(out)[r * ldo + c] = __float2bfloat16(st[e]);
-      } else if (EPI == kTcBiasGeluBf16) {
-        const float m = drop_mult(dc, kSiteFfMid, static_cast<uint64_t>(row0 + r) * N + c);
-        static_cast<bf16*>(out)[r * ldo + c] = __float2bfloat16(gelu(st[e] + bias[c]) * m);
-      } else if (r < rows) {  // kTcBiasResidual
-        const float m = drop_mult(dc, kSiteFfOut, static_cast<uint64_t>(row0 + r) * N + c);
-        float* o = static_cast<float*>(out) + r * ldo + c;
-        *o = *o + (st[e] + bias[c]) * m;
-      }
-    }
-    __syncwarp();
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTcThreads)
+// the A fragments of a [16, 16 KS] operand from the accumulators of its
+// 2 KS tiles, rounded to bf16
+template <int KS>
+__device__ __forceinline__ void to_afrag(uint32_t (&a)[KS][4], const float (&acc)[2 * KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
+    a[kk][1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
+    a[kk][2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
+  }
+}
+
+// accumulator tiles (j < nt) rounded to bf16 into rows ra, ra + 8 of a
+// shared [*, ld] tile
+template <int NT>
+__device__ __forceinline__ void store_bf16(const float (&acc)[NT][4], bf16* dst, int ld, int ra,
+                                           int nt, int c) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) continue;
+    *reinterpret_cast<uint32_t*>(dst + ra * ld + 8 * j + 2 * c) = pack_bf16(acc[j][0], acc[j][1]);
+    *reinterpret_cast<uint32_t*>(dst + (ra + 8) * ld + 8 * j + 2 * c) =
+        pack_bf16(acc[j][2], acc[j][3]);
+  }
+}
+
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// rows (row a, row a + 8) of a [*, D] matrix in device memory as the
+// thread's elements of 2 kd accumulator tiles; rows that do not exist read 0
+template <int NT, typename T>
+__device__ __forceinline__ void load_rows(float (&v)[NT][4], const T* src, int D, int nt,
+                                          bool ok_a, bool ok_b, int c) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 a = j < nt && ok_a ? load2(src + 8 * j + 2 * c) : make_float2(0.f, 0.f);
+    const float2 b = j < nt && ok_b ? load2(src + 8 * D + 8 * j + 2 * c) : make_float2(0.f, 0.f);
+    v[j][0] = a.x;
+    v[j][1] = a.y;
+    v[j][2] = b.x;
+    v[j][3] = b.y;
+  }
+}
+
+template <int NT, typename T>
+__device__ __forceinline__ void store_rows(const float (&v)[NT][4], T* dst, int D, int nt,
+                                           bool ok_a, bool ok_b, int c) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) continue;
+    if (ok_a) store2(dst + 8 * j + 2 * c, v[j][0], v[j][1]);
+    if (ok_b) store2(dst + 8 * D + 8 * j + 2 * c, v[j][2], v[j][3]);
+  }
+}
+
+// LayerNorm over the D = 8 nt columns of the thread's two rows held as
+// accumulator tiles, rounded to bf16 as the A fragments of the next
+// product. Two-pass fp32 statistics; the four lanes that share a row (a
+// quad) reduce with shuffles.
+template <int KS>
+__device__ __forceinline__ void ln_frag(uint32_t (&a)[KS][4], const float (&v)[2 * KS][4],
+                                        int nt, int D, const float* __restrict__ scale,
+                                        const float* __restrict__ bias, int c) {
+  float o[2 * KS][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2 * KS; ++j)
+      if (j < nt) s += v[j][2 * half] + v[j][2 * half + 1];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mu = s / D;
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2 * KS; ++j) {
+      if (j >= nt) continue;
+      const float t0 = v[j][2 * half] - mu, t1 = v[j][2 * half + 1] - mu;
+      q += t0 * t0 + t1 * t1;
+    }
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
+    const float rsig = rsqrtf(q / D + kLnEps);
+#pragma unroll
+    for (int j = 0; j < 2 * KS; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * c + e;
+        o[j][2 * half + e] =
+            j < nt ? (v[j][2 * half + e] - mu) * rsig * scale[col] + bias[col] : 0.f;
+      }
+  }
+  to_afrag<KS>(a, o);
+}
+
+// KD, KH, KF: 16-column k-steps of D, dh and F (EXACT: the widths; else
+// their maxima, the widths read at run time); KT: 8-key tiles of the
+// scores, at least R / 8. One warp per 16 rows of the block.
+template <typename T, int KD, int KH, int KF, int KT, bool EXACT>
+__global__ void __launch_bounds__(KT * 16)
 fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ x1,
                           const float* __restrict__ ln1s, const float* __restrict__ ln1b,
                           const bf16* __restrict__ wqkv, const bf16* __restrict__ wout,
@@ -383,114 +525,181 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
                           const bf16* __restrict__ w2, const float* __restrict__ b2,
                           int B, int S, int D, int H, int dh, int F, DropCfg dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int lane = tid % 32, nwarps = nthr / 32;
-  const TcPlan plan(S, D, dh, F, nwarps);
-  const int R = plan.R;
-  float* xs = reinterpret_cast<float*>(smem_raw + plan.xs);
-  float* proj = reinterpret_cast<float*>(smem_raw + plan.proj);
-  bf16* hs = reinterpret_cast<bf16*>(smem_raw + plan.hs);
-  bf16* q = reinterpret_cast<bf16*>(smem_raw + plan.q);
-  bf16* k = reinterpret_cast<bf16*>(smem_raw + plan.k);
-  bf16* v = reinterpret_cast<bf16*>(smem_raw + plan.v);
-  float* sc = reinterpret_cast<float*>(smem_raw + plan.sc);
-  bf16* p = reinterpret_cast<bf16*>(smem_raw + plan.p);
-  bf16* hid = reinterpret_cast<bf16*>(smem_raw + plan.hid);
-  bf16* wst = reinterpret_cast<bf16*>(smem_raw + plan.wst);
-  float* stage = reinterpret_cast<float*>(smem_raw + plan.stage);
-
+  const TcPlan plan(S, D, dh, F);
+  bf16* wa = reinterpret_cast<bf16*>(smem_raw + plan.wa);
+  bf16* wb = reinterpret_cast<bf16*>(smem_raw + plan.wb);
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw + plan.k);
+  bf16* vs = reinterpret_cast<bf16*>(smem_raw + plan.v);
+  const int kd = EXACT ? KD : D / 16, kh = EXACT ? KH : dh / 16, kf = EXACT ? KF : F / 16;
+  const int lane = threadIdx.x % 32, c = lane % 4;
+  const int R = plan.R, r0 = threadIdx.x / 32 * 16;
+  const int ra = r0 + lane / 4;  // the thread's rows: ra and ra + 8
   const int seqs = seqs_per_block(S);
   const int seq0 = blockIdx.x * seqs;
   const int rows = min(seqs, B - seq0) * S;
+  const bool ok_a = ra < rows, ok_b = ra + 8 < rows;
   const int I = H * dh;
-  const size_t base = static_cast<size_t>(seq0) * S * D;
+  const long long tok0 = static_cast<long long>(seq0) * S;  // token row of block row 0
+  const size_t at = static_cast<size_t>(tok0 + ra) * D;     // row ra in x, y and x1
 
-  // zero everything: the padding rows (rows..R) of every operand must be
-  // finite, since their products are computed and then dropped
-  for (size_t i = tid; i < plan.bytes / sizeof(uint4); i += nthr)
-    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-  for (int i = tid; i < rows * D; i += nthr) xs[i] = to_f(x[base + i]);
-  __syncthreads();
-  layer_norm_rows<bf16, bf16>(xs, hs, plan.ld_h, rows, D, ln1s, ln1b);
+  // LN1 of the warp's rows, straight from device memory into the A
+  // fragments of the q/k/v products, kept for every head
+  uint32_t hf[KD][4];
+  {
+    float v[2 * KD][4];
+    load_rows<2 * KD>(v, x + at, D, 2 * kd, ok_a, ok_b, c);
+    ln_frag<KD>(hf, v, 2 * kd, D, ln1s, ln1b, c);
+  }
+  // the out-projection sum over heads, then x1
+  float proj[2 * KD][4];
+  zero(proj);
+  // the keys a warp's rows can see: the sequences its rows belong to
+  const int klo = r0 / S * S, khi = min(R, ((r0 + 15) / S + 1) * S);
+  const int plo = klo / 16, phi = (khi + 15) / 16;  // 16-key k-steps of the A.V product
 
-  const int ld_w3 = 3 * dh + kPad, ld_wd = D + kPad;
   for (int h = 0; h < H; ++h) {
     for (int j = 0; j < 3; ++j)  // this head's q, k and v columns, side by side
-      stage_weights(wqkv + j * I + h * dh, 3 * I, D, dh, wst + j * dh, ld_w3);
-    __syncthreads();
-    tc_mm<kTcStoreBf16, wmma::row_major>(hs, plan.ld_h, R, D, wst, ld_w3, dh, q, plan.ld_q,
-                                         nullptr, stage, rows);
-    tc_mm<kTcStoreBf16, wmma::row_major>(hs, plan.ld_h, R, D, wst + dh, ld_w3, dh, k,
-                                         plan.ld_q, nullptr, stage, rows);
-    tc_mm<kTcStoreBf16, wmma::row_major>(hs, plan.ld_h, R, D, wst + 2 * dh, ld_w3, dh, v,
-                                         plan.ld_q, nullptr, stage, rows);
+      stage_async(wqkv + j * I + h * dh, 3 * I, D, dh, wa + j * dh, plan.ld_w3);
+    stage_async(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wb, plan.ld_wd);
+    cp_async_wait_all();
     __syncthreads();
 
-    // scores of every row against every row of the block (q carries the
-    // 1/sqrt(dh) scale); the softmax keeps only a row's own sequence
-    tc_mm<kTcStoreF32, wmma::col_major>(q, plan.ld_q, R, dh, k, plan.ld_q, R, sc, plan.ld_sc,
-                                        nullptr, stage, rows);
-    __syncthreads();
-
-    // fp32 softmax with row-max subtraction over the row's own sequence,
-    // one warp per row; probabilities rounded to bf16 as the AV operand,
-    // exact zeros elsewhere. Meanwhile the head's out-projection rows are
-    // staged (the q/k/v weights are no longer read).
-    stage_weights(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wst, ld_wd);
-    for (int r = tid / 32; r < R; r += nwarps) {
-      bf16* pr = p + r * plan.ld_p;
-      if (r >= rows) {
-        for (int c = lane; c < R; c += 32) pr[c] = __float2bfloat16(0.f);
-        continue;
-      }
-      const float* s = sc + r * plan.ld_sc;
-      const int lo = r / S * S, hi = lo + S;
-      float m = __int_as_float(0xff800000);  // -inf
-      for (int c = lo + lane; c < hi; c += 32) m = fmaxf(m, s[c]);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int c = lo + lane; c < hi; c += 32) sum += expf(s[c] - m);
-      const float inv = 1.f / warp_sum(sum);
-      // dropout site 1 on [B', H, S, S]: (sequence, head, query, key)
-      const uint64_t idx0 = ((static_cast<uint64_t>(seq0 + r / S) * H + h) * S + r % S) * S;
-      for (int c = lane; c < R; c += 32)
-        pr[c] = __float2bfloat16(
-            c >= lo && c < hi ? expf(s[c] - m) * inv * drop_mult(dc, kSiteAttn, idx0 + c - lo)
-                              : 0.f);
+    // q stays in registers as the scores' A fragments; k and v go to
+    // shared memory, where every warp of the block reads them
+    uint32_t qf[KH][4];
+    {
+      float acc[2 * KH][4];
+      zero(acc);
+      warp_mm<KD, 2 * KH>(acc, hf, 0, kd, wa, plan.ld_w3, 0, 0, 2 * kh, lane);
+      to_afrag<KH>(qf, acc);
+    }
+#pragma unroll
+    for (int part = 1; part < 3; ++part) {
+      float acc[2 * KH][4];
+      zero(acc);
+      warp_mm<KD, 2 * KH>(acc, hf, 0, kd, wa, plan.ld_w3, part * dh, 0, 2 * kh, lane);
+      store_bf16<2 * KH>(acc, part == 1 ? ks : vs, plan.ld_kv, ra, 2 * kh, c);
     }
     __syncthreads();
 
-    // o = a . v, written over q (dead after the scores), rounded to bf16
-    tc_mm<kTcStoreBf16, wmma::row_major>(p, plan.ld_p, R, R, v, plan.ld_q, dh, q, plan.ld_q,
-                                         nullptr, stage, rows);
-    __syncthreads();
-    // this head's slice of the out-projection: o_h [R, dh] x wout[h*dh:(h+1)*dh, :]
-    tc_mm<kTcAccumulateF32, wmma::row_major>(q, plan.ld_q, R, dh, wst, ld_wd, D, proj, D,
-                                             nullptr, stage, rows);
-    __syncthreads();
+    // scores q k^T of the warp's rows against the keys they can see (q
+    // carries the 1/sqrt(dh) scale)
+    float sc[KT][4];
+    zero(sc);
+    warp_mm<KH, KT, true>(sc, qf, 0, kh, ks, plan.ld_kv, 0, 2 * plo, 2 * phi, lane);
+    // fp32 softmax with row-max subtraction over the row's own sequence;
+    // dropout site 1 on [B', H, S, S] at (sequence, head, query, key); the
+    // probabilities rounded to bf16 as the A.V product's A fragments
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = ra + 8 * half;
+      const int lo = r / S * S, hi = min(lo + S, R);
+      float m = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * c + e;
+          if (col >= lo && col < hi) m = fmaxf(m, sc[j][2 * half + e]);
+        }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * c + e;
+          const float ex = col >= lo && col < hi ? expf(sc[j][2 * half + e] - m) : 0.f;
+          sc[j][2 * half + e] = ex;
+          sum += ex;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.f / sum;
+      const uint64_t idx0 =
+          ((static_cast<uint64_t>(seq0 + r / S) * H + h) * S + r % S) * S - lo;
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * c + e;
+          if (col >= lo && col < hi)
+            sc[j][2 * half + e] = sc[j][2 * half + e] * inv * drop_mult(dc, kSiteAttn, idx0 + col);
+        }
+    }
+    uint32_t pf[KT / 2][4];
+    to_afrag<KT / 2>(pf, sc);
+
+    // o = a . v over the visible keys, rounded to bf16, then this head's
+    // slice of the out-projection: proj += o_h [16, dh] x wout[h dh:(h+1) dh, :]
+    uint32_t of[KH][4];
+    {
+      float acc[2 * KH][4];
+      zero(acc);
+      warp_mm<KT / 2, 2 * KH>(acc, pf, plo, phi, vs, plan.ld_kv, 0, 0, 2 * kh, lane);
+      to_afrag<KH>(of, acc);
+    }
+    warp_mm<KH, 2 * KD>(proj, of, 0, kh, wb, plan.ld_wd, 0, 0, 2 * kd, lane);
+    __syncthreads();  // every warp is done with this head's k, v and weight slices
   }
 
-  stage_weights(w1, F, D, F, wst, F + kPad);
-  const long long row0 = static_cast<long long>(seq0) * S;
-  for (int i = tid; i < rows * D; i += nthr) {
-    const float m = dc.proj ? drop_mult(dc, kSiteProj, row0 * D + i) : 1.f;
-    xs[i] = xs[i] + (proj[i] + bout[i % D]) * m;
-    if (x1) x1[base + i] = xs[i];
+  stage_async(w1, F, D, F, wa, plan.ld_w1);
+  stage_async(w2, D, F, D, wb, plan.ld_wd);
+  // x1 = x + the dropped projection (site 3), in place of the sum
+  {
+    float xv[2 * KD][4];
+    load_rows<2 * KD>(xv, x + at, D, 2 * kd, ok_a, ok_b, c);
+#pragma unroll
+    for (int j = 0; j < 2 * KD; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * c + e % 2;
+        if (j >= 2 * kd) continue;
+        const float m = dc.proj ? drop_mult(dc, kSiteProj, static_cast<uint64_t>(
+                                                                tok0 + ra + 8 * (e / 2)) * D + col)
+                                : 1.f;
+        proj[j][e] = xv[j][e] + (proj[j][e] + bout[col]) * m;
+      }
   }
-  __syncthreads();
-  layer_norm_rows<bf16, bf16>(xs, hs, plan.ld_h, rows, D, ln2s, ln2b);
-  __syncthreads();
-  tc_mm<kTcBiasGeluBf16, wmma::row_major>(hs, plan.ld_h, R, D, wst, F + kPad, F, hid,
-                                          plan.ld_hid, b1, stage, rows, dc, row0);
-  __syncthreads();
-  stage_weights(w2, D, F, D, wst, ld_wd);
-  __syncthreads();
-  tc_mm<kTcBiasResidual, wmma::row_major>(hid, plan.ld_hid, R, F, wst, ld_wd, D, xs, D, b2,
-                                          stage, rows, dc, row0);
+  if (x1) store_rows<2 * KD>(proj, x1 + at, D, 2 * kd, ok_a, ok_b, c);
+  ln_frag<KD>(hf, proj, 2 * kd, D, ln2s, ln2b, c);
+  cp_async_wait_all();
   __syncthreads();
 
-  for (int i = tid; i < rows * D; i += nthr) y[base + i] = from_f<T>(xs[i]);
+  // fc1 + b1 -> GELU -> dropout site 5, rounded to bf16 as fc2's A fragments
+  uint32_t gf[KF][4];
+  {
+    float u[2 * KF][4];
+    zero(u);
+    warp_mm<KD, 2 * KF>(u, hf, 0, kd, wa, plan.ld_w1, 0, 0, 2 * kf, lane);
+#pragma unroll
+    for (int j = 0; j < 2 * KF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * c + e % 2;
+        if (j >= 2 * kf) continue;
+        const float m = drop_mult(dc, kSiteFfMid,
+                                  static_cast<uint64_t>(tok0 + ra + 8 * (e / 2)) * F + col);
+        u[j][e] = gelu(u[j][e] + b1[col]) * m;
+      }
+    to_afrag<KF>(gf, u);
+  }
+  // fc2 + b2 -> dropout site 7 -> residual
+  float ff[2 * KD][4];
+  zero(ff);
+  warp_mm<KF, 2 * KD>(ff, gf, 0, kf, wb, plan.ld_wd, 0, 0, 2 * kd, lane);
+#pragma unroll
+  for (int j = 0; j < 2 * KD; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * c + e % 2;
+      if (j >= 2 * kd) continue;
+      const float m = drop_mult(dc, kSiteFfOut,
+                                static_cast<uint64_t>(tok0 + ra + 8 * (e / 2)) * D + col);
+      ff[j][e] = proj[j][e] + (ff[j][e] + b2[col]) * m;
+    }
+  store_rows<2 * KD>(ff, y + at, D, 2 * kd, ok_a, ok_b, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -521,20 +730,20 @@ cudaError_t launch_fma(const void* x, void* y, const void* ln1s, const void* ln1
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_tc(const void* x, void* y, void* x1, const void* ln1s, const void* ln1b,
-                      const void* wqkv, const void* wout, const void* bout,
-                      const void* ln2s, const void* ln2b, const void* w1, const void* b1,
-                      const void* w2, const void* b2,
-                      int B, int S, int D, int H, int dh, int F, DropCfg dc,
-                      cudaStream_t stream) {
+template <typename T, int KD, int KH, int KF, int KT, bool EXACT>
+cudaError_t launch_tc_as(const void* x, void* y, void* x1, const void* ln1s, const void* ln1b,
+                         const void* wqkv, const void* wout, const void* bout,
+                         const void* ln2s, const void* ln2b, const void* w1, const void* b1,
+                         const void* w2, const void* b2,
+                         int B, int S, int D, int H, int dh, int F, DropCfg dc,
+                         cudaStream_t stream) {
   const int seqs = seqs_per_block(S);
-  const size_t bytes = TcPlan(S, D, dh, F, kTcThreads / 32).bytes;
-  auto kernel = fused_layer_fwd_tc_kernel<T>;
+  const TcPlan plan(S, D, dh, F);
+  auto kernel = fused_layer_fwd_tc_kernel<T, KD, KH, KF, KT, EXACT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(plan.bytes));
   if (err != cudaSuccess) return err;
-  kernel<<<(B + seqs - 1) / seqs, kTcThreads, bytes, stream>>>(
+  kernel<<<(B + seqs - 1) / seqs, 2 * plan.R, plan.bytes, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), static_cast<float*>(x1),
       static_cast<const float*>(ln1s), static_cast<const float*>(ln1b),
       static_cast<const bf16*>(wqkv), static_cast<const bf16*>(wout),
@@ -544,6 +753,25 @@ cudaError_t launch_tc(const void* x, void* y, void* x1, const void* ln1s, const 
       static_cast<const bf16*>(w2), static_cast<const float*>(b2),
       B, S, D, H, dh, F, dc);
   return cudaGetLastError();
+}
+
+// the model's widths (D 96, dh 64, F 64, at most 64 rows a block) take the
+// instantiation with every width fixed; the rest of tc_widths the one with
+// the maxima
+template <typename T>
+cudaError_t launch_tc(const void* x, void* y, void* x1, const void* ln1s, const void* ln1b,
+                      const void* wqkv, const void* wout, const void* bout,
+                      const void* ln2s, const void* ln2b, const void* w1, const void* b1,
+                      const void* w2, const void* b2,
+                      int B, int S, int D, int H, int dh, int F, DropCfg dc,
+                      cudaStream_t stream) {
+  if (D == 96 && dh == 64 && F == 64 && TcPlan(S, D, dh, F).R <= 64)
+    return launch_tc_as<T, 6, 4, 4, 8, true>(x, y, x1, ln1s, ln1b, wqkv, wout, bout, ln2s,
+                                             ln2b, w1, b1, w2, b2, B, S, D, H, dh, F, dc,
+                                             stream);
+  return launch_tc_as<T, 8, 4, 8, 16, false>(x, y, x1, ln1s, ln1b, wqkv, wout, bout, ln2s,
+                                             ln2b, w1, b1, w2, b2, B, S, D, H, dh, F, dc,
+                                             stream);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -558,8 +786,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // uint32(rate * 2^32) and the scale 1 / (1 - rate); seed and threshold
 // arrive as the int bit patterns of their uint32 values. Launches on
 // `stream`; returns cudaGetLastError(). bf16 compute takes the tensor-core
-// form when D, dh and F are multiples of 16 and the weights are 16-byte
-// aligned, else the FMA form. x1: null, or (tensor-core form only) an fp32
+// form at the widths tc_widths takes with 16-byte aligned weights, else the
+// FMA form. x1: null, or (tensor-core form only) an fp32
 // [B, S, D] that receives the residual stream after attention, x + the
 // dropped projection, for fused_layer_bwd.cu's row kernel.
 extern "C" int fused_layer_fwd(const void* x, void* y, void* x1, const void* ln1s,
@@ -573,8 +801,8 @@ extern "C" int fused_layer_fwd(const void* x, void* y, void* x1, const void* ln1
   auto st = static_cast<cudaStream_t>(stream);
   const DropCfg dc{drop_on, drop_proj, static_cast<uint32_t>(drop_seed),
                    static_cast<uint32_t>(drop_thr), drop_scale};
-  const bool tc = compute_bf16 && D % 16 == 0 && dh % 16 == 0 && F % 16 == 0 &&
-                  aligned16(wqkv) && aligned16(wout) && aligned16(w1) && aligned16(w2);
+  const bool tc = compute_bf16 && tc_widths(S, D, dh, F) && aligned16(wqkv) &&
+                  aligned16(wout) && aligned16(w1) && aligned16(w2);
   if (x1 && !tc) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (tc && io_bf16)

@@ -119,7 +119,7 @@ def fused_transformer_layer(
     # gradient will reach (serving, validation) writes none
     save_x1 = (not plain and torch.is_grad_enabled()
                and any(t.requires_grad for t in (x, *params))
-               and _tc_form(cfg, x.shape[-1], params.w1.shape[1]))
+               and _tc_form(cfg, *x.shape[1:], params.w1.shape[1]))
     return _LayerFn.apply(plain, save_x1, cfg, x, *params)
 
 
@@ -512,12 +512,16 @@ def seqs_per_block(s: int) -> int:
     return 1 if s >= 64 else 64 // s
 
 
-def _tc_form(cfg: LayerConfig, d: int, f: int) -> bool:
-    """Whether the backward takes the tensor-core form (the row kernel, then
-    layer_wgrad) rather than the FMA form: bf16 compute at widths that are
-    multiples of 16."""
-    return (cfg.compute_dtype == torch.bfloat16 and d % 16 == 0 and cfg.dim_head % 16 == 0
-            and f % 16 == 0)
+def _tc_form(cfg: LayerConfig, s: int, d: int, f: int) -> bool:
+    """Whether the layer takes the tensor-core forms (the forward's, then the
+    backward's row kernel and layer_wgrad) rather than the FMA forms: bf16
+    compute at widths that are multiples of 16, within the tensor-core
+    forward's register tiles (``tc_widths`` in ``csrc/fused_layer_fwd.cu``):
+    D and F at most 128, dim_head at most 64, at most 128 rows a block."""
+    dh = cfg.dim_head
+    rows = -(-seqs_per_block(s) * s // 16) * 16
+    return (cfg.compute_dtype == torch.bfloat16 and d % 16 == 0 and dh % 16 == 0
+            and f % 16 == 0 and d <= 128 and dh <= 64 and f <= 128 and rows <= 128)
 
 
 def _nparts(b: int, s: int, device: torch.device) -> int:
@@ -558,9 +562,9 @@ def layer_bwd_rows(x, dy, params, *config, x1=None):
         return dx, ops, grads
     from maskedsst_tpu_torch.ops import _build
 
-    if not _tc_form(cfg, d, f):
-        raise ValueError(f"{_BWD}: the row kernel takes bf16 compute at widths that are "
-                         f"multiples of 16, got {cfg.compute_dtype}, D {d}, dh {cfg.dim_head}, "
+    if not _tc_form(cfg, s, d, f):
+        raise ValueError(f"{_BWD}: the row kernel takes bf16 compute at the tensor-core widths "
+                         f"(_tc_form), got {cfg.compute_dtype}, S {s}, D {d}, dh {cfg.dim_head}, "
                          f"F {f}")
     if x1 is None:
         x1 = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -617,7 +621,7 @@ def _launch_bwd(x, dy, params, *config, x1=None):
     cfg = LayerConfig(*config)
     b, s, d, inner, f = _check(x, params, cfg, _BWD)
     _check_dy(x, dy, _BWD)
-    if _tc_form(cfg, d, f):
+    if _tc_form(cfg, s, d, f):
         return layer_bwd_split(x, dy, params, *cfg, x1=x1)
     args = _kernel_weights(params, cfg)
     lib, (fn, _) = _bind(_BWD)
