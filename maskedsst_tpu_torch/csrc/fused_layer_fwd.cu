@@ -43,7 +43,12 @@
 //    across heads, x1, LN2 and the GELU output. Every epilogue (bf16
 //    rounding, bias + GELU + site 5, bias + site 7 + residual) works on the
 //    accumulator fragments. Only k and v of the head and the weight slices
-//    live in shared memory (70 KB at the EnMAP widths). Attention keeps a
+//    live in shared memory (70 KB at the EnMAP widths), two barriers a
+//    head. The slices are staged with cp.async into each buffer as soon as
+//    its last reader is done, under the other half of the head's products
+//    (head h + 1's q/k/v columns under head h's attention and
+//    out-projection, its out-projection rows under its q/k/v product; w1
+//    and w2 under the last head and LN2). Attention keeps a
 //    row's own sequence: the score and A.V products skip the 16-key steps
 //    outside the warp's sequences, the softmax masks the rest;
 //  - FMA loops (fp32 compute, or widths the tensor-core form does not
@@ -542,6 +547,21 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   const long long tok0 = static_cast<long long>(seq0) * S;  // token row of block row 0
   const size_t at = static_cast<size_t>(tok0 + ra) * D;     // row ra in x, y and x1
 
+  // The weight slices are staged with cp.async into their buffer as soon as
+  // its last reader is done, so each copy runs under half a head's
+  // products: head h + 1's q/k/v columns (then w1) once every warp has
+  // taken head h's q/k/v, its out-projection rows (then w2) once every warp
+  // has taken head h's out-projection. Head 0's come in under LN1.
+  auto stage_qkv = [&](int h) {
+    for (int j = 0; j < 3; ++j)  // the head's q, k and v columns, side by side
+      stage_async(wqkv + j * I + h * dh, 3 * I, D, dh, wa + j * dh, plan.ld_w3);
+  };
+  auto stage_out = [&](int h) {
+    stage_async(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wb, plan.ld_wd);
+  };
+  stage_qkv(0);
+  stage_out(0);
+
   // LN1 of the warp's rows, straight from device memory into the A
   // fragments of the q/k/v products, kept for every head
   uint32_t hf[KD][4];
@@ -557,12 +577,9 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   const int klo = r0 / S * S, khi = min(R, ((r0 + 15) / S + 1) * S);
   const int plo = klo / 16, phi = (khi + 15) / 16;  // 16-key k-steps of the A.V product
 
+  cp_async_wait_all();
+  __syncthreads();  // head 0's slices
   for (int h = 0; h < H; ++h) {
-    for (int j = 0; j < 3; ++j)  // this head's q, k and v columns, side by side
-      stage_async(wqkv + j * I + h * dh, 3 * I, D, dh, wa + j * dh, plan.ld_w3);
-    stage_async(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wb, plan.ld_wd);
-    cp_async_wait_all();
-    __syncthreads();
 
     // q stays in registers as the scores' A fragments; k and v go to
     // shared memory, where every warp of the block reads them
@@ -580,7 +597,12 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
       warp_mm<KD, 2 * KH>(acc, hf, 0, kd, wa, plan.ld_w3, part * dh, 0, 2 * kh, lane);
       store_bf16<2 * KH>(acc, part == 1 ? ks : vs, plan.ld_kv, ra, 2 * kh, c);
     }
-    __syncthreads();
+    cp_async_wait_all();  // this head's out-projection rows
+    __syncthreads();      // k and v are whole; the q/k/v buffer is free
+    if (h + 1 < H)
+      stage_qkv(h + 1);
+    else
+      stage_async(w1, F, D, F, wa, plan.ld_w1);
 
     // scores q k^T of the warp's rows against the keys they can see (q
     // carries the 1/sqrt(dh) scale)
@@ -641,11 +663,14 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
       to_afrag<KH>(of, acc);
     }
     warp_mm<KH, 2 * KD>(proj, of, 0, kh, wb, plan.ld_wd, 0, 0, 2 * kd, lane);
-    __syncthreads();  // every warp is done with this head's k, v and weight slices
+    cp_async_wait_all();  // the next head's q/k/v columns (or w1)
+    __syncthreads();      // every warp is done with k, v and the out-projection rows
+    if (h + 1 < H)
+      stage_out(h + 1);
+    else
+      stage_async(w2, D, F, D, wb, plan.ld_wd);
   }
 
-  stage_async(w1, F, D, F, wa, plan.ld_w1);
-  stage_async(w2, D, F, D, wb, plan.ld_wd);
   // x1 = x + the dropped projection (site 3), in place of the sum
   {
     float xv[2 * KD][4];
@@ -664,8 +689,6 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   }
   if (x1) store_rows<2 * KD>(proj, x1 + at, D, 2 * kd, ok_a, ok_b, c);
   ln_frag<KD>(hf, proj, 2 * kd, D, ln2s, ln2b, c);
-  cp_async_wait_all();
-  __syncthreads();
 
   // fc1 + b1 -> GELU -> dropout site 5, rounded to bf16 as fc2's A fragments
   uint32_t gf[KF][4];
@@ -685,6 +708,8 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
       }
     to_afrag<KF>(gf, u);
   }
+  cp_async_wait_all();
+  __syncthreads();  // w2
   // fc2 + b2 -> dropout site 7 -> residual
   float ff[2 * KD][4];
   zero(ff);
