@@ -83,14 +83,40 @@ struct DropCfg {
 
 enum DropSite : uint32_t { kSiteAttn = 1, kSiteProj = 3, kSiteFfMid = 5, kSiteFfOut = 7 };
 
-// the dropout multiplier (0 or scale) of element idx of a site; 1 when off
-__device__ __forceinline__ float drop_mult(const DropCfg& dc, uint32_t site, uint64_t idx) {
-  if (!dc.on) return 1.f;
-  const uint32_t lo = static_cast<uint32_t>(idx), hi = static_cast<uint32_t>(idx >> 32);
-  const uint32_t key = fmix32(dc.seed ^ fmix32(site * 0x9E3779B9u + hi * 0x632BE5ABu + 0x7F4A7C15u));
+// the hash key of a site's indices whose high 32 bits are hi
+__device__ __forceinline__ uint32_t drop_key(const DropCfg& dc, uint32_t site, uint32_t hi) {
+  return fmix32(dc.seed ^ fmix32(site * 0x9E3779B9u + hi * 0x632BE5ABu + 0x7F4A7C15u));
+}
+
+// the multiplier (0 or scale) of the index whose low 32 bits are lo, under
+// its key
+__device__ __forceinline__ float drop_mult_keyed(const DropCfg& dc, uint32_t key, uint32_t lo) {
   const uint32_t bits = fmix32(fmix32(lo ^ key) + key);
   return bits >= dc.thr ? dc.scale : 0.f;
 }
+
+// the dropout multiplier (0 or scale) of element idx of a site; 1 when off
+__device__ __forceinline__ float drop_mult(const DropCfg& dc, uint32_t site, uint64_t idx) {
+  if (!dc.on) return 1.f;
+  return drop_mult_keyed(dc, drop_key(dc, site, static_cast<uint32_t>(idx >> 32)),
+                         static_cast<uint32_t>(idx));
+}
+
+// drop_mult over a run of one site's indices (a row): the key is taken
+// once, for the high word of the run's first index, and again only for an
+// index past the next multiple of 2^32. The same bits as drop_mult.
+struct DropRun {
+  uint32_t site, hi, key;
+
+  __device__ DropRun(const DropCfg& dc, uint32_t s, uint64_t first)
+      : site(s), hi(static_cast<uint32_t>(first >> 32)), key(dc.on ? drop_key(dc, s, hi) : 0u) {}
+
+  __device__ float operator()(const DropCfg& dc, uint64_t idx) const {
+    if (!dc.on) return 1.f;
+    const uint32_t h = static_cast<uint32_t>(idx >> 32);
+    return drop_mult_keyed(dc, h == hi ? key : drop_key(dc, site, h), static_cast<uint32_t>(idx));
+  }
+};
 
 }  // namespace msst
 

@@ -438,7 +438,9 @@ __device__ __forceinline__ void store_bf16(const float (&acc)[NT][4], bf16* dst,
   }
 }
 
-__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -546,6 +548,8 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   const int I = H * dh;
   const long long tok0 = static_cast<long long>(seq0) * S;  // token row of block row 0
   const size_t at = static_cast<size_t>(tok0 + ra) * D;     // row ra in x, y and x1
+  // the logical rows of the thread's two rows, for the dropout indices
+  const uint64_t row_a = static_cast<uint64_t>(tok0 + ra), row_b = row_a + 8;
 
   // The weight slices are staged with cp.async into their buffer as soon as
   // its last reader is done, so each copy runs under half a head's
@@ -641,13 +645,14 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
       const float inv = 1.f / sum;
       const uint64_t idx0 =
           ((static_cast<uint64_t>(seq0 + r / S) * H + h) * S + r % S) * S - lo;
+      const DropRun drop(dc, kSiteAttn, idx0 + lo);
 #pragma unroll
       for (int j = 0; j < KT; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + 2 * c + e;
           if (col >= lo && col < hi)
-            sc[j][2 * half + e] = sc[j][2 * half + e] * inv * drop_mult(dc, kSiteAttn, idx0 + col);
+            sc[j][2 * half + e] = sc[j][2 * half + e] * inv * drop(dc, idx0 + col);
         }
     }
     uint32_t pf[KT / 2][4];
@@ -675,15 +680,15 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   {
     float xv[2 * KD][4];
     load_rows<2 * KD>(xv, x + at, D, 2 * kd, ok_a, ok_b, c);
+    const DropRun drop[2] = {DropRun(dc, kSiteProj, row_a * D),
+                             DropRun(dc, kSiteProj, row_b * D)};
 #pragma unroll
     for (int j = 0; j < 2 * KD; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * c + e % 2;
         if (j >= 2 * kd) continue;
-        const float m = dc.proj ? drop_mult(dc, kSiteProj, static_cast<uint64_t>(
-                                                                tok0 + ra + 8 * (e / 2)) * D + col)
-                                : 1.f;
+        const float m = dc.proj ? drop[e / 2](dc, (e < 2 ? row_a : row_b) * D + col) : 1.f;
         proj[j][e] = xv[j][e] + (proj[j][e] + bout[col]) * m;
       }
   }
@@ -696,14 +701,15 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
     float u[2 * KF][4];
     zero(u);
     warp_mm<KD, 2 * KF>(u, hf, 0, kd, wa, plan.ld_w1, 0, 0, 2 * kf, lane);
+    const DropRun drop[2] = {DropRun(dc, kSiteFfMid, row_a * F),
+                             DropRun(dc, kSiteFfMid, row_b * F)};
 #pragma unroll
     for (int j = 0; j < 2 * KF; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * c + e % 2;
         if (j >= 2 * kf) continue;
-        const float m = drop_mult(dc, kSiteFfMid,
-                                  static_cast<uint64_t>(tok0 + ra + 8 * (e / 2)) * F + col);
+        const float m = drop[e / 2](dc, (e < 2 ? row_a : row_b) * F + col);
         u[j][e] = gelu(u[j][e] + b1[col]) * m;
       }
     to_afrag<KF>(gf, u);
@@ -714,14 +720,15 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   float ff[2 * KD][4];
   zero(ff);
   warp_mm<KF, 2 * KD>(ff, gf, 0, kf, wb, plan.ld_wd, 0, 0, 2 * kd, lane);
+  const DropRun drop[2] = {DropRun(dc, kSiteFfOut, row_a * D),
+                           DropRun(dc, kSiteFfOut, row_b * D)};
 #pragma unroll
   for (int j = 0; j < 2 * KD; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 8 * j + 2 * c + e % 2;
       if (j >= 2 * kd) continue;
-      const float m = drop_mult(dc, kSiteFfOut,
-                                static_cast<uint64_t>(tok0 + ra + 8 * (e / 2)) * D + col);
+      const float m = drop[e / 2](dc, (e < 2 ? row_a : row_b) * D + col);
       ff[j][e] = proj[j][e] + (ff[j][e] + b2[col]) * m;
     }
   store_rows<2 * KD>(ff, y + at, D, 2 * kd, ok_a, ok_b, c);

@@ -1,6 +1,6 @@
 """Checks and times the tensor-core layer forward (csrc/fused_layer_fwd.cu).
 
-    python3 -m maskedsst_tpu_torch.tools.fwd_check [--parent PATH.cu]   (on the card)
+    python3 -m maskedsst_tpu_torch.tools.fwd_check [--version NAME=PATH.cu ...]   (on the card)
 
 Prints ``nvcc -Xptxas -v`` of the source's tensor-core kernels; holds the
 forward against ``reference_layer`` (max|d| / max(1, |ref|) <= 3e-2 bf16,
@@ -10,9 +10,10 @@ batch 256, ragged blocks, a sequence longer than a block and the identity
 projection; two calls with dropout bit-identical; the four dropout masks
 read back bit for bit (ops/dropout_probe.py). Then the device time of one
 launch at the training shapes (bf16, dropout 0.1, x1 written), the serving
-shapes (bf16) and the fp32 form, and with ``--parent`` the same launches
-of another version of the source, built beside it, in turns (parent,
-change, change, parent).
+shapes (bf16) and the fp32 form, and with ``--version`` the same launches
+of other versions of the source, each built beside it with its
+``-Xptxas -v`` printed, in turns (the versions, the change twice, the
+versions in reverse).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -109,20 +111,40 @@ def run_checks(rng):
             check(r.equal and r.margin < 0.5, f"masks {io} {r.what}: {r.bits} bits equal")
 
 
-def build_parent(path):
-    out = "build/parent"
-    os.makedirs(out, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
-           f"{out}/fused_layer_fwd.so", path]
-    subprocess.run(cmd, check=True)
-    lib = ctypes.CDLL(f"{out}/fused_layer_fwd.so")
-    return lib, _build.bind(lib, "fused_layer_fwd", n_pointers=14, n_ints=12, n_floats=1)
+def build_versions(versions):
+    """Compiles csrc/fused_layer_fwd.cu (through ops/_build.py) and each
+    (name, path) of ``versions`` at once, one nvcc each; prints each one's
+    ``-Xptxas -v`` for its tensor-core kernels (registers, spills, stack)
+    and returns [(name, (lib, fn))]."""
+    os.makedirs("build/versions", exist_ok=True)
+    builder = threading.Thread(target=_build.build, args=(["fused_layer_fwd"],))
+    builder.start()
+    jobs = [("change", str(_build.CSRC / "fused_layer_fwd.cu"), "/dev/null")]
+    jobs += [(name, path, f"build/versions/{name}.so") for name, path in versions]
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                               str(_build.CSRC), "-o", so, path], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for _, path, so in jobs]
+    out = []
+    for (name, path, so), proc in zip(jobs, procs):
+        lines = proc.communicate()[0].splitlines()
+        print(f"== {name}: {path}, nvcc exit {proc.returncode}")
+        for n, line in enumerate(lines):
+            if "tc_kernel" in line and "Compiling" in line:
+                print(line.split("'")[1][:90], *lines[n + 1:n + 4], sep="\n  ")
+        if proc.returncode:
+            print("\n".join(lines))
+            raise SystemExit(f"{path}: nvcc exited {proc.returncode}")
+        if name != "change":
+            lib = ctypes.CDLL(os.path.abspath(so))
+            out.append((name, (lib, _build.bind(lib, "fused_layer_fwd", n_pointers=14, n_ints=12,
+                                                n_floats=1))))
+    builder.join()
+    return out
 
 
-def run_times(parent):
+def run_times(others):
     new = fused_layer._bind("fused_layer_fwd")
-    versions = [("parent", parent), ("change", new), ("change", new), ("parent", parent)] \
-        if parent else [("change", new)]
+    versions = others + [("change", new), ("change", new)] + others[::-1]
     rng = np.random.default_rng(1)
     params = params_for(rng, 96, 8, 64, 64)
     for label, b, s, dtype, rate, with_x1 in (
@@ -150,23 +172,14 @@ def run_times(parent):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="another version of csrc/fused_layer_fwd.cu to time beside")
+    ap.add_argument("--version", action="append", default=[], metavar="NAME=PATH",
+                    help="another version of csrc/fused_layer_fwd.cu to time beside")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line(), flush=True)
-    ptx = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-                          "/dev/null", str(_build.CSRC / "fused_layer_fwd.cu")],
-                         capture_output=True, text=True)
-    lines = (ptx.stdout + ptx.stderr).splitlines()
-    for n, line in enumerate(lines):
-        if "tc_kernel" in line and "Compiling" in line:
-            print(line.split("'")[1][:90], *lines[n + 1:n + 4], sep="\n  ")
-    if ptx.returncode:
-        print("\n".join(lines))
-        return 1
-    parent = build_parent(args.parent) if args.parent else None
+    others = build_versions([v.split("=", 1) for v in args.version])
     run_checks(np.random.default_rng(0))
-    run_times(parent)
+    run_times(others)
     print(f"fwd_check: {len(failures)} failure(s)")
     return 1 if failures else 0
 
