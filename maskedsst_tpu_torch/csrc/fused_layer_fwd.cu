@@ -499,41 +499,61 @@ __device__ __forceinline__ void store_rows(const float (&v)[NT][4], T* dst, int 
   }
 }
 
+// The sum of N values in a fixed pairwise order: fp32 rounding error that
+// grows with log N, as the plain version's tree reductions do.
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* t) {
+  if constexpr (N == 1)
+    return t[0];
+  else
+    return tree_sum<N / 2>(t) + tree_sum<N - N / 2>(t + N / 2);
+}
+
+// The sum over a quad (the four lanes that share a row) of each lane's
+// pairwise sum of its N values.
+template <int N>
+__device__ __forceinline__ float quad_sum(const float (&t)[N]) {
+  float s = tree_sum<N>(t);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s + __shfl_xor_sync(0xffffffffu, s, 2);
+}
+
 // LayerNorm over the D = 8 nt columns of the thread's two rows held as
 // accumulator tiles, rounded to bf16 as the A fragments of the next
-// product. Two-pass fp32 statistics; the four lanes that share a row (a
-// quad) reduce with shuffles.
+// product. Two-pass fp32 statistics as the plain version takes them (a
+// mean is the sum times fl(1/D); separate roundings where it rounds
+// twice, no fused multiply-add); the quad reduces with shuffles.
 template <int KS>
 __device__ __forceinline__ void ln_frag(uint32_t (&a)[KS][4], const float (&v)[2 * KS][4],
                                         int nt, int D, const float* __restrict__ scale,
                                         const float* __restrict__ bias, int c) {
+  const float inv_d = 1.f / D;
   float o[2 * KS][4];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    float s = 0.f;
+    float t[4 * KS];
 #pragma unroll
     for (int j = 0; j < 2 * KS; ++j)
-      if (j < nt) s += v[j][2 * half] + v[j][2 * half + 1];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    const float mu = s / D;
-    float q = 0.f;
 #pragma unroll
-    for (int j = 0; j < 2 * KS; ++j) {
-      if (j >= nt) continue;
-      const float t0 = v[j][2 * half] - mu, t1 = v[j][2 * half + 1] - mu;
-      q += t0 * t0 + t1 * t1;
-    }
-    q += __shfl_xor_sync(0xffffffffu, q, 1);
-    q += __shfl_xor_sync(0xffffffffu, q, 2);
-    const float rsig = rsqrtf(q / D + kLnEps);
+      for (int e = 0; e < 2; ++e) t[2 * j + e] = v[j][2 * half + e];  // 0 past nt
+    const float mu = __fmul_rn(quad_sum(t), inv_d);
+#pragma unroll
+    for (int j = 0; j < 2 * KS; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = v[j][2 * half + e] - mu;
+        t[2 * j + e] = j < nt ? __fmul_rn(d, d) : 0.f;
+      }
+    const float rsig = rsqrtf(__fadd_rn(__fmul_rn(quad_sum(t), inv_d), kLnEps));
 #pragma unroll
     for (int j = 0; j < 2 * KS; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * c + e;
         o[j][2 * half + e] =
-            j < nt ? (v[j][2 * half + e] - mu) * rsig * scale[col] + bias[col] : 0.f;
+            j < nt ? __fadd_rn(__fmul_rn(__fmul_rn(v[j][2 * half + e] - mu, rsig), scale[col]),
+                               bias[col])
+                   : 0.f;
       }
   }
   to_afrag<KS>(a, o);
@@ -637,9 +657,10 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
     float sc[KT][4];
     zero(sc);
     warp_mm<KH, KT, true>(sc, qf, 0, kh, kw_k, plan.ld_kv, 0, 0, 2 * steps, lane);
-    // fp32 softmax with row-max subtraction over the row's own sequence;
-    // dropout site 1 on [B', H, S, S] at (sequence, head, query, key); the
-    // probabilities rounded to bf16 as the A.V product's A fragments
+    // fp32 softmax over the row's own sequence as the plain version takes
+    // it: row-max subtraction, exp, a pairwise sum, each term divided by
+    // it; dropout site 1 on [B', H, S, S] at (sequence, head, query, key);
+    // the probabilities rounded to bf16 as the A.V product's A fragments
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = ra + 8 * half;
@@ -654,19 +675,15 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
         }
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      float sum = 0.f;
+      float ex[2 * KT];
 #pragma unroll
       for (int j = 0; j < KT; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + 2 * c + e;
-          const float ex = col >= lo && col < hi ? expf(sc[j][2 * half + e] - m) : 0.f;
-          sc[j][2 * half + e] = ex;
-          sum += ex;
+          ex[2 * j + e] = col >= lo && col < hi ? expf(sc[j][2 * half + e] - m) : 0.f;
         }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float inv = 1.f / sum;
+      const float sum = quad_sum(ex);
       // site 1 index of the key in column col: idx0 + col
       const uint64_t idx0 =
           ((static_cast<uint64_t>(seq0 + r / S) * H + h) * S + r % S) * S - lo;
@@ -676,8 +693,8 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = 8 * j + 2 * c + e;
-          if (col >= lo && col < hi)
-            sc[j][2 * half + e] = sc[j][2 * half + e] * inv * drop(dc, idx0 + col);
+          sc[j][2 * half + e] =
+              col >= lo && col < hi ? __fdiv_rn(ex[2 * j + e], sum) * drop(dc, idx0 + col) : 0.f;
         }
     }
     uint32_t pf[KT / 2][4];
@@ -714,7 +731,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
         const int col = 8 * j + 2 * c + e % 2;
         if (j >= 2 * kd) continue;
         const float m = dc.proj ? drop[e / 2](dc, (e < 2 ? row_a : row_b) * D + col) : 1.f;
-        proj[j][e] = xv[j][e] + (proj[j][e] + bout[col]) * m;
+        proj[j][e] = __fadd_rn(xv[j][e], __fmul_rn(__fadd_rn(proj[j][e], bout[col]), m));
       }
   }
   if (x1) store_rows<2 * KD>(proj, x1 + at, D, 2 * kd, ok_a, ok_b, c);
@@ -754,7 +771,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
       const int col = 8 * j + 2 * c + e % 2;
       if (j >= 2 * kd) continue;
       const float m = drop[e / 2](dc, (e < 2 ? row_a : row_b) * D + col);
-      ff[j][e] = proj[j][e] + (ff[j][e] + b2[col]) * m;
+      ff[j][e] = __fadd_rn(proj[j][e], __fmul_rn(__fadd_rn(ff[j][e], b2[col]), m));
     }
   store_rows<2 * KD>(ff, y + at, D, 2 * kd, ok_a, ok_b, c);
 }
