@@ -68,11 +68,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTargetRows = 64;    // rows (sequences x seq) an FMA-form block owns
-constexpr int kTcTargetRows = 64;  // and a tensor-core block
+constexpr int kTargetRows = 64;  // rows (sequences x seq) a block owns
 
-__host__ __device__ inline int seqs_per_block(int S, int target = kTargetRows) {
-  return S >= target ? 1 : target / S;
+__host__ __device__ inline int seqs_per_block(int S) {
+  return S >= kTargetRows ? 1 : kTargetRows / S;
 }
 
 // LayerNorm over the last axis of src [rows, D] (fp32), rounded to C, into
@@ -289,7 +288,7 @@ struct TcPlan {
   size_t wa, wb, k, v, bytes;
 
   __host__ __device__ TcPlan(int S, int D, int dh, int F) {
-    R = round_up(seqs_per_block(S, kTcTargetRows) * S, 16);
+    R = round_up(seqs_per_block(S) * S, 16);
     ld_w3 = 3 * dh + kPad;
     ld_w1 = F + kPad;
     ld_wd = D + kPad;
@@ -304,26 +303,6 @@ struct TcPlan {
     bytes = off;
   }
 };
-
-// The keys the warp owning rows [r0, r0 + 16) of a block of R rows can see,
-// the sequences of those rows, [lo, hi); base is lo rounded down to 16, from
-// where the warp counts its score tiles.
-struct KeyWindow {
-  int lo, hi, base;
-
-  __host__ __device__ KeyWindow(int S, int R, int r0)
-      : lo(r0 / S * S), hi(min(R, ((r0 + 15) / S + 1) * S)), base(r0 / S * S / 16 * 16) {}
-};
-
-// the widest key window (hi - base) over a block's warps
-__host__ __device__ inline int widest_window(int S, int R) {
-  int w = 0;
-  for (int r0 = 0; r0 < R; r0 += 16) {
-    const KeyWindow kw(S, R, r0);
-    w = kw.hi - kw.base > w ? kw.hi - kw.base : w;
-  }
-  return w;
-}
 
 // The widths the tensor-core form takes (the same test as ops/fused_layer.py
 // ::_tc_form): bf16 compute, D, dh and F multiples of 16, D and F at most
@@ -561,8 +540,8 @@ __device__ __forceinline__ void ln_frag(uint32_t (&a)[KS][4], const float (&v)[2
 
 // KD, KH, KF: 16-column k-steps of D, dh and F (EXACT: the widths; else
 // their maxima, the widths read at run time); KT: 8-key tiles of the
-// scores, at least the widest key window / 8. One warp per 16 rows of the
-// block, at most MAXR rows; MINB blocks per SM bound the registers.
+// scores, at least R / 8. One warp per 16 rows of the block, at most MAXR
+// rows; MINB blocks per SM bound the registers.
 template <typename T, int KD, int KH, int KF, int KT, bool EXACT, int MAXR, int MINB>
 __global__ void __launch_bounds__(2 * MAXR, MINB)
 fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __restrict__ x1,
@@ -583,7 +562,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   const int lane = threadIdx.x % 32, c = lane % 4;
   const int R = plan.R, r0 = threadIdx.x / 32 * 16;
   const int ra = r0 + lane / 4;  // the thread's rows: ra and ra + 8
-  const int seqs = seqs_per_block(S, kTcTargetRows);
+  const int seqs = seqs_per_block(S);
   const int seq0 = blockIdx.x * seqs;
   const int rows = min(seqs, B - seq0) * S;
   const bool ok_a = ra < rows, ok_b = ra + 8 < rows;
@@ -619,11 +598,9 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   // the out-projection sum over heads, then x1
   float proj[2 * KD][4];
   zero(proj);
-  // the keys the warp's rows can see; score tile j holds keys kw.base + 8j
-  const KeyWindow kw(S, R, r0);
-  const int steps = (kw.hi - kw.base + 15) / 16;  // 16-key k-steps of the A.V product
-  const bf16* kw_k = ks + kw.base * plan.ld_kv;
-  const bf16* kw_v = vs + kw.base * plan.ld_kv;
+  // the keys the warp's rows can see: the sequences its rows belong to
+  const int klo = r0 / S * S, khi = min(R, ((r0 + 15) / S + 1) * S);
+  const int plo = klo / 16, phi = (khi + 15) / 16;  // 16-key k-steps of the A.V product
 
   cp_async_wait_all();
   __syncthreads();  // head 0's slices
@@ -656,7 +633,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
     // carries the 1/sqrt(dh) scale)
     float sc[KT][4];
     zero(sc);
-    warp_mm<KH, KT, true>(sc, qf, 0, kh, kw_k, plan.ld_kv, 0, 0, 2 * steps, lane);
+    warp_mm<KH, KT, true>(sc, qf, 0, kh, ks, plan.ld_kv, 0, 2 * plo, 2 * phi, lane);
     // fp32 softmax over the row's own sequence as the plain version takes
     // it: row-max subtraction, exp, a pairwise sum, each term divided by
     // it; dropout site 1 on [B', H, S, S] at (sequence, head, query, key);
@@ -664,7 +641,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = ra + 8 * half;
-      const int lo = r / S * S - kw.base, hi = min(r / S * S + S, R) - kw.base;
+      const int lo = r / S * S, hi = min(lo + S, R);
       float m = __int_as_float(0xff800000);  // -inf
 #pragma unroll
       for (int j = 0; j < KT; ++j)
@@ -706,7 +683,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
     {
       float acc[2 * KH][4];
       zero(acc);
-      warp_mm<KT / 2, 2 * KH>(acc, pf, 0, steps, kw_v, plan.ld_kv, 0, 0, 2 * kh, lane);
+      warp_mm<KT / 2, 2 * KH>(acc, pf, plo, phi, vs, plan.ld_kv, 0, 0, 2 * kh, lane);
       to_afrag<KH>(of, acc);
     }
     warp_mm<KH, 2 * KD>(proj, of, 0, kh, wb, plan.ld_wd, 0, 0, 2 * kd, lane);
@@ -811,7 +788,7 @@ cudaError_t launch_tc_as(const void* x, void* y, void* x1, const void* ln1s, con
                          const void* w2, const void* b2,
                          int B, int S, int D, int H, int dh, int F, DropCfg dc,
                          cudaStream_t stream) {
-  const int seqs = seqs_per_block(S, kTcTargetRows);
+  const int seqs = seqs_per_block(S);
   const TcPlan plan(S, D, dh, F);
   auto kernel = fused_layer_fwd_tc_kernel<T, KD, KH, KF, KT, EXACT, MAXR, MINB>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -829,9 +806,9 @@ cudaError_t launch_tc_as(const void* x, void* y, void* x1, const void* ln1s, con
   return cudaGetLastError();
 }
 
-// the model's widths (D 96, dh 64, F 64, key windows of at most 64) take
-// the instantiation with every width fixed, three blocks per SM; the rest
-// of tc_widths the one with the maxima
+// the model's widths (D 96, dh 64, F 64, at most 64 rows a block) take the
+// instantiation with every width fixed, three blocks per SM; the rest of
+// tc_widths the one with the maxima
 template <typename T>
 cudaError_t launch_tc(const void* x, void* y, void* x1, const void* ln1s, const void* ln1b,
                       const void* wqkv, const void* wout, const void* bout,
@@ -839,9 +816,8 @@ cudaError_t launch_tc(const void* x, void* y, void* x1, const void* ln1s, const 
                       const void* w2, const void* b2,
                       int B, int S, int D, int H, int dh, int F, DropCfg dc,
                       cudaStream_t stream) {
-  const int R = TcPlan(S, D, dh, F).R;
-  if (D == 96 && dh == 64 && F == 64 && R <= kTcTargetRows && widest_window(S, R) <= 64)
-    return launch_tc_as<T, 6, 4, 4, 8, true, kTcTargetRows, 3>(
+  if (D == 96 && dh == 64 && F == 64 && TcPlan(S, D, dh, F).R <= 64)
+    return launch_tc_as<T, 6, 4, 4, 8, true, 64, 3>(
         x, y, x1, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2, B, S, D, H, dh, F,
         dc, stream);
   return launch_tc_as<T, 8, 4, 8, 16, false, 128, 1>(
