@@ -11,8 +11,9 @@ need not have.)
 They cover what the shapes in chip_smoke.py do not: batches that leave a
 kernel block part-empty, narrow widths, the identity projection, mixed
 input and compute types, both forms of the layer forward (tensor cores for
-bf16 compute at widths that are multiples of 16, FMA loops otherwise),
-dropout, the backward kernels (the tensor-core form's row kernel and
+bf16 compute at the widths of fused_layer._tc_form, FMA loops otherwise),
+dropout, the x1 that the tensor-core forward's training call writes and
+its repeats bit for bit, the backward kernels (the tensor-core form's row kernel and
 weight-gradient kernel each against its plain version too, ragged row
 chunks included), the masks each kernel applies read bit for bit
 (ops/dropout_probe.py), the gradients' run-to-run determinism, and the
@@ -90,6 +91,12 @@ def _layer_params(rng, d, heads, dh, f, device, identity_proj=False):
         (4, 8, 16, 1, 16, 12, True),  # identity projection
         (5, 8, 32, 2, 16, 16, False),  # narrow, tensor-core form in bf16
         (2, 80, 32, 2, 16, 16, False),  # a sequence longer than a block's 64 rows
+        (4, 8, 32, 1, 32, 32, True),  # identity projection, tensor-core form in bf16
+        (4, 8, 32, 1, 32, 16, True),  # identity projection, F = 16
+        (1, 64, 96, 8, 64, 64, False),  # S = 64: one block, one sequence
+        (11, 20, 96, 8, 64, 64, False),  # S = 20: last block 2 of 3 sequences
+        (25, 5, 96, 8, 64, 64, False),  # S = 5: last block 1 of 12 sequences
+        (3, 80, 96, 8, 64, 64, False),  # S = 80 at the model's widths
     ],
 )
 @pytest.mark.parametrize(
@@ -111,6 +118,42 @@ def test_layer_kernel_matches_plain(cuda, b, s, d, heads, dh, f, identity_proj, 
     assert torch.isfinite(got.float()).all()
     tol = max(TOL[io_dtype], TOL[compute_dtype])
     assert _rel_err(got, want) <= tol
+
+
+TC_FWD_SHAPES = [
+    (3, 64, 96, 8, 64, 64, False),  # spatial
+    (1, 64, 96, 8, 64, 64, False),  # S = 64, one block
+    (7, 20, 96, 8, 64, 64, False),  # spectral, last block 1 of 3 sequences
+    (11, 20, 96, 8, 64, 64, False),  # last block 2 of 3 sequences
+    (13, 5, 96, 8, 64, 64, False),  # Houston spectral, last block 1 of 12
+    (25, 5, 96, 8, 64, 64, False),  # last block 1 of 12, two blocks before it
+    (3, 80, 96, 8, 64, 64, False),  # a sequence longer than a block's 64 rows
+    (2, 80, 32, 2, 16, 16, False),  # the same, narrow
+    (5, 8, 32, 2, 16, 16, False),  # narrow
+    (4, 8, 32, 1, 32, 16, True),  # identity projection
+]
+
+
+@pytest.mark.parametrize("b,s,d,heads,dh,f,identity_proj", TC_FWD_SHAPES)
+@pytest.mark.parametrize("io_dtype", [torch.float32, torch.bfloat16])
+def test_layer_fwd_tc_repeats_and_writes_x1(cuda, b, s, d, heads, dh, f, identity_proj,
+                                            io_dtype):
+    """The tensor-core forward's training call with dropout 0.1: y against
+    the plain version, the x1 it writes against the plain x1, and two calls
+    bit-identical in both."""
+    rng = np.random.default_rng(12)
+    params = _layer_params(rng, d, heads, dh, f, cuda, identity_proj)
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(cuda, io_dtype)
+    cfg = (heads, dh, torch.bfloat16, 0.1, True, 2024, not identity_proj)
+    x1, x1_again = (torch.empty(x.shape, dtype=torch.float32, device=cuda) for _ in range(2))
+    before = fused_layer.launches
+    y = fused_layer._launch(x, params, *cfg, x1=x1)
+    y_again = fused_layer._launch(x, params, *cfg, x1=x1_again)
+    torch.cuda.synchronize()
+    assert fused_layer.launches == before + 2
+    assert torch.equal(y, y_again) and torch.equal(x1, x1_again)
+    assert _rel_err(y, fused_layer.reference_layer(x, params, *cfg)) <= TOL[torch.bfloat16]
+    assert _rel_err(x1, fused_layer.reference_x1(x, params, *cfg)) <= TOL[torch.bfloat16]
 
 
 def _embed_args(rng, b, g, p, n, d, device, in_dtype=torch.float32):
