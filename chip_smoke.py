@@ -27,7 +27,11 @@ Phases:
      operands and small vectors against its plain version and layer_wgrad
      against its plain version, each repeated bit for bit, and the device
      time of the whole backward, the row kernel and layer_wgrad beside
-     their bounds; plus the forward's times with dropout;
+     their bounds; plus the forward at dropout 0 and 0.1 against its plain
+     version, in bf16 as the training call (the tensor-core form, which
+     also writes x1 for the backward) with that x1 against the plain x1 and
+     the call's device time at dropout 0.1 beside its bound and the share
+     of the bound;
   2. serving path: the EnMAP-DFC classifier (configs/finetune_config_enmap.yaml
      + configs/config.yaml, seeded weights) in bf16 and fp32 behind
      Predictor(batch_size=256) answers requests of N = 300, 256, 1, 0 cubes;
@@ -370,24 +374,41 @@ def phase_layer_bwd(gen):
             for rate in (0.0, 0.1):
                 cfg = (heads, dh, dtype, rate, rate > 0, seed, True)
                 tag = f"{label} [{b},{s},{d}] {name} dropout {rate}"
-                # the forward with dropout: its time, and that it keeps the
-                # plain version's masks
+                # the forward at the training shape: against the plain
+                # version (the masks included); in bf16 (the tensor-core
+                # form) the training call, which also writes x1, its x1
+                # against the plain x1 and its device time with dropout
+                x1f = (torch.empty(x.shape, dtype=torch.float32, device="cuda")
+                       if dtype == torch.bfloat16 else None)
+                got = fused_layer._launch(x, params, *cfg, x1=x1f)
+                want = fused_layer.reference_layer(x, params, *cfg)
+                abs_err, err = rel_err(got, want)
+                check(bool(torch.isfinite(got.float()).all()) and err <= TOL_OP[name],
+                      f"fused_layer_fwd dropout {rate} {label} [{b},{s},{d}] {name}: "
+                      f"max|d| {abs_err:.3e}, rel {err:.3e} <= {TOL_OP[name]:.0e}")
+                if x1f is not None:
+                    x1_abs, x1_err = rel_err(x1f, fused_layer.reference_x1(x, params, *cfg))
+                    check(bool(torch.isfinite(x1f).all()) and x1_err <= TOL_OP[name],
+                          f"fused_layer_fwd x1 {tag}: max|d| {x1_abs:.3e}, rel {x1_err:.3e} <= "
+                          f"{TOL_OP[name]:.0e}")
+                del got, want
                 if rate:
-                    got = fused_layer.fused_transformer_layer(x, params, *cfg)
-                    want = fused_layer.reference_layer(x, params, *cfg)
-                    abs_err, err = rel_err(got, want)
-                    check(bool(torch.isfinite(got.float()).all()) and err <= TOL_OP[name],
-                          f"fused_layer_fwd dropout 0.1 {label} [{b},{s},{d}] {name}: "
-                          f"max|d| {abs_err:.3e}, rel {err:.3e} <= {TOL_OP[name]:.0e}")
-                    del got, want
                     ms = cuda_ms(lambda: fused_layer.fused_transformer_layer(x, params, *cfg),
                                  reps=10)
                     bms, by = bound_ms(*cost["fwd"], name)
-                    fwd_cases.append(dict(shape=f"{label}_train", dims=[b, s, d], dtype=name,
-                                          dropout=rate,
-                                          ms=ms, bound_ms=bms, bound_by=by))
+                    case = dict(shape=f"{label}_train", dims=[b, s, d], dtype=name,
+                                dropout=rate, ms=ms, bound_ms=bms, bound_by=by)
                     print(f"     fused_layer_fwd dropout 0.1 ms {ms:.4f} bound_ms {bms:.4f} "
                           f"({by})", flush=True)
+                    if x1f is not None:
+                        dms = device_ms(lambda: fused_layer._launch(x, params, *cfg, x1=x1f),
+                                        reps=10, names=("fused_layer_fwd",))
+                        case.update(device_ms=dms, share_of_bound=bms / dms)
+                        print(f"     device ms, fused_layer_fwd {tag}, training call (x1 "
+                              f"written): {dms:.4f}, bound {bms:.4f} ({by}), share of bound "
+                              f"{bms / dms:.1%}", flush=True)
+                    fwd_cases.append(case)
+                del x1f
                 # the tensor-core form (bf16) is the row kernel + layer_wgrad,
                 # started from the x1 its forward writes
                 x1 = None

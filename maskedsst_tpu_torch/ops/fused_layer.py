@@ -297,7 +297,7 @@ def _forward(x, params: LayerParams, cfg: LayerConfig):
     gd = _mul(F.gelu(u), m5)
     ff = _mul(_rc(gd, cd) @ _rc(params.w2, cd) + params.b2.float(), m7)
     y = (x1 + ff).reshape(b, s, d).to(x.dtype)
-    saved = dict(h1=h1, z1=z1, rsig1=rsig1, wq=wq, q=q, k=k, v=v, a=a, a_d=a_d, o=o,
+    saved = dict(h1=h1, z1=z1, rsig1=rsig1, wq=wq, q=q, k=k, v=v, a=a, a_d=a_d, o=o, x1=x1,
                  z2=z2, rsig2=rsig2, h2=h2, u=u, gd=gd, masks=(m1, m3, m5, m7))
     return y, saved
 
@@ -318,6 +318,13 @@ def reference_layer(
     in x's dtype; differentiable by torch autograd."""
     cfg = LayerConfig(heads, dim_head, compute_dtype, dropout_rate, train, seed, proj_dropout)
     return _forward(x, params, cfg)[0]
+
+
+def reference_x1(x: torch.Tensor, params: LayerParams, *config) -> torch.Tensor:
+    """The plain residual stream after attention, x + the dropped
+    projection, fp32 [B, S, D]: what the tensor-core forward's training call
+    writes to x1. ``config`` as the fields of LayerConfig."""
+    return _forward(x, params, LayerConfig(*config))[1]["x1"].reshape(x.shape)
 
 
 def reference_layer_bwd(

@@ -26,8 +26,12 @@ Checks, each printed as one "ok"/"FAIL" line (exit code 1 when one fails):
   the value, < 1e-3 for each gradient against its max;
 - then each kernel's device time (torch.profiler) beside its bound and the
   share of the bound, at the batch-64 training shapes of ``--geometry``:
-  EnMAP (20 spectral blocks) or Houston2018 (5); the bf16 layer backward
-  whole, its row kernel and its weight-gradient kernel (``layer_wgrad``).
+  EnMAP (20 spectral blocks) or Houston2018 (5); the bf16 layer forward
+  as the training call makes it (dropout 0.1, x1 written), beside
+  ``composition_ms``, the device time of :func:`composition_layer` (a
+  yardstick only: no one PyTorch call computes the layer); the bf16 layer
+  backward whole, its row kernel and its weight-gradient kernel
+  (``layer_wgrad``).
 
 ``--cpu`` rehearses it through the plain versions with every batch cut
 64-fold; no time is measured there.
@@ -46,6 +50,7 @@ import torch.nn.functional as F
 
 from maskedsst_tpu_torch.ops import dropout_sample, fused_embed, fused_layer, fused_simmim
 from maskedsst_tpu_torch.ops.fused_layer import (
+    LN_EPS,
     SITE_ATTN,
     LayerParams,
     dropout_mask,
@@ -106,6 +111,25 @@ def oracle_layer(x: torch.Tensor, p: LayerParams, heads: int, dim_head: int) -> 
     x = x + o @ p.wout + p.bout
     h2 = F.layer_norm(x, (d,), p.ln2_scale, p.ln2_bias, eps=1e-5)
     return x + F.gelu(h2 @ p.w1 + p.b1) @ p.w2 + p.b2
+
+
+def composition_layer(x: torch.Tensor, p: LayerParams, heads: int, dim_head: int,
+                      rate: float) -> torch.Tensor:
+    """The layer as a plain composition of PyTorch calls in x's dtype, with
+    dropout ``rate`` at the four sites (PyTorch's own bits): LayerNorm, one
+    matmul for QKV, ``scaled_dot_product_attention`` over [B, H, S, dh]
+    (each batch element is one sequence), the out-projection, the GELU MLP.
+    ``p`` in x's dtype. The yardstick that kernel_table times beside the
+    forward kernel; the port never calls it."""
+    b, s, d = x.shape
+    q, k, v = (x_.transpose(1, 2) for x_ in (
+        F.layer_norm(x, (d,), p.ln1_scale, p.ln1_bias, eps=LN_EPS) @ p.wqkv
+    ).view(b, s, 3, heads, dim_head).unbind(2))
+    o = F.scaled_dot_product_attention(q, k, v, dropout_p=rate).transpose(1, 2)
+    x1 = x + F.dropout(o.reshape(b, s, heads * dim_head) @ p.wout + p.bout, rate)
+    h = F.dropout(F.gelu(F.layer_norm(x1, (d,), p.ln2_scale, p.ln2_bias, eps=LN_EPS) @ p.w1
+                         + p.b1), rate)
+    return x1 + F.dropout(h @ p.w2 + p.b2, rate)
 
 
 def check_layer(check: Callable, device, rng) -> List[dict]:
@@ -375,16 +399,22 @@ def kernel_table(device, geometry: str = "enmap") -> List[dict]:
     def r(*shape, base=0.0, scale=0.1):
         return (base + scale * torch.randn(*shape, generator=gen)).to(device)
 
+    comp_params = LayerParams(*(t.to(bf) for t in params))
     for label, bb, s in (("spatial", b * g, 64), ("spectral", b * n, g)):
         x = torch.randn(bb, s, D, generator=gen).to(device, bf)
         dy = torch.randn(bb, s, D, generator=gen).to(device, bf)
         cost = layer_cost(bb, s, 2)
-        row("fused_layer_fwd", label, [bb, s, D],
-            lambda: fused_layer._launch(x, params, *cfg), ("fused_layer_fwd",), cost["fwd"])
-        # the backward's split (row kernel + layer_wgrad) from the x1 its
-        # forward writes; timed whole, then each part from the same calls
+        # the forward as the training call makes it: it writes x1, from
+        # which the backward's split (row kernel + layer_wgrad) starts
         x1 = torch.empty(x.shape, dtype=torch.float32, device=device)
-        fused_layer._launch(x, params, *cfg, x1=x1)
+        row("fused_layer_fwd", label, [bb, s, D],
+            lambda: fused_layer._launch(x, params, *cfg, x1=x1), ("fused_layer_fwd",),
+            cost["fwd"])
+        comp = device_ms(lambda: composition_layer(x, comp_params, H, DH, RATE))
+        rows[-1]["composition_ms"] = comp
+        print(f"     {geometry} fused_layer_fwd {label}: composition_ms {comp:.4f} (LN, matmul, "
+              f"scaled_dot_product_attention, GELU MLP, dropout {RATE}; kernel "
+              f"{rows[-1]['ms']:.4f})", flush=True)
 
         def bwd():
             return fused_layer._launch_bwd(x, dy, params, *cfg, x1=x1)

@@ -143,3 +143,44 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     finally:
         fused_layer._bind.cache_clear()
     assert not (tmp_path / "kernels").exists()
+
+
+@pytest.mark.parametrize("s,d,dh,f,dtype,want", [
+    (64, 96, 64, 64, torch.bfloat16, True),  # EnMAP spatial
+    (20, 96, 64, 64, torch.bfloat16, True),  # EnMAP spectral
+    (5, 96, 64, 64, torch.bfloat16, True),  # Houston spectral
+    (8, 32, 32, 16, torch.bfloat16, True),  # identity projection widths
+    (128, 32, 16, 16, torch.bfloat16, True),  # 128 rows a block
+    (64, 96, 64, 64, torch.float32, False),  # fp32 compute: the FMA forms
+    (64, 96, 64, 12, torch.bfloat16, False),  # F not a multiple of 16
+    (64, 144, 64, 64, torch.bfloat16, False),  # D above 128
+    (64, 96, 80, 64, torch.bfloat16, False),  # dim_head above 64
+    (64, 96, 64, 144, torch.bfloat16, False),  # F above 128
+    (130, 32, 16, 16, torch.bfloat16, False),  # 144 rows a block
+])
+def test_tc_form_takes_the_tensor_core_widths(s, d, dh, f, dtype, want):
+    """Which layers take the tensor-core forms on the card: the limits of
+    tc_widths in csrc/fused_layer_fwd.cu, which the forward's register
+    tiles set."""
+    cfg = fused_layer.LayerConfig(heads=2, dim_head=dh, compute_dtype=dtype)
+    assert fused_layer._tc_form(cfg, s, d, f) is want
+
+
+def test_reference_x1_matches_jax_with_a_zero_mlp():
+    """The plain x1 (x + the projection), which the tensor-core forward's
+    training call writes for the backward, is the JAX layer's output when
+    the MLP is zero."""
+    rng = np.random.default_rng(3)
+    b, s, d, heads, dh, f = 3, 20, 32, 2, 16, 16
+    p = _params(rng, d, heads, dh, f)
+    for k in ("w1", "b1", "w2", "b2"):
+        p[k] = np.zeros_like(p[k])
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    want = np.asarray(jax_layer(
+        jnp.asarray(x), JaxLayerParams(**{k: jnp.asarray(v) for k, v in p.items()}),
+        jnp.int32(0), heads, dh, jnp.float32, 0.0, False, True, True))
+    got = fused_layer.reference_x1(torch.from_numpy(x),
+                                   LayerParams(**{k: torch.from_numpy(v) for k, v in p.items()}),
+                                   heads, dh, torch.float32)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL * max(1.0, np.abs(want).max()))

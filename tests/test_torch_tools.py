@@ -3,7 +3,8 @@ accounting on synthetic device events (as tests/test_bench_tools.py holds
 the JAX parser), the Houston2018 pretraining step of bench_geometries
 against the JAX SimMIM value_and_grad, and ``--cpu`` rehearsals of the
 tools at narrow widths (their records' keys, their default output paths),
-with the kernel check's layer oracle held to the plain version.
+with the kernel check's layer oracle and its composition yardstick held
+to the plain version.
 
 Tolerances of the Houston step, as tests/test_torch_pretrainer.py: the loss
 within 2e-5·|ref|, every gradient within 1e-4·max|ref| per tensor (fp32
@@ -229,6 +230,19 @@ def test_kernel_check_oracle_agrees_with_reference_layer():
     x = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
     want = fused_layer.reference_layer(x, params, 2, 8, torch.float32)
     torch.testing.assert_close(kernel_check.oracle_layer(x, params, 2, 8), want,
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [8, 5])
+def test_kernel_check_composition_agrees_with_reference_layer(s):
+    """The composition kernel_table times beside the forward kernel (LN,
+    matmuls, scaled_dot_product_attention, GELU MLP) computes the layer:
+    at dropout 0 in fp32 it is the plain version."""
+    rng = np.random.default_rng(1)
+    params = kernel_check.make_params(rng, "cpu", d=16, inner=16, mlp=12)
+    x = torch.from_numpy(rng.standard_normal((3, s, 16)).astype(np.float32))
+    want = fused_layer.reference_layer(x, params, 2, 8, torch.float32)
+    torch.testing.assert_close(kernel_check.composition_layer(x, params, 2, 8, 0.0), want,
                                rtol=0, atol=1e-5)
 
 
