@@ -304,6 +304,17 @@ struct TcPlan {
   }
 };
 
+// The keys the warp owning rows [r0, r0 + 16) of a block of R rows can see,
+// the sequences of those rows, [lo, hi); base is lo rounded down to 16, from
+// where the warp counts its score tiles (at most R - base keys: the score
+// tile of KT >= R / 8 tiles holds them).
+struct KeyWindow {
+  int lo, hi, base;
+
+  __host__ __device__ KeyWindow(int S, int R, int r0)
+      : lo(r0 / S * S), hi(min(R, ((r0 + 15) / S + 1) * S)), base(r0 / S * S / 16 * 16) {}
+};
+
 // The widths the tensor-core form takes (the same test as ops/fused_layer.py
 // ::_tc_form): bf16 compute, D, dh and F multiples of 16, D and F at most
 // 128, dh at most 64, at most 128 rows a block. The kernel below is
@@ -598,9 +609,11 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
   // the out-projection sum over heads, then x1
   float proj[2 * KD][4];
   zero(proj);
-  // the keys the warp's rows can see: the sequences its rows belong to
-  const int klo = r0 / S * S, khi = min(R, ((r0 + 15) / S + 1) * S);
-  const int plo = klo / 16, phi = (khi + 15) / 16;  // 16-key k-steps of the A.V product
+  // the keys the warp's rows can see; score tile j holds keys kw.base + 8j
+  const KeyWindow kw(S, R, r0);
+  const int steps = (kw.hi - kw.base + 15) / 16;  // 16-key k-steps of the A.V product
+  const bf16* kw_k = ks + kw.base * plan.ld_kv;
+  const bf16* kw_v = vs + kw.base * plan.ld_kv;
 
   cp_async_wait_all();
   __syncthreads();  // head 0's slices
@@ -633,7 +646,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
     // carries the 1/sqrt(dh) scale)
     float sc[KT][4];
     zero(sc);
-    warp_mm<KH, KT, true>(sc, qf, 0, kh, ks, plan.ld_kv, 0, 2 * plo, 2 * phi, lane);
+    warp_mm<KH, KT, true>(sc, qf, 0, kh, kw_k, plan.ld_kv, 0, 0, 2 * steps, lane);
     // fp32 softmax over the row's own sequence as the plain version takes
     // it: row-max subtraction, exp, a pairwise sum, each term divided by
     // it; dropout site 1 on [B', H, S, S] at (sequence, head, query, key);
@@ -641,7 +654,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = ra + 8 * half;
-      const int lo = r / S * S, hi = min(lo + S, R);
+      const int lo = r / S * S - kw.base, hi = min(r / S * S + S, R) - kw.base;
       float m = __int_as_float(0xff800000);  // -inf
 #pragma unroll
       for (int j = 0; j < KT; ++j)
@@ -683,7 +696,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
     {
       float acc[2 * KH][4];
       zero(acc);
-      warp_mm<KT / 2, 2 * KH>(acc, pf, plo, phi, vs, plan.ld_kv, 0, 0, 2 * kh, lane);
+      warp_mm<KT / 2, 2 * KH>(acc, pf, 0, steps, kw_v, plan.ld_kv, 0, 0, 2 * kh, lane);
       to_afrag<KH>(of, acc);
     }
     warp_mm<KH, 2 * KD>(proj, of, 0, kh, wb, plan.ld_wd, 0, 0, 2 * kd, lane);
