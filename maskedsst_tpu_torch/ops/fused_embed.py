@@ -20,6 +20,11 @@ kernel reduces the eight parameter gradients only; the patch and mask
 cotangents come from plain ops (:func:`embed_input_grads`), and only when
 autograd asks for them. The classifier passes a zero mask and a zero
 mask_token (the select is then the identity); SimMIM passes real ones.
+
+Each kernel has two forms: bf16 compute at the widths :func:`_tc_form`
+takes launches the tensor-core form (one warp per 16 tokens on
+``mma.sync``, blocks of four warps over one g walking a chunk of b,
+:func:`chunk_plan`), everything else the FMA form.
 """
 
 from __future__ import annotations
@@ -34,10 +39,58 @@ _KERNEL = "fused_embed_fwd"
 _BWD = "fused_embed_bwd"
 _SUPPORTED = (torch.float32, torch.bfloat16)
 
+# the tensor-core forms' tiling and occupancy: 16-token tiles (warps) a
+# block (csrc/embed_tiles.cuh kWarps), resident blocks per SM (kBlocksPerSm
+# in csrc/fused_embed_fwd.cu and csrc/fused_embed_bwd.cu) and the waves of
+# resident blocks each grid may span (chunk_plan). A backward block walks
+# its b's for long: a second wave leaves the SMs idle behind its tail
+# (PERF.md, PR 8).
+TILE_WARPS = 4
+FWD_BLOCKS_PER_SM, FWD_WAVES = 4, 2
+BWD_BLOCKS_PER_SM, BWD_WAVES = 3, 1
+H100_SMS = 132  # the SM count of the plans made for a CPU tensor
+
 # kernel launches since the count was last set to 0 (plain-version calls
 # are not counted): forward, backward
 launches = 0
 bwd_launches = 0
+
+
+def _tc_form(compute_dtype: torch.dtype, p: int, d: int) -> bool:
+    """Whether a call takes the kernels' tensor-core forms rather than the
+    FMA forms (``tc_widths`` in ``csrc/embed_tiles.cuh``): bf16 compute,
+    p at most 16 (the product's depth, padded to 16), d a multiple of 8 up
+    to 128; any n (a ragged last tile of 16 tokens is masked)."""
+    return compute_dtype == torch.bfloat16 and 1 <= p <= 16 and d % 8 == 0 and 8 <= d <= 128
+
+
+def _groups(n: int) -> int:
+    """Blocks of TILE_WARPS 16-token tiles that cover n tokens."""
+    return -(-(-(-n // 16)) // TILE_WARPS)
+
+
+def chunk_plan(b: int, g: int, n: int, sms: int, blocks_per_sm: int, waves: int) -> tuple:
+    """(per, chunks): the tensor-core forms' split of the batch. Chunk c
+    takes b in [c * per, min(b, (c + 1) * per)), so every b lies in exactly
+    one nonempty chunk, in order, and chunks = ceil(b / per). The grid, g x
+    groups x chunks blocks, spans at most ``waves`` waves of
+    ``blocks_per_sm`` resident blocks on each of ``sms`` SMs, with as few
+    b's a block as that allows (one, where it fits)."""
+    most = max(1, waves * sms * blocks_per_sm // (g * _groups(n)))  # chunks at most
+    per = -(-b // most)
+    return per, -(-b // per)
+
+
+def _sms(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it when its data is not 16-byte aligned (the
+    tensor-core forms copy pos and dtok in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _out_dtype(compute_dtype: torch.dtype) -> torch.dtype:
@@ -198,9 +251,11 @@ def _bind(name: str = _KERNEL):
     from maskedsst_tpu_torch.ops import _build
 
     lib = _build.load(name)
-    if name == _KERNEL:
-        return lib, _build.bind(lib, name, n_pointers=11, n_ints=7)
-    return lib, _build.bind(lib, name, n_pointers=11, n_ints=8)
+    fn = _build.bind(lib, name, n_pointers=11, n_ints=9)
+    if name == _BWD:
+        lib.fused_embed_bwd_workspace.argtypes = [ctypes.c_int] * 6
+        lib.fused_embed_bwd_workspace.restype = ctypes.c_longlong
+    return lib, fn
 
 
 def _check(name, patches_pn, mask, preln_scale, preln_bias, kernel, bias,
@@ -245,15 +300,17 @@ def _launch(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
     # kept referenced until the launch has been enqueued
     args = (
         _f32(mask), _f32(preln_scale), _f32(preln_bias), kernel.to(compute_dtype).contiguous(),
-        _f32(bias), _f32(postln_scale), _f32(postln_bias), _f32(pos), _f32(mask_token),
+        _f32(bias), _f32(postln_scale), _f32(postln_bias), _aligned(_f32(pos)), _f32(mask_token),
     )
     out = torch.empty((b, g, n, d), dtype=_out_dtype(compute_dtype), device=patches_pn.device)
+    per, chunks = (chunk_plan(b, g, n, _sms(patches_pn.device), FWD_BLOCKS_PER_SM, FWD_WAVES)
+                   if _tc_form(compute_dtype, p, d) else (b, 1))
     lib, fn = _bind()
     with torch.cuda.device(patches_pn.device):
         stream = torch.cuda.current_stream(patches_pn.device).cuda_stream
         code = fn(
             patches_pn.data_ptr(), *(a.data_ptr() for a in args), out.data_ptr(),
-            b, g, p, n, d,
+            b, g, p, n, d, per, chunks,
             int(patches_pn.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
             ctypes.c_void_p(stream),
         )
@@ -273,23 +330,28 @@ def _launch_bwd(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
                            postln_scale, postln_bias, pos, mask_token, compute_dtype)
     if tuple(dtok.shape) != (b, g, n, d):
         raise ValueError(f"{_BWD}: dtok must be {(b, g, n, d)}, got {tuple(dtok.shape)}")
-    dtok = dtok.to(_out_dtype(compute_dtype)).contiguous()
+    dtok = _aligned(dtok.to(_out_dtype(compute_dtype)).contiguous())
     # the gradients need neither pos nor mask_token, only their shapes
     args = (_f32(mask), _f32(preln_scale), _f32(preln_bias),
             kernel.to(compute_dtype).contiguous(), _f32(bias), _f32(postln_scale),
             _f32(postln_bias))
-    sms = torch.cuda.get_device_properties(patches_pn.device).multi_processor_count
-    chunks = max(1, min(b, -(-sms // g)))
+    sms = _sms(patches_pn.device)
+    if _tc_form(compute_dtype, p, d):
+        per, chunks = chunk_plan(b, g, n, sms, BWD_BLOCKS_PER_SM, BWD_WAVES)
+    else:  # the FMA form: one block per SM, each over ceil(b / chunks) b's
+        chunks = max(1, min(b, -(-sms // g)))
+        per = -(-b // chunks)
     sizes = [p, p, g * p * d, g * d, d, d, g * n * d, d]
-    part = p * d + d + 2 * n * d + d + 2 * p + 2 * d  # one block's partials
-    ws = torch.empty((g * chunks, part), dtype=torch.float32, device=patches_pn.device)
-    grads = torch.empty(sum(sizes), dtype=torch.float32, device=patches_pn.device)
     lib, fn = _bind(_BWD)
+    ws = torch.empty(lib.fused_embed_bwd_workspace(g, p, n, d, chunks,
+                                                   int(compute_dtype == torch.bfloat16)),
+                     dtype=torch.float32, device=patches_pn.device)
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=patches_pn.device)
     with torch.cuda.device(patches_pn.device):
         stream = torch.cuda.current_stream(patches_pn.device).cuda_stream
         code = fn(
             patches_pn.data_ptr(), *(a.data_ptr() for a in args), dtok.data_ptr(),
-            ws.data_ptr(), grads.data_ptr(), b, g, p, n, d, chunks,
+            ws.data_ptr(), grads.data_ptr(), b, g, p, n, d, per, chunks,
             int(patches_pn.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
             ctypes.c_void_p(stream),
         )

@@ -67,6 +67,10 @@ LAYER_TOL = {torch.float32: (5e-3, 1e-2), torch.bfloat16: (5e-2, 5e-2)}
 # the device kernels of one tensor-core layer backward: the row kernel, the
 # weight-gradient kernel and their reductions
 SPLIT_NAMES = ("fused_layer_bwd", "reduce_small", "layer_wgrad", "reduce_chunks")
+# the device kernels of one embed backward: the block kernel (either form)
+# and its reduction (reduce_partials, or reduce_tc_partials)
+EMBED_BWD_NAMES = ("fused_embed_bwd", "reduce_partials", "reduce_tc_partials")
+SERVE_BATCH = 256
 ROWS, COLS, BLOCKS, RATE = 256, 128, 2, 0.1  # the TPU check's sample
 BASE_HIGH = 2**32 + 12345
 TRAIN_BATCH = 64
@@ -130,6 +134,24 @@ def composition_layer(x: torch.Tensor, p: LayerParams, heads: int, dim_head: int
     h = F.dropout(F.gelu(F.layer_norm(x1, (d,), p.ln2_scale, p.ln2_bias, eps=LN_EPS) @ p.w1
                          + p.b1), rate)
     return x1 + F.dropout(h @ p.w2 + p.b2, rate)
+
+
+def composition_embed(patches: torch.Tensor, mask: torch.Tensor, preln_scale: torch.Tensor,
+                      preln_bias: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                      postln_scale: torch.Tensor, postln_bias: torch.Tensor, pos: torch.Tensor,
+                      mask_token: torch.Tensor) -> torch.Tensor:
+    """The fused embed (ops/fused_embed.py) as a plain composition of
+    PyTorch calls in the parameters' dtype: LayerNorm over p (the pixels
+    moved last), one einsum over the blocks, LayerNorm over d, + pos and
+    ``torch.where`` for the 0/1 mask. The yardstick that kernel_table times
+    beside the embed kernels (its autograd beside the backward); the port
+    never calls it."""
+    p, d = kernel.shape[1:]
+    x = F.layer_norm(patches.to(kernel.dtype).transpose(2, 3), (p,), preln_scale, preln_bias,
+                     eps=LN_EPS)
+    t = torch.einsum("bgnp,gpd->bgnd", x, kernel) + bias[:, None, :]
+    tokens = F.layer_norm(t, (d,), postln_scale, postln_bias, eps=LN_EPS) + pos
+    return torch.where(mask[..., None] > 0.5, pos + mask_token, tokens)
 
 
 def check_layer(check: Callable, device, rng) -> List[dict]:
@@ -425,17 +447,35 @@ def kernel_table(device, geometry: str = "enmap") -> List[dict]:
                 ("layer_wgrad", ("layer_wgrad", "reduce_chunks"), "wgrad")):
             row(kernel, label, [bb, s, D], bwd, names, cost[part])
         del x, dy, x1
-    patches = torch.randn(b, g, p, n, generator=gen).to(device)
-    mask = (torch.rand(b, g, n, generator=gen) < 0.7).float().to(device)
-    args = (patches, mask, r(p, base=1.0), r(p), r(g, p, D, scale=p**-0.5), r(g, D),
-            r(D, base=1.0), r(D), r(g, n, D, scale=1.0), r(D, scale=1.0))
-    cost = embed_cost(b, g, p, n, D, 2)
-    row("fused_embed_fwd", "embed", [b, g, p, n, D], lambda: fused_embed._launch(*args, bf),
-        ("fused_embed_fwd",), cost["fwd"])
+    def embed_args(bb):
+        mask = (torch.rand(bb, g, n, generator=gen) < 0.7).float().to(device)
+        return (torch.randn(bb, g, p, n, generator=gen).to(device), mask, r(p, base=1.0), r(p),
+                r(g, p, D, scale=p**-0.5), r(g, D), r(D, base=1.0), r(D), r(g, n, D, scale=1.0),
+                r(D, scale=1.0))
+
+    def composition_row(fn, what):
+        comp = device_ms(fn)
+        rows[-1]["composition_ms"] = comp
+        print(f"     {geometry} {rows[-1]['kernel']} {rows[-1]['shape']}: composition_ms "
+              f"{comp:.4f} ({what}; kernel {rows[-1]['ms']:.4f})", flush=True)
+
+    # the embed at batch 256 (serving), then at the training batch
+    for label, bb in (("embed b256", SERVE_BATCH), ("embed", b)):
+        args = embed_args(bb)
+        cparams = [a.to(bf).requires_grad_() for a in args[2:]]
+        row("fused_embed_fwd", label, [bb, g, p, n, D], lambda: fused_embed._launch(*args, bf),
+            ("fused_embed_fwd",), embed_cost(bb, g, p, n, D, 2)["fwd"])
+        with torch.no_grad():
+            composition_row(lambda: composition_embed(*args[:2], *cparams),
+                            "LN, einsum, LN, + pos, where")
     dtok = torch.randn(b, g, n, D, generator=gen).to(device, bf)
     row("fused_embed_bwd", "embed", [b, g, p, n, D],
-        lambda: fused_embed._launch_bwd(*args, dtok, bf), ("fused_embed_bwd", "reduce_partials"),
-        cost["bwd"])
+        lambda: fused_embed._launch_bwd(*args, dtok, bf), EMBED_BWD_NAMES,
+        embed_cost(b, g, p, n, D, 2)["bwd"])
+    tokens = composition_embed(*args[:2], *cparams)
+    composition_row(lambda: torch.autograd.grad(tokens, cparams, dtok, retain_graph=True),
+                    "the composition's autograd")
+    patches = args[0]
     enc = torch.randn(b, g, n, D, generator=gen).to(device, bf)
     kern, bias = r(g, D, p, scale=D**-0.5), r(g, p)
     weights = (torch.rand(b, g * n, generator=gen) < 0.7).float().to(device)

@@ -21,7 +21,13 @@ wrappers' refusals; for the SimMIM decode + weighted-L1 kernels, all-zero
 and all-one weight rows, a diff of exactly 0 and the loss's determinism;
 for the dropout-sample kernel, its bits against the plain hash from first
 indices below and above 2^32 (held exactly), its determinism and launch
-count, and its refusals.
+count, and its refusals. The embed kernels (test_embed_kernel_matches_plain,
+test_embed_bwd_kernel_matches_plain, all eight gradients) at EMBED_SHAPES:
+both forms (tensor cores for bf16 compute at the widths of
+fused_embed._tc_form, FMA loops otherwise), ragged token tiles (n 9, 20),
+p 16, B 1 and a batch whose last chunk of b's is short; the backward's
+repeats bit for bit in both forms at the EnMAP and Houston2018 shapes
+(test_embed_bwd_gradients_are_deterministic).
 
 Tolerances on max |kernel - plain| / max(1, |plain|): fp32 1e-4 (summation
 order and fast intrinsics only), bf16 3e-2 (both round every product
@@ -167,7 +173,14 @@ def _embed_args(rng, b, g, p, n, d, device, in_dtype=torch.float32):
     return tuple(a.to(device) for a in args)
 
 
-@pytest.mark.parametrize("b,g,p,n,d", [(3, 20, 10, 64, 96), (2, 5, 10, 64, 96), (2, 3, 4, 9, 16)])
+# the embed's shapes: EnMAP and Houston2018 blocks, narrow widths, and for the
+# tensor-core forms ragged token tiles (n 9, 20), p 16, d 40 (an odd number
+# of 8-column tiles), B 1 and a batch whose last chunk of b's is short
+EMBED_SHAPES = [(3, 20, 10, 64, 96), (2, 5, 10, 64, 96), (2, 3, 4, 9, 16), (1, 20, 10, 64, 96),
+                (5, 3, 16, 20, 96), (7, 2, 16, 9, 40), (255, 20, 10, 64, 96)]
+
+
+@pytest.mark.parametrize("b,g,p,n,d", EMBED_SHAPES)
 @pytest.mark.parametrize(
     "in_dtype,compute_dtype",
     [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
@@ -403,8 +416,7 @@ def test_layer_autograd_routes_to_the_kernels(cuda):
     assert x.grad is not None and all(t.grad is not None for t in params)
 
 
-@pytest.mark.parametrize("b,g,p,n,d", [(3, 20, 10, 64, 96), (2, 5, 10, 64, 96), (2, 3, 4, 9, 16),
-                                       (300, 2, 4, 9, 16)])
+@pytest.mark.parametrize("b,g,p,n,d", EMBED_SHAPES + [(300, 2, 4, 9, 16), (81, 20, 10, 64, 96)])
 @pytest.mark.parametrize(
     "in_dtype,compute_dtype",
     [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
@@ -423,11 +435,15 @@ def test_embed_bwd_kernel_matches_plain(cuda, b, g, p, n, d, in_dtype, compute_d
         assert _grad_err(gv, wv) <= TOL[compute_dtype], f"grad {i}: {_grad_err(gv, wv):.3e}"
 
 
-def test_embed_bwd_gradients_are_deterministic(cuda):
-    args = _embed_args(np.random.default_rng(11), 64, 20, 10, 64, 96, cuda)
-    dtok = torch.randn(64, 20, 64, 96, device=cuda)
-    first = fused_embed._launch_bwd(*args, dtok, torch.float32)
-    second = fused_embed._launch_bwd(*args, dtok, torch.float32)
+@pytest.mark.parametrize("g", [20, 5])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_embed_bwd_gradients_are_deterministic(cuda, g, compute_dtype):
+    """Two calls give the same bits: the FMA form (fp32) and the
+    tensor-core form (bf16), at the EnMAP and Houston2018 shapes."""
+    args = _embed_args(np.random.default_rng(11), 64, g, 10, 64, 96, cuda)
+    dtok = torch.randn(64, g, 64, 96, device=cuda).to(fused_embed._out_dtype(compute_dtype))
+    first = fused_embed._launch_bwd(*args, dtok, compute_dtype)
+    second = fused_embed._launch_bwd(*args, dtok, compute_dtype)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 

@@ -2,7 +2,8 @@
 against the JAX fused_embed_mask in interpret mode, in fp32.
 
 Tolerance: max |port - jax| <= 1e-5 * max(1, |jax|) elementwise; the two
-differ only in fp32 summation order."""
+differ only in fp32 summation order. Also the routing of a call between the
+kernels' tensor-core and FMA forms (``_tc_form``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,3 +78,18 @@ def test_kernel_wrapper_rejects_bad_shapes():
     args[8] = args[8][:1]  # pos [1, n, d] instead of [g, n, d]
     with pytest.raises(ValueError, match="pos must be"):
         fused_embed._launch(*args, torch.float32)
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [9, 64])
+@pytest.mark.parametrize(
+    "p,d,tc",
+    [(10, 96, True),  # EnMAP and Houston2018: blocks of 10 bands, dim 96
+     (4, 96, True), (16, 96, True), (17, 96, False),
+     (10, 16, True), (10, 100, False), (10, 136, False), (16, 136, False)],
+)
+def test_tc_form_routes_bf16_at_its_widths(p, d, tc, n, compute_dtype):
+    """bf16 compute with p <= 16 and d a multiple of 8 up to 128 takes the
+    tensor-core forms at any n; fp32 compute and other widths the FMA forms."""
+    want = tc and compute_dtype == torch.bfloat16
+    assert fused_embed._tc_form(compute_dtype, p, d) is want

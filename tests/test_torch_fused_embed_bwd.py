@@ -4,7 +4,8 @@ in interpret mode, in fp32: all ten cotangents, with a random mask and a
 nonzero mask token.
 
 Tolerance: each gradient within 1e-4 * max(1, max|ref|); the two sides
-differ only in fp32 summation order."""
+differ only in fp32 summation order. Also the tensor-core backward's split
+of the batch into chunks (``chunk_plan``)."""
 
 import jax
 import jax.numpy as jnp
@@ -102,3 +103,21 @@ def test_embed_counts_no_launch_on_the_cpu():
     before = (fused_embed.launches, fused_embed.bwd_launches)
     (fused_embed_mask(*ts, torch.float32) * torch.from_numpy(dtok)).sum().backward()
     assert (fused_embed.launches, fused_embed.bwd_launches) == before
+
+
+@pytest.mark.parametrize("g", [3, 5, 20])
+@pytest.mark.parametrize("b", [1, 2, 63, 64, 256])
+def test_bwd_chunk_plan_covers_every_b_once_in_order(b, g):
+    """The tensor-core backward's chunks: chunk c takes b in [c per, (c + 1)
+    per), every b in exactly one nonempty chunk, in order; the grid spans at
+    most BWD_WAVES waves of resident blocks on an H100, with one b a block
+    where that fits."""
+    sms, n = 132, 64
+    bps, waves = fused_embed.BWD_BLOCKS_PER_SM, fused_embed.BWD_WAVES
+    per, chunks = fused_embed.chunk_plan(b, g, n, sms, bps, waves)
+    ranges = [range(c * per, min(b, (c + 1) * per)) for c in range(chunks)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [i for r in ranges for i in r] == list(range(b))
+    slots = waves * sms * bps
+    assert g * chunks <= max(g, slots)
+    assert per == 1 or g * b > slots

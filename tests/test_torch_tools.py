@@ -25,7 +25,7 @@ from maskedsst_tpu.ops.masking import MaskGenerator as JaxMaskGenerator
 from maskedsst_tpu.parallel.mesh import get_mesh
 from maskedsst_tpu.train.pretrainer import build_pretrain_model as jax_build
 from maskedsst_tpu_torch.io.flax_params import flax_from_params, grads_to_flax
-from maskedsst_tpu_torch.ops import fused_layer
+from maskedsst_tpu_torch.ops import fused_embed, fused_layer
 from maskedsst_tpu_torch.tools import bench_geometries, bf16_soak, kernel_check, profile_step
 from maskedsst_tpu_torch.tools import serving_bench
 from maskedsst_tpu_torch.train.pretrainer import Pretrainer
@@ -244,6 +244,39 @@ def test_kernel_check_composition_agrees_with_reference_layer(s):
     want = fused_layer.reference_layer(x, params, 2, 8, torch.float32)
     torch.testing.assert_close(kernel_check.composition_layer(x, params, 2, 8, 0.0), want,
                                rtol=0, atol=1e-5)
+
+
+def _embed_inputs(rng, b, g, p, n, d):
+    def r(*shape, base=0.0, scale=0.1):
+        return torch.from_numpy((base + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    mask = torch.from_numpy((rng.random((b, g, n)) < 0.7).astype(np.float32))
+    return (r(b, g, p, n, scale=1.0), mask, r(p, base=1.0), r(p), r(g, p, d, scale=p**-0.5),
+            r(g, d), r(d, base=1.0), r(d), r(g, n, d, scale=1.0), r(d, scale=1.0))
+
+
+@pytest.mark.parametrize("b,g,p,n,d", [(2, 20, 10, 64, 96), (3, 5, 10, 9, 16)])
+def test_kernel_check_embed_composition_agrees_with_reference(b, g, p, n, d):
+    """The embed composition kernel_table times beside the forward kernel
+    (LN over p, einsum, LN over d, + pos, select) computes the fused embed:
+    in fp32 it is the plain version."""
+    args = _embed_inputs(np.random.default_rng(2), b, g, p, n, d)
+    want = fused_embed.fused_embed_mask_reference(*args, torch.float32)
+    torch.testing.assert_close(kernel_check.composition_embed(*args), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,g,p,n,d", [(2, 20, 10, 64, 96), (3, 5, 10, 9, 16)])
+def test_kernel_check_embed_composition_grads_agree_with_reference_bwd(b, g, p, n, d):
+    """The composition's autograd, timed beside the backward kernel, gives
+    the eight parameter gradients of the plain backward in fp32."""
+    args = _embed_inputs(np.random.default_rng(3), b, g, p, n, d)
+    params = [a.clone().requires_grad_() for a in args[2:]]
+    dtok = torch.from_numpy(np.random.default_rng(4).standard_normal((b, g, n, d))
+                            .astype(np.float32))
+    got = torch.autograd.grad(kernel_check.composition_embed(*args[:2], *params), params, dtok)
+    want = fused_embed.fused_embed_mask_reference_bwd(*args, dtok, torch.float32)
+    for gv, wv in zip(got, want):
+        torch.testing.assert_close(gv, wv, rtol=0, atol=1e-4 * max(1.0, float(wv.abs().max())))
 
 
 def test_kernel_check_cpu_checks_pass():
