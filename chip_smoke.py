@@ -13,8 +13,8 @@ Phases:
   1. forward kernels vs plain: each forward kernel against its plain
      PyTorch version on the card, at the serving shapes (batch 256) in fp32
      (TF32 off) and bf16, plus the Houston spectral shape (seq 5) for the
-     layer; max |error|, CUDA-event medians of kernel and plain version, and
-     the bound;
+     layer; max |error|, CUDA-event medians of kernel and plain version
+     (the embed forward's device time beside its kernel's), and the bound;
   1b. backward kernels vs plain, at the training shapes of batch 64 (layer
      spatial [1280, 64, 96], spectral [4096, 20, 96], Houston [4096, 5, 96]
      in fp32 and bf16, Houston spatial [320, 64, 96] in bf16, at dropout 0

@@ -40,31 +40,34 @@
 //    (M = P padded to 16, K = the warp's 16 tokens, N = D), whose A
 //    fragments are xln's four blocks transposed the same way. movmatrix
 //    keeps the transposes in registers: no shared tile, no barrier. The
-//    warp keeps d kernel (mma accumulators) and d preln scale / bias (at
-//    its lanes' p) in registers over its b's, and d pos of its own rows in
-//    its own shared rows; the small vectors (d postln scale / bias, d bias,
-//    d mask_token) are reduced over each column's eight lanes by a
-//    shuffle reduce-scatter, each lane keeping D / 32 of the column sums
-//    per vector. The dtok tile of the next b comes in by cp.async (16-byte
-//    pieces, the tile's rows being contiguous) under this b's products, the
-//    next pixels by plain loads. At the end the warps' sums go to the
-//    block's partial in warp order, and reduce_tc_partials sums the
-//    partials in block order: deterministic, no atomics. The fp32 sums that
-//    feed a bf16 rounding (the post-LN statistics, dt's two row means) take
-//    the plain version's order: pairwise sums, a mean as the sum times
-//    fl(1/D), separate roundings where it rounds twice.
-//    Register and shared-memory plan: d kernel 48 registers at D 96, the
-//    working t / z2 / dt tile 48, the small sums 12 + 8, the kernel's B
-//    fragments read by ldmatrix per product; three 128-thread blocks per SM
-//    (__launch_bounds__, at most 168 registers). BwdPlan: the kernel slice
-//    [16, 104] bf16, bias and postln scale, four dtok tiles [16, 104] bf16
-//    and four warps' d pos rows [16, 104] fp32: 44,032 bytes at D 96. The
-//    partials: 7,508 floats a block at P 10, D 96 (30 KB, d pos 24.6 KB of
-//    it); ops/fused_embed.py sets the chunks from the SM count and the
-//    blocks per SM (two waves of blocks where B allows): 640 blocks, 19.2
-//    MB of partials written and read at EnMAP batch 64 (G 20, two b's a
-//    block), 320 blocks, 9.6 MB at Houston (G 5, one b a block), against
-//    15.7 / 3.9 MB of dtok read;
+//    warp keeps d preln scale / bias (at its lanes' p) in registers over
+//    its b's, and d pos of its own rows and d kernel (each b's product
+//    added) in its own shared rows; the small vectors (d postln scale /
+//    bias, d bias, d mask_token) are reduced over each column's eight lanes
+//    by a shuffle reduce-scatter, each lane keeping D / 32 of the column
+//    sums per vector, every index a compile-time constant (a loop the
+//    compiler does not unroll puts its arrays in local memory). The dtok
+//    tile of the next b comes in by cp.async (16-byte pieces, the tile's
+//    rows being contiguous) under this b's products, the next pixels by
+//    plain loads. At the end the warps' sums go to the block's partial in
+//    warp order, and reduce_tc_partials sums the partials in block order:
+//    deterministic, no atomics. The fp32 sums that feed a bf16 rounding
+//    (the post-LN statistics, dt's two row means) take the plain version's
+//    order: pairwise sums, a mean as the sum times fl(1/D), separate
+//    roundings where it rounds twice.
+//    Register and shared-memory plan: the working t / z2 / dt tile 48
+//    registers at D 96, the small sums 12 + 8, the kernel's B fragments
+//    read by ldmatrix per product; three 128-thread blocks per SM
+//    (__launch_bounds__: 168 registers, 248 bytes of spills at D 96).
+//    BwdPlan: the kernel slice [16, 104] bf16, bias and postln scale, and
+//    four warps' dtok tiles [16, 104] bf16, d pos rows and d kernel
+//    [16, 104] fp32 each: 70,656 bytes at D 96. The partials: 7,508 floats
+//    a block at P 10, D 96 (30 KB, d pos 24.6 KB of it).
+//    ops/fused_embed.py::chunk_plan gives a block as few b's as keep the
+//    grid within one wave of resident blocks (a second wave's tail cost
+//    more than the partials saved): 320 blocks of 4 b's, 9.6 MB of
+//    partials written and read at EnMAP batch 64 (G 20), 320 of 1 b at
+//    Houston (G 5), against 15.7 / 3.9 MB of dtok read;
 //  - FMA loops (fp32 compute, or widths the tensor-core form does not
 //    take), the first form: one block of 256 threads per (g, chunk of b);
 //    it keeps its running sums of every gradient of block g in shared

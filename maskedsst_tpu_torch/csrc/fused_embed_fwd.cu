@@ -38,11 +38,13 @@
 //    The fp32 sums that feed a bf16 rounding take the plain version's
 //    order: pairwise sums, a mean as the sum times fl(1/D), separate
 //    roundings where it rounds twice (no fused multiply-add).
-//    Register and shared-memory plan: ~110 registers at D 96 (acc 48, the
-//    kernel's B fragments 24, pixels 8), four 128-thread blocks per SM
-//    (__launch_bounds__); shared memory FwdPlan: the kernel slice [16, 104]
-//    bf16, pos [64, 104] fp32, four [D] vectors and four [16, 104] bf16
-//    store tiles, 45,184 bytes at D 96;
+//    Register and shared-memory plan: 128 registers at D 96, no spills
+//    (acc 48, the kernel's B fragments 24, pixels 8), four 128-thread
+//    blocks per SM (__launch_bounds__); shared memory FwdPlan: the kernel
+//    slice [16, 104] bf16, pos [64, 104] fp32, four [D] vectors and four
+//    [16, 104] bf16 store tiles, 44,800 bytes at D 96. chunk_plan
+//    (ops/fused_embed.py) gives a block as few b's as keep the grid within
+//    two waves of resident blocks: 5 b's a block at batch 256;
 //  - FMA loops (fp32 compute, or widths the tensor-core form does not
 //    take), the first form: one block of 256 threads per (b, g); the pixel
 //    tile, the [p, d] kernel slice and the [n, d] pre-LN tokens in shared

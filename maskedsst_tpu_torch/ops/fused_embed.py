@@ -48,7 +48,6 @@ _SUPPORTED = (torch.float32, torch.bfloat16)
 TILE_WARPS = 4
 FWD_BLOCKS_PER_SM, FWD_WAVES = 4, 2
 BWD_BLOCKS_PER_SM, BWD_WAVES = 3, 1
-H100_SMS = 132  # the SM count of the plans made for a CPU tensor
 
 # kernel launches since the count was last set to 0 (plain-version calls
 # are not counted): forward, backward
@@ -66,7 +65,8 @@ def _tc_form(compute_dtype: torch.dtype, p: int, d: int) -> bool:
 
 def _groups(n: int) -> int:
     """Blocks of TILE_WARPS 16-token tiles that cover n tokens."""
-    return -(-(-(-n // 16)) // TILE_WARPS)
+    tiles = -(-n // 16)
+    return -(-tiles // TILE_WARPS)
 
 
 def chunk_plan(b: int, g: int, n: int, sms: int, blocks_per_sm: int, waves: int) -> tuple:
@@ -82,9 +82,7 @@ def chunk_plan(b: int, g: int, n: int, sms: int, blocks_per_sm: int, waves: int)
 
 
 def _sms(device: torch.device) -> int:
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).multi_processor_count
-    return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,9 @@ Checks, each printed as one "ok"/"FAIL" line (exit code 1 when one fails):
   ``composition_ms``, the device time of :func:`composition_layer` (a
   yardstick only: no one PyTorch call computes the layer); the bf16 layer
   backward whole, its row kernel and its weight-gradient kernel
-  (``layer_wgrad``).
+  (``layer_wgrad``); the embed forward at batch 256 (serving) and at the
+  training batch and its backward, each beside ``composition_ms`` of
+  :func:`composition_embed` (its autograd for the backward).
 
 ``--cpu`` rehearses it through the plain versions with every batch cut
 64-fold; no time is measured there.
@@ -402,7 +404,8 @@ def dropout_sample_cases(device, blocks: int = GEOMETRIES["enmap"]) -> List[dict
 
 def kernel_table(device, geometry: str = "enmap") -> List[dict]:
     """Each kernel's device ms (torch.profiler) at the batch-64 bf16
-    training shapes of ``geometry``, its bound and share of bound."""
+    training shapes of ``geometry`` (the embed forward at batch 256 too),
+    its bound and share of bound."""
     gen = torch.Generator().manual_seed(0)
     g, p, n, b = GEOMETRIES[geometry], 10, 64, TRAIN_BATCH
     bf = torch.bfloat16
