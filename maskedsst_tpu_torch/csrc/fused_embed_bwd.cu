@@ -28,7 +28,7 @@
 //    bound: ~113 KB of shared memory for the running sums, so one
 //    256-thread block per SM; six barriers per b; three scalar products
 //    with two shared loads per FMA; and ~40 % of its time in neither part
-//    (step 0, PERF.md). This form: one warp owns 16 tokens (n rows) of one
+//    (PERF.md §6). This form: one warp owns 16 tokens (n rows) of one
 //    g; a block of four warps covers one g, up to 64 tokens and a chunk of
 //    b, the warps walking it in order. For each b the warp recomputes the
 //    pre-LN (quad shuffles, xln straight into the A fragment, p padded to

@@ -21,7 +21,7 @@
 //    (b, g), the rest below) ran at 7 % of the bound: each of the 5,120
 //    blocks at batch 256 staged the kernel slice and 24 KB of fp32 pos
 //    again (126 MB of L2 reads), and its K = 10 FMA product, two shared
-//    loads per FMA, took a third of its time (step 0, PERF.md). This form:
+//    loads per FMA, took a third of its time (PERF.md §6). This form:
 //    one warp owns 16 tokens of one (b, g); a block of four warps covers
 //    one g and up to 64 tokens and walks a chunk of b, so the kernel slice
 //    (as ldmatrix B fragments kept in registers), bias, the LN vectors and

@@ -44,7 +44,7 @@ _SUPPORTED = (torch.float32, torch.bfloat16)
 # in csrc/fused_embed_fwd.cu and csrc/fused_embed_bwd.cu) and the waves of
 # resident blocks each grid may span (chunk_plan). A backward block walks
 # its b's for long: a second wave leaves the SMs idle behind its tail
-# (PERF.md, PR 8).
+# (PERF.md §6).
 TILE_WARPS = 4
 FWD_BLOCKS_PER_SM, FWD_WAVES = 4, 2
 BWD_BLOCKS_PER_SM, BWD_WAVES = 3, 1
