@@ -560,6 +560,7 @@ def phase_simmim(gen):
             enc = enc32.to(dtype)
             args = (enc, patches, kernel, bias, weights)
             cost = decode_cost(b, g, n, d, p, enc.element_size())
+            form = "tensor-core form" if fused_simmim._tc_form(dtype, p, d) else "FMA form"
             got = fused_simmim._launch(*args, dtype)
             want = fused_simmim.fused_decode_l1_reference(*args, dtype)
             again = fused_simmim._launch(*args, dtype)
@@ -581,11 +582,12 @@ def phase_simmim(gen):
                   f"fused_simmim_fwd {label} {name}: the profiler measured device time")
             nbytes, flops = cost["fwd"]
             bms, by = bound_ms(nbytes, flops, name)
-            fwd_cases.append(dict(shape=label, dims=[b, g, n, d, p], dtype=name,
+            fwd_cases.append(dict(shape=label, dims=[b, g, n, d, p], dtype=name, form=form,
                                   max_abs_err=abs_err, rel_err=err, ms=ms, plain_ms=plain,
                                   bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
                                   event_ms=event_ms))
-            print(f"     fused_simmim_fwd {label} {name}: device ms {ms:.4f} plain {plain:.4f} "
+            print(f"     fused_simmim_fwd {label} {name} ({form}): device ms {ms:.4f} "
+                  f"plain {plain:.4f} "
                   f"bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} GB/s; CUDA-event ms "
                   f"of one call {event_ms:.4f}", flush=True)
 
@@ -613,11 +615,12 @@ def phase_simmim(gen):
                   f"fused_simmim_bwd {label} {name}: the profiler measured device time")
             nbytes, flops = cost["bwd"]
             bms, by = bound_ms(nbytes, flops, name)
-            bwd_cases.append(dict(shape=label, dims=[b, g, n, d, p], dtype=name,
+            bwd_cases.append(dict(shape=label, dims=[b, g, n, d, p], dtype=name, form=form,
                                   max_abs_err=max(abs_errs.values()), rel_err=errs, ms=ms,
                                   plain_ms=plain, bound_ms=bms, bound_by=by, flops=flops,
                                   bytes=nbytes, event_ms=event_ms))
-            print(f"     fused_simmim_bwd {label} {name}: device ms {ms:.4f} plain {plain:.4f} "
+            print(f"     fused_simmim_bwd {label} {name} ({form}): device ms {ms:.4f} "
+                  f"plain {plain:.4f} "
                   f"bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} GB/s; CUDA-event ms "
                   f"of one call {event_ms:.4f}", flush=True)
         torch.cuda.empty_cache()

@@ -63,7 +63,7 @@ def _tc_form(compute_dtype: torch.dtype, p: int, d: int) -> bool:
     return compute_dtype == torch.bfloat16 and 1 <= p <= 16 and d % 8 == 0 and 8 <= d <= 128
 
 
-def _groups(n: int) -> int:
+def tile_groups(n: int) -> int:
     """Blocks of TILE_WARPS 16-token tiles that cover n tokens."""
     tiles = -(-n // 16)
     return -(-tiles // TILE_WARPS)
@@ -76,16 +76,16 @@ def chunk_plan(b: int, g: int, n: int, sms: int, blocks_per_sm: int, waves: int)
     groups x chunks blocks, spans at most ``waves`` waves of
     ``blocks_per_sm`` resident blocks on each of ``sms`` SMs, with as few
     b's a block as that allows (one, where it fits)."""
-    most = max(1, waves * sms * blocks_per_sm // (g * _groups(n)))  # chunks at most
+    most = max(1, waves * sms * blocks_per_sm // (g * tile_groups(n)))  # chunks at most
     per = -(-b // most)
     return per, -(-b // per)
 
 
-def _sms(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
+def aligned(t: torch.Tensor) -> torch.Tensor:
     """t, or a copy of it when its data is not 16-byte aligned (the
     tensor-core forms copy pos and dtok in 16-byte pieces)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -298,10 +298,10 @@ def _launch(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
     # kept referenced until the launch has been enqueued
     args = (
         _f32(mask), _f32(preln_scale), _f32(preln_bias), kernel.to(compute_dtype).contiguous(),
-        _f32(bias), _f32(postln_scale), _f32(postln_bias), _aligned(_f32(pos)), _f32(mask_token),
+        _f32(bias), _f32(postln_scale), _f32(postln_bias), aligned(_f32(pos)), _f32(mask_token),
     )
     out = torch.empty((b, g, n, d), dtype=_out_dtype(compute_dtype), device=patches_pn.device)
-    per, chunks = (chunk_plan(b, g, n, _sms(patches_pn.device), FWD_BLOCKS_PER_SM, FWD_WAVES)
+    per, chunks = (chunk_plan(b, g, n, sm_count(patches_pn.device), FWD_BLOCKS_PER_SM, FWD_WAVES)
                    if _tc_form(compute_dtype, p, d) else (b, 1))
     lib, fn = _bind()
     with torch.cuda.device(patches_pn.device):
@@ -328,12 +328,12 @@ def _launch_bwd(patches_pn, mask, preln_scale, preln_bias, kernel, bias,
                            postln_scale, postln_bias, pos, mask_token, compute_dtype)
     if tuple(dtok.shape) != (b, g, n, d):
         raise ValueError(f"{_BWD}: dtok must be {(b, g, n, d)}, got {tuple(dtok.shape)}")
-    dtok = _aligned(dtok.to(_out_dtype(compute_dtype)).contiguous())
+    dtok = aligned(dtok.to(_out_dtype(compute_dtype)).contiguous())
     # the gradients need neither pos nor mask_token, only their shapes
     args = (_f32(mask), _f32(preln_scale), _f32(preln_bias),
             kernel.to(compute_dtype).contiguous(), _f32(bias), _f32(postln_scale),
             _f32(postln_bias))
-    sms = _sms(patches_pn.device)
+    sms = sm_count(patches_pn.device)
     if _tc_form(compute_dtype, p, d):
         per, chunks = chunk_plan(b, g, n, sms, BWD_BLOCKS_PER_SM, BWD_WAVES)
     else:  # the FMA form: one block per SM, each over ceil(b / chunks) b's

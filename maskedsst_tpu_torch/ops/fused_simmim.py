@@ -16,13 +16,21 @@ a CUDA tensor launches ``csrc/fused_simmim_fwd.cu`` and
 ``maskedsst_tpu/ops/fused_simmim.py::_fwd_kernel`` and ``_bwd_kernel``
 with their numeric contract: the decode's operands rounded to
 ``compute_dtype`` with fp32 accumulation and the bias added in fp32;
-``dpred = sign(diff) · w · gout`` in fp32 (sign(0) = 0), rounded to
+``dpred = sign(diff) · w · gout`` in fp32 (sign(0) = 0, sign(NaN) = NaN), rounded to
 ``compute_dtype`` only as a product operand; d encoded in encoded's dtype;
 d kernel and d bias in fp32 summed over the batch, d bias from the
 unrounded dpred. The backward kernel reads the loss's cotangent from
 device memory, so a step never waits on the host. The patch and weight
 cotangents come from plain ops (:func:`decode_l1_input_grads`), and only
 when autograd asks for them.
+
+Each kernel has two forms, chosen by shape and dtype only: bf16 compute at
+the widths :func:`_tc_form` takes launches the tensor-core form (one warp
+per 16 tokens of one (b, g) on ``mma.sync``, blocks of four warps over one
+g walking a chunk of b, :func:`_plan`); everything else, fp32 compute
+included, the FMA form (one 256-thread block per g and range of batch
+rows, :func:`_grid`). Neither falls back to the other: a CUDA tensor
+launches the chosen form or raises.
 """
 
 from __future__ import annotations
@@ -32,14 +40,31 @@ import functools
 
 import torch
 
+from maskedsst_tpu_torch.ops import fused_embed
+
 _KERNEL = "fused_simmim_fwd"
 _BWD = "fused_simmim_bwd"
 _SUPPORTED = (torch.float32, torch.bfloat16)
+
+# the tensor-core forms' occupancy: resident 128-thread blocks per SM
+# (kBlocksPerSm in csrc/fused_simmim_fwd.cu and csrc/fused_simmim_bwd.cu)
+# and the waves of resident blocks each grid may span (fused_embed.chunk_plan)
+FWD_BLOCKS_PER_SM, FWD_WAVES = 3, 1
+BWD_BLOCKS_PER_SM, BWD_WAVES = 3, 1
 
 # kernel launches since the count was last set to 0 (plain-version calls
 # are not counted): forward, backward
 launches = 0
 bwd_launches = 0
+
+
+def _tc_form(compute_dtype: torch.dtype, p: int, d: int) -> bool:
+    """Whether a call takes the kernels' tensor-core forms rather than the
+    FMA forms (``decode_tc_widths`` in ``csrc/decode_tiles.cuh``): bf16
+    compute, p at most 16 (the decode's width, padded to 16), d a multiple
+    of 16 from 16 to 128 (its depth); any n (a ragged last tile of 16
+    tokens is masked), encoded in bf16 or fp32 (rounded on load)."""
+    return compute_dtype == torch.bfloat16 and 1 <= p <= 16 and d % 16 == 0 and 16 <= d <= 128
 
 
 def fused_decode_l1(
@@ -94,6 +119,12 @@ def _diff(encoded, patches_pn, kernel, bias, compute_dtype):
     return preds + bias.float()[None, :, :, None] - patches_pn.float()
 
 
+def _sign(x):
+    """sign(x) with sign(0) = 0 and NaN kept, as ``jnp.sign`` (``torch.sign``
+    maps NaN to 0): a NaN prediction reaches the gradients, as in JAX."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
 def _w4(weights, encoded):
     b, g, n, _ = encoded.shape
     return weights.float().reshape(b, g, 1, n)
@@ -112,7 +143,7 @@ def fused_decode_l1_reference_bwd(encoded, patches_pn, kernel, bias, weights, go
     (d encoded [B, g, n, d] in encoded's dtype, d kernel [g, d, p] fp32,
     d bias [g, p] fp32) for the scalar cotangent ``gout``."""
     diff = _diff(encoded, patches_pn, kernel, bias, compute_dtype)
-    dpred = torch.sign(diff) * _w4(weights, encoded) * gout.float()
+    dpred = _sign(diff) * _w4(weights, encoded) * gout.float()
     dpr = dpred.to(compute_dtype).float()
     denc = torch.einsum("bgpn,gdp->bgnd", dpr, kernel.to(compute_dtype).float())
     dkern = torch.einsum("bgnd,bgpn->gdp", encoded.to(compute_dtype).float(), dpr)
@@ -125,7 +156,7 @@ def decode_l1_input_grads(encoded, patches_pn, kernel, bias, weights, gout,
     [B, g·n]) in plain ops, as the JAX rule's ``_input_grads_xla``."""
     diff = _diff(encoded, patches_pn, kernel, bias, compute_dtype)
     gs = gout.float()
-    dpat = -torch.sign(diff) * _w4(weights, encoded) * gs
+    dpat = -_sign(diff) * _w4(weights, encoded) * gs
     dw = (diff.abs().sum(dim=2) * gs).reshape(weights.shape)
     return dpat.to(patches_pn.dtype), dw.to(weights.dtype)
 
@@ -168,12 +199,26 @@ def _f32(t):
     return t.float().contiguous()
 
 
-def _grid(device, b, g):
-    """(chunks, rows per chunk): each block owns block g and a contiguous
-    range of batch rows; about four blocks per SM, none empty."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def _grid(b, g, sms):
+    """(chunks, rows per chunk) of the FMA forms: each block owns block g
+    and a contiguous range of batch rows; about four blocks per SM, none
+    empty."""
     per = -(-b // max(1, min(b, -(-4 * sms // g))))
     return -(-b // per), per
+
+
+def _plan(b, g, n, p, d, compute_dtype, bwd, sms):
+    """(chunks, per, blocks): the grid of the form the call takes on a card
+    of ``sms`` SMs; chunk c takes the b's [c per, min(b, (c + 1) per)). The
+    tensor-core forms split the batch by :func:`fused_embed.chunk_plan`
+    (g x groups of 64 tokens x chunks blocks), the FMA forms by
+    :func:`_grid` (g x chunks)."""
+    if not _tc_form(compute_dtype, p, d):
+        chunks, per = _grid(b, g, sms)
+        return chunks, per, g * chunks
+    per, chunks = fused_embed.chunk_plan(
+        b, g, n, sms, *((BWD_BLOCKS_PER_SM, BWD_WAVES) if bwd else (FWD_BLOCKS_PER_SM, FWD_WAVES)))
+    return chunks, per, g * fused_embed.tile_groups(n) * chunks
 
 
 def _launch(encoded, patches_pn, kernel, bias, weights, compute_dtype):
@@ -181,10 +226,12 @@ def _launch(encoded, patches_pn, kernel, bias, weights, compute_dtype):
     from maskedsst_tpu_torch.ops import _build
 
     b, g, n, d, p = _check(_KERNEL, encoded, patches_pn, kernel, bias, weights, compute_dtype)
-    chunks, per = _grid(encoded.device, b, g)
+    chunks, per, blocks = _plan(b, g, n, p, d, compute_dtype, False,
+                                 fused_embed.sm_count(encoded.device))
     # kept referenced until the launch has been enqueued
+    encoded = fused_embed.aligned(encoded)
     args = (_f32(patches_pn), kernel.to(compute_dtype).contiguous(), _f32(bias), _f32(weights))
-    ws = torch.empty(g * chunks, dtype=torch.float32, device=encoded.device)
+    ws = torch.empty(blocks, dtype=torch.float32, device=encoded.device)
     out = torch.empty((), dtype=torch.float32, device=encoded.device)
     lib, fn = _bind(_KERNEL)
     with torch.cuda.device(encoded.device):
@@ -209,11 +256,13 @@ def _launch_bwd(encoded, patches_pn, kernel, bias, weights, gout, compute_dtype)
     b, g, n, d, p = _check(_BWD, encoded, patches_pn, kernel, bias, weights, compute_dtype)
     if gout.numel() != 1 or gout.device != encoded.device:
         raise ValueError(f"{_BWD}: gout must be one value on {encoded.device}")
-    chunks, per = _grid(encoded.device, b, g)
+    chunks, per, blocks = _plan(b, g, n, p, d, compute_dtype, True,
+                                 fused_embed.sm_count(encoded.device))
+    encoded = fused_embed.aligned(encoded)
     args = (_f32(gout.reshape(())), _f32(patches_pn), kernel.to(compute_dtype).contiguous(),
             _f32(bias), _f32(weights))
     denc = torch.empty_like(encoded)
-    ws = torch.empty((g * chunks, d * p + p), dtype=torch.float32, device=encoded.device)
+    ws = torch.empty((blocks, d * p + p), dtype=torch.float32, device=encoded.device)
     grads = torch.empty(g * d * p + g * p, dtype=torch.float32, device=encoded.device)
     lib, fn = _bind(_BWD)
     with torch.cuda.device(encoded.device):

@@ -33,7 +33,9 @@ Checks, each printed as one "ok"/"FAIL" line (exit code 1 when one fails):
   backward whole, its row kernel and its weight-gradient kernel
   (``layer_wgrad``); the embed forward at batch 256 (serving) and at the
   training batch and its backward, each beside ``composition_ms`` of
-  :func:`composition_embed` (its autograd for the backward).
+  :func:`composition_embed` (its autograd for the backward); the SimMIM
+  decode + weighted L1 forward and backward, each beside ``composition_ms``
+  of :func:`composition_decode` (its autograd for the backward).
 
 ``--cpu`` rehearses it through the plain versions with every batch cut
 64-fold; no time is measured there.
@@ -154,6 +156,19 @@ def composition_embed(patches: torch.Tensor, mask: torch.Tensor, preln_scale: to
     t = torch.einsum("bgnp,gpd->bgnd", x, kernel) + bias[:, None, :]
     tokens = F.layer_norm(t, (d,), postln_scale, postln_bias, eps=LN_EPS) + pos
     return torch.where(mask[..., None] > 0.5, pos + mask_token, tokens)
+
+
+def composition_decode(encoded: torch.Tensor, patches: torch.Tensor, kernel: torch.Tensor,
+                       bias: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The SimMIM decode + weighted L1 (ops/fused_simmim.py) as a plain
+    composition of PyTorch calls in the kernel's dtype: one einsum over the
+    blocks, + bias - patches, ``abs``, * weights, ``sum``. The yardstick
+    that kernel_table times beside the decode kernels (its autograd beside
+    the backward); the port never calls it."""
+    b, g, n, _ = encoded.shape
+    preds = torch.einsum("bgnd,gdp->bgpn", encoded.to(kernel.dtype), kernel)
+    diff = preds + bias[None, :, :, None] - patches.to(kernel.dtype)
+    return (diff.abs() * weights.to(kernel.dtype).reshape(b, g, 1, n)).sum()
 
 
 def check_layer(check: Callable, device, rng) -> List[dict]:
@@ -487,9 +502,17 @@ def kernel_table(device, geometry: str = "enmap") -> List[dict]:
     cost = decode_cost(b, g, n, D, p, 2)
     row("fused_simmim_fwd", "simmim", [b, g, n, D, p], lambda: fused_simmim._launch(*dargs, bf),
         ("fused_simmim_fwd", "sum_partials"), cost["fwd"])
+    cdargs = [enc, kern.to(bf).requires_grad_(), bias.to(bf).requires_grad_()]
+    with torch.no_grad():
+        composition_row(lambda: composition_decode(cdargs[0], patches, *cdargs[1:], weights),
+                        "einsum, + bias - patches, abs, * weights, sum")
     row("fused_simmim_bwd", "simmim", [b, g, n, D, p],
         lambda: fused_simmim._launch_bwd(*dargs, gout, bf), ("fused_simmim_bwd", "reduce_partials"),
         cost["bwd"])
+    cdargs[0] = enc.detach().clone().requires_grad_()
+    loss = composition_decode(cdargs[0], patches, *cdargs[1:], weights)
+    composition_row(lambda: torch.autograd.grad(loss, cdargs, gout.to(bf), retain_graph=True),
+                    "the composition's autograd")
     out = torch.empty(attention_site(g, device), device=device)
     row("dropout_sample", "attention_site", list(out.shape),
         lambda: dropout_sample._launch(out, 1064, SITE_ATTN, RATE), ("dropout_sample",),

@@ -17,8 +17,15 @@ its repeats bit for bit, the backward kernels (the tensor-core form's row kernel
 weight-gradient kernel each against its plain version too, ragged row
 chunks included), the masks each kernel applies read bit for bit
 (ops/dropout_probe.py), the gradients' run-to-run determinism, and the
-wrappers' refusals; for the SimMIM decode + weighted-L1 kernels, all-zero
-and all-one weight rows, a diff of exactly 0 and the loss's determinism;
+wrappers' refusals; for the SimMIM decode + weighted-L1 kernels
+(test_simmim_fwd_kernel_matches_plain, test_simmim_bwd_kernel_matches_plain
+at SIMMIM_SHAPES), both forms (tensor cores for bf16 compute at the widths
+of fused_simmim._tc_form, encoded in bf16 or fp32; FMA loops otherwise) at
+the tensor-core edges (d 16, 32, 48, 128; p 1 and 16; ragged token tiles n
+9, 20, 70; a batch of 255, whose last chunk of b's is short), all-zero and all-one
+weight rows, a diff of exactly 0 in both forms, a NaN in a zero-weight
+token reaching the loss and d kernel in the tensor-core form, and both
+kernels' repeats bit for bit at the EnMAP and Houston2018 shapes;
 for the dropout-sample kernel, its bits against the plain hash from first
 indices below and above 2^32 (held exactly), its determinism and launch
 count, and its refusals. The embed kernels (test_embed_kernel_matches_plain,
@@ -475,6 +482,14 @@ SIMMIM_SHAPES = [
     (2, 5, 10, 64, 96),  # Houston, 5 blocks
     (2, 3, 4, 9, 16),  # narrow
     (300, 2, 4, 9, 16),  # many rows per block
+    (5, 3, 16, 20, 32),  # p 16, a ragged token tile, d 32
+    (4, 2, 1, 70, 128),  # p 1, two 64-token groups with a ragged tile, d 128
+    (6, 3, 12, 33, 48),  # d 48: an odd number of 16-column steps
+    # a short last chunk of b's; 3 blocks, so that it holds no more signs
+    # (490k) than the recipe's 819k: at 255 x 20 blocks one of 3.3M diffs sat
+    # an fp32 ulp from 0 (-2.4e-7), the kernel's and cuBLAS's sums gave it
+    # opposite signs, and that token's d encoded moved by a third of its max
+    (255, 3, 10, 64, 96),
 ]
 SIMMIM_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                  (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
@@ -518,23 +533,50 @@ def test_simmim_bwd_kernel_matches_plain(cuda, b, g, p, n, d, enc_dtype, compute
     assert float(got[0][0].float().abs().max()) == 0.0
 
 
-def test_simmim_zero_diff_has_zero_sign(cuda):
-    """Predictions equal to their pixels: loss 0 and every gradient 0."""
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_simmim_zero_diff_has_zero_sign(cuda, compute_dtype):
+    """Predictions equal to their pixels: loss 0 and every gradient 0, in
+    the FMA form (fp32) and the tensor-core form (bf16; the zero encoded
+    makes the decode exactly 0 there too)."""
     b, g, p, n, d = 2, 3, 4, 9, 16
+    assert fused_simmim._tc_form(compute_dtype, p, d) == (compute_dtype == torch.bfloat16)
     enc = torch.zeros(b, g, n, d, device=cuda)
     kernel = torch.randn(g, d, p, device=cuda)
     bias = torch.randn(g, p, device=cuda)
     patches = bias[None, :, :, None].expand(b, g, p, n).contiguous()
     weights = torch.ones(b, g * n, device=cuda)
-    assert float(fused_simmim._launch(enc, patches, kernel, bias, weights, torch.float32)) == 0.0
+    assert float(fused_simmim._launch(enc, patches, kernel, bias, weights, compute_dtype)) == 0.0
     grads = fused_simmim._launch_bwd(enc, patches, kernel, bias, weights,
-                                     torch.tensor(1.0, device=cuda), torch.float32)
+                                     torch.tensor(1.0, device=cuda), compute_dtype)
     assert all(float(t.abs().max()) == 0.0 for t in grads)
 
 
+def test_simmim_tc_nan_in_a_zero_weight_token_reaches_loss_and_dkernel(cuda):
+    """The tensor-core forms compute every token: a NaN in a token of
+    weight 0 makes the loss NaN and every entry of its block's d kernel,
+    as in the plain version; the other blocks' gradients stay finite and
+    agree with it."""
+    b, g, p, n, d = 4, 3, 10, 64, 96
+    args = list(_simmim_args(np.random.default_rng(17), b, g, p, n, d, cuda, torch.bfloat16))
+    assert fused_simmim._tc_form(torch.bfloat16, p, d) and float(args[4][0].abs().max()) == 0.0
+    args[0][0, 1, 5, 7] = float("nan")  # row 0 has weight 0 everywhere
+    assert torch.isnan(fused_simmim._launch(*args, torch.bfloat16))
+    gout = torch.tensor(1e-3, device=cuda)
+    denc, dkern, dbias = fused_simmim._launch_bwd(*args, gout, torch.bfloat16)
+    _, want_kern, _ = fused_simmim.fused_decode_l1_reference_bwd(*args, gout, torch.bfloat16)
+    assert torch.isnan(dkern[1]).all() and torch.isnan(want_kern[1]).all()
+    assert torch.isnan(dbias[1]).all() and torch.isnan(denc[0, 1, 5]).all()
+    for i in (0, 2):
+        assert torch.isfinite(dkern[i]).all()
+        assert _rel_to_max(dkern[i], want_kern[i]) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("g", [20, 5])
 @pytest.mark.parametrize("enc_dtype,compute_dtype", SIMMIM_DTYPES[:2])
-def test_simmim_kernels_are_deterministic(cuda, enc_dtype, compute_dtype):
-    args = _simmim_args(np.random.default_rng(15), 64, 20, 10, 64, 96, cuda, enc_dtype)
+def test_simmim_kernels_are_deterministic(cuda, enc_dtype, compute_dtype, g):
+    """Two calls give the same bits in both forms, at the EnMAP and
+    Houston2018 shapes."""
+    args = _simmim_args(np.random.default_rng(15), 64, g, 10, 64, 96, cuda, enc_dtype)
     gout = torch.tensor(3e-4, device=cuda)
     assert torch.equal(fused_simmim._launch(*args, compute_dtype),
                        fused_simmim._launch(*args, compute_dtype))

@@ -8,7 +8,9 @@ Tolerances, on the same footing in both dtypes: the loss within tol·|ref|
 and each gradient within tol·max|ref| per tensor; fp32 tol 1e-5 for the
 loss and 1e-4 for gradients (summation order only); bf16 2e-2 (both round
 the same operands to bf16; one-ulp flips where a value was summed in
-another order before a rounding)."""
+another order before a rounding). Also the routing of a CUDA call between
+the kernels' tensor-core and FMA forms (``_tc_form``) and their grids
+(``_plan``), which run here without a card."""
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,9 @@ from maskedsst_tpu_torch.ops.fused_simmim import (
 
 NAMES = ("encoded", "patches", "kernel", "bias", "weights")
 SCALE = 1.7e-3
-SHAPES = [(3, 20, 10, 64, 96), (2, 5, 10, 64, 96), (2, 3, 4, 9, 16)]  # b, g, p, n, d
+# b, g, p, n, d: EnMAP and Houston2018 blocks, narrow, and the tensor-core
+# forms' edge (p 16, a ragged last tile of tokens, d 128)
+SHAPES = [(3, 20, 10, 64, 96), (2, 5, 10, 64, 96), (2, 3, 4, 9, 16), (2, 4, 16, 20, 128)]
 
 
 def _inputs(b, g, p, n, d, seed=0):
@@ -118,6 +122,20 @@ def test_nan_in_a_zero_weight_token_reaches_the_loss():
     assert torch.isnan(fused_decode_l1(enc, patches, kernel, bias, weights, torch.float32))
 
 
+def test_nan_in_a_zero_weight_token_reaches_the_gradients_as_jax():
+    """jnp.sign(NaN) is NaN (torch.sign gives 0): the plain backward puts a
+    NaN in every cotangent entry where jax.grad does."""
+    args = _inputs(2, 3, 4, 9, 16, seed=4)
+    args[0][0, 1, 2, 3] = np.nan  # row 0 has weight 0 everywhere
+    want = jax.grad(lambda *a: jax_decode_l1(*a, jnp.float32, True),
+                    argnums=tuple(range(5)))(*map(jnp.asarray, args))
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    fused_decode_l1(*ts, torch.float32).backward()
+    for name, t, w in zip(NAMES, ts, want):
+        want_nan = torch.from_numpy(np.isnan(np.asarray(w)))
+        assert want_nan.any() and torch.equal(torch.isnan(t.grad), want_nan), name
+
+
 def test_empty_batch_raises():
     enc, patches, kernel, bias, weights = map(torch.from_numpy, _inputs(1, 3, 4, 9, 16))
     with pytest.raises(ValueError, match="B == 0"):
@@ -129,3 +147,46 @@ def test_counts_no_launch_on_the_cpu():
     before = (fused_simmim.launches, fused_simmim.bwd_launches)
     fused_decode_l1(*ts, torch.float32).backward()
     assert (fused_simmim.launches, fused_simmim.bwd_launches) == before
+
+
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "p,d,tc",
+    [(10, 96, True),  # EnMAP and Houston2018: blocks of 10 bands, dim 96
+     (1, 96, True), (16, 96, True), (17, 96, False), (0, 96, False),
+     (10, 16, True), (10, 32, True), (10, 128, True),
+     (10, 8, False), (10, 40, False), (10, 136, False), (16, 144, False)],
+)
+def test_tc_form_routes_bf16_at_its_widths(p, d, tc, compute_dtype):
+    """bf16 compute with 1 <= p <= 16 and d a multiple of 16 from 16 to 128
+    takes the tensor-core forms; fp32 compute and other widths the FMA
+    forms."""
+    want = tc and compute_dtype == torch.bfloat16
+    assert fused_simmim._tc_form(compute_dtype, p, d) is want
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,g,n", [(1, 20, 64), (2, 5, 9), (61, 20, 64), (64, 20, 64),
+                                   (64, 5, 64), (255, 20, 64), (300, 2, 70)])
+def test_plan_covers_every_b_once_in_order(b, g, n, compute_dtype, bwd):
+    """The grid of either form on an H100 (132 SMs): chunk c takes the b's
+    [c per, min(b, (c + 1) per)), every b in exactly one nonempty chunk, in
+    order; the tensor-core forms' grid (g x 64-token groups x chunks)
+    spans at most its waves of resident blocks, with one b a block where
+    that fits."""
+    sms, p, d = 132, 10, 96
+    chunks, per, blocks = fused_simmim._plan(b, g, n, p, d, compute_dtype, bwd, sms)
+    ranges = [range(c * per, min(b, (c + 1) * per)) for c in range(chunks)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [i for r in ranges for i in r] == list(range(b))
+    if compute_dtype == torch.float32:
+        assert blocks == g * chunks
+        return
+    groups = -(-n // 64)
+    assert blocks == g * groups * chunks
+    bps, waves = ((fused_simmim.BWD_BLOCKS_PER_SM, fused_simmim.BWD_WAVES) if bwd
+                  else (fused_simmim.FWD_BLOCKS_PER_SM, fused_simmim.FWD_WAVES))
+    slots = waves * sms * bps
+    assert blocks <= max(g * groups, slots)
+    assert per == 1 or g * groups * b > slots

@@ -3,8 +3,8 @@ accounting on synthetic device events (as tests/test_bench_tools.py holds
 the JAX parser), the Houston2018 pretraining step of bench_geometries
 against the JAX SimMIM value_and_grad, and ``--cpu`` rehearsals of the
 tools at narrow widths (their records' keys, their default output paths),
-with the kernel check's layer oracle and its composition yardstick held
-to the plain version.
+with the kernel check's layer oracle and its composition yardsticks (the
+layer, the embed, the SimMIM decode) held to the plain versions.
 
 Tolerances of the Houston step, as tests/test_torch_pretrainer.py: the loss
 within 2e-5·|ref|, every gradient within 1e-4·max|ref| per tensor (fp32
@@ -25,7 +25,7 @@ from maskedsst_tpu.ops.masking import MaskGenerator as JaxMaskGenerator
 from maskedsst_tpu.parallel.mesh import get_mesh
 from maskedsst_tpu.train.pretrainer import build_pretrain_model as jax_build
 from maskedsst_tpu_torch.io.flax_params import flax_from_params, grads_to_flax
-from maskedsst_tpu_torch.ops import fused_embed, fused_layer
+from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim
 from maskedsst_tpu_torch.tools import bench_geometries, bf16_soak, kernel_check, profile_step
 from maskedsst_tpu_torch.tools import serving_bench
 from maskedsst_tpu_torch.train.pretrainer import Pretrainer
@@ -277,6 +277,39 @@ def test_kernel_check_embed_composition_grads_agree_with_reference_bwd(b, g, p, 
     want = fused_embed.fused_embed_mask_reference_bwd(*args, dtok, torch.float32)
     for gv, wv in zip(got, want):
         torch.testing.assert_close(gv, wv, rtol=0, atol=1e-4 * max(1.0, float(wv.abs().max())))
+
+
+def _decode_inputs(rng, b, g, p, n, d):
+    def r(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32))
+
+    weights = torch.from_numpy((rng.random((b, g * n)) < 0.6).astype(np.float32))
+    return r(b, g, n, d), r(b, g, p, n), r(g, d, p, scale=d**-0.5), r(g, p, scale=0.1), weights
+
+
+@pytest.mark.parametrize("b,g,p,n,d", [(2, 20, 10, 64, 96), (3, 5, 10, 9, 16)])
+def test_kernel_check_decode_composition_agrees_with_reference(b, g, p, n, d):
+    """The decode composition kernel_table times beside the forward kernel
+    (einsum, + bias - patches, abs, * weights, sum) computes the loss of
+    the plain version in fp32."""
+    args = _decode_inputs(np.random.default_rng(5), b, g, p, n, d)
+    want = float(fused_simmim.fused_decode_l1_reference(*args, torch.float32))
+    assert abs(float(kernel_check.composition_decode(*args)) - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.parametrize("b,g,p,n,d", [(2, 20, 10, 64, 96), (3, 5, 10, 9, 16)])
+def test_kernel_check_decode_composition_grads_agree_with_reference_bwd(b, g, p, n, d):
+    """The composition's autograd, timed beside the backward kernel, gives
+    the plain backward's d encoded, d kernel and d bias in fp32."""
+    enc, patches, kern, bias, weights = _decode_inputs(np.random.default_rng(6), b, g, p, n, d)
+    params = [t.clone().requires_grad_() for t in (enc, kern, bias)]
+    gout = torch.tensor(1.7e-3)
+    loss = kernel_check.composition_decode(params[0], patches, *params[1:], weights)
+    got = torch.autograd.grad(loss, params, gout)
+    want = fused_simmim.fused_decode_l1_reference_bwd(enc, patches, kern, bias, weights, gout,
+                                                      torch.float32)
+    for gv, wv in zip(got, want):
+        torch.testing.assert_close(gv, wv, rtol=0, atol=1e-5 * float(wv.abs().max()))
 
 
 def test_kernel_check_cpu_checks_pass():
