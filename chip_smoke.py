@@ -587,9 +587,8 @@ def phase_simmim(gen):
                                   bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
                                   event_ms=event_ms))
             print(f"     fused_simmim_fwd {label} {name} ({form}): device ms {ms:.4f} "
-                  f"plain {plain:.4f} "
-                  f"bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} GB/s; CUDA-event ms "
-                  f"of one call {event_ms:.4f}", flush=True)
+                  f"plain {plain:.4f} bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} "
+                  f"GB/s; CUDA-event ms of one call {event_ms:.4f}", flush=True)
 
             got = fused_simmim._launch_bwd(*args, gout, dtype)
             want = fused_simmim.fused_decode_l1_reference_bwd(*args, gout, dtype)
@@ -620,9 +619,8 @@ def phase_simmim(gen):
                                   plain_ms=plain, bound_ms=bms, bound_by=by, flops=flops,
                                   bytes=nbytes, event_ms=event_ms))
             print(f"     fused_simmim_bwd {label} {name} ({form}): device ms {ms:.4f} "
-                  f"plain {plain:.4f} "
-                  f"bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} GB/s; CUDA-event ms "
-                  f"of one call {event_ms:.4f}", flush=True)
+                  f"plain {plain:.4f} bound_ms {bms:.4f} ({by}) -> {nbytes / ms / 1e6:.1f} "
+                  f"GB/s; CUDA-event ms of one call {event_ms:.4f}", flush=True)
         torch.cuda.empty_cache()
     return fwd_cases, bwd_cases
 

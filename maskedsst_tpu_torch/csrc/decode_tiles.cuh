@@ -31,6 +31,10 @@ __host__ __device__ inline bool decode_tc_widths(int P, int D) {
   return P >= 1 && P <= 16 && D >= 16 && D % 16 == 0 && D <= 128;
 }
 
+// Resident blocks per SM that both forms' register budgets allow
+// (__launch_bounds__; ops/fused_simmim.py TC_BLOCKS_PER_SM).
+constexpr int kDecodeBlocksPerSm = 3;
+
 // Byte offsets of the forms' shared memory: the kernel slice [D, 16 + kPad]
 // bf16 (columns q >= P zero) and each warp's two slab buffers [16, D + kPad]
 // bf16. The backward's block sums reuse the slabs at its end.

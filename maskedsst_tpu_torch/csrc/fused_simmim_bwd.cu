@@ -195,8 +195,6 @@ cudaError_t launch(const void* gout, const void* enc, const void* patches, const
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlocksPerSm = 3;  // ops/fused_simmim.py BWD_BLOCKS_PER_SM
-
 // d enc of the tile's rows as E from the fragments o[j] (columns d0 + 8 j +
 // 2c, + 1; rows r, r + 8): fp32 straight to device memory; bf16 into the
 // warp's slab (copied out by the caller).
@@ -226,7 +224,7 @@ __device__ __forceinline__ void put_denc(bf16*, bf16* slab, int ld, const float 
 // KS: 16-column k-steps of D (EXACT: D == 16 KS; else their maximum, D read
 // at run time).
 template <typename E, int KS, bool EXACT>
-__global__ void __launch_bounds__(kTcThreads, kBlocksPerSm)
+__global__ void __launch_bounds__(kTcThreads, kDecodeBlocksPerSm)
 fused_simmim_bwd_tc_kernel(const float* __restrict__ gout, const E* __restrict__ enc,
                            const float* __restrict__ patches, const bf16* __restrict__ kern,
                            const float* __restrict__ bias, const float* __restrict__ w,

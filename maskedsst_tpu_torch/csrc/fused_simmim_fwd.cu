@@ -157,12 +157,10 @@ cudaError_t launch(const void* enc, const void* patches, const void* kern, const
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlocksPerSm = 3;  // ops/fused_simmim.py FWD_BLOCKS_PER_SM
-
 // KS: 16-column k-steps of D (EXACT: D == 16 KS; else their maximum, D read
 // at run time).
 template <typename E, int KS, bool EXACT>
-__global__ void __launch_bounds__(kTcThreads, kBlocksPerSm)
+__global__ void __launch_bounds__(kTcThreads, kDecodeBlocksPerSm)
 fused_simmim_fwd_tc_kernel(const E* __restrict__ enc, const float* __restrict__ patches,
                            const bf16* __restrict__ kern, const float* __restrict__ bias,
                            const float* __restrict__ w, float* __restrict__ ws, int B, int G,

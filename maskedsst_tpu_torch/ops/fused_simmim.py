@@ -16,8 +16,9 @@ a CUDA tensor launches ``csrc/fused_simmim_fwd.cu`` and
 ``maskedsst_tpu/ops/fused_simmim.py::_fwd_kernel`` and ``_bwd_kernel``
 with their numeric contract: the decode's operands rounded to
 ``compute_dtype`` with fp32 accumulation and the bias added in fp32;
-``dpred = sign(diff) · w · gout`` in fp32 (sign(0) = 0, sign(NaN) = NaN), rounded to
-``compute_dtype`` only as a product operand; d encoded in encoded's dtype;
+``dpred = sign(diff) · w · gout`` in fp32 (sign(0) = 0, sign(NaN) = NaN),
+rounded to ``compute_dtype`` only as a product operand; d encoded in
+encoded's dtype;
 d kernel and d bias in fp32 summed over the batch, d bias from the
 unrounded dpred. The backward kernel reads the loss's cotangent from
 device memory, so a step never waits on the host. The patch and weight
@@ -46,11 +47,11 @@ _KERNEL = "fused_simmim_fwd"
 _BWD = "fused_simmim_bwd"
 _SUPPORTED = (torch.float32, torch.bfloat16)
 
-# the tensor-core forms' occupancy: resident 128-thread blocks per SM
-# (kBlocksPerSm in csrc/fused_simmim_fwd.cu and csrc/fused_simmim_bwd.cu)
-# and the waves of resident blocks each grid may span (fused_embed.chunk_plan)
-FWD_BLOCKS_PER_SM, FWD_WAVES = 3, 1
-BWD_BLOCKS_PER_SM, BWD_WAVES = 3, 1
+# the tensor-core forms' occupancy, forward and backward: resident
+# 128-thread blocks per SM (kDecodeBlocksPerSm in csrc/decode_tiles.cuh) and
+# the waves of resident blocks a grid may span (fused_embed.chunk_plan); a
+# second wave's tail cost more than fewer b's a block saved (PERF.md §6)
+TC_BLOCKS_PER_SM, TC_WAVES = 3, 1
 
 # kernel launches since the count was last set to 0 (plain-version calls
 # are not counted): forward, backward
@@ -207,17 +208,16 @@ def _grid(b, g, sms):
     return -(-b // per), per
 
 
-def _plan(b, g, n, p, d, compute_dtype, bwd, sms):
+def _plan(b, g, n, p, d, compute_dtype, sms):
     """(chunks, per, blocks): the grid of the form the call takes on a card
-    of ``sms`` SMs; chunk c takes the b's [c per, min(b, (c + 1) per)). The
-    tensor-core forms split the batch by :func:`fused_embed.chunk_plan`
-    (g x groups of 64 tokens x chunks blocks), the FMA forms by
-    :func:`_grid` (g x chunks)."""
+    of ``sms`` SMs, the same for the forward and the backward; chunk c
+    takes the b's [c per, min(b, (c + 1) per)). The tensor-core forms split
+    the batch by :func:`fused_embed.chunk_plan` (g x groups of 64 tokens x
+    chunks blocks), the FMA forms by :func:`_grid` (g x chunks)."""
     if not _tc_form(compute_dtype, p, d):
         chunks, per = _grid(b, g, sms)
         return chunks, per, g * chunks
-    per, chunks = fused_embed.chunk_plan(
-        b, g, n, sms, *((BWD_BLOCKS_PER_SM, BWD_WAVES) if bwd else (FWD_BLOCKS_PER_SM, FWD_WAVES)))
+    per, chunks = fused_embed.chunk_plan(b, g, n, sms, TC_BLOCKS_PER_SM, TC_WAVES)
     return chunks, per, g * fused_embed.tile_groups(n) * chunks
 
 
@@ -226,10 +226,9 @@ def _launch(encoded, patches_pn, kernel, bias, weights, compute_dtype):
     from maskedsst_tpu_torch.ops import _build
 
     b, g, n, d, p = _check(_KERNEL, encoded, patches_pn, kernel, bias, weights, compute_dtype)
-    chunks, per, blocks = _plan(b, g, n, p, d, compute_dtype, False,
-                                 fused_embed.sm_count(encoded.device))
-    # kept referenced until the launch has been enqueued
+    chunks, per, blocks = _plan(b, g, n, p, d, compute_dtype, fused_embed.sm_count(encoded.device))
     encoded = fused_embed.aligned(encoded)
+    # kept referenced until the launch has been enqueued
     args = (_f32(patches_pn), kernel.to(compute_dtype).contiguous(), _f32(bias), _f32(weights))
     ws = torch.empty(blocks, dtype=torch.float32, device=encoded.device)
     out = torch.empty((), dtype=torch.float32, device=encoded.device)
@@ -256,8 +255,7 @@ def _launch_bwd(encoded, patches_pn, kernel, bias, weights, gout, compute_dtype)
     b, g, n, d, p = _check(_BWD, encoded, patches_pn, kernel, bias, weights, compute_dtype)
     if gout.numel() != 1 or gout.device != encoded.device:
         raise ValueError(f"{_BWD}: gout must be one value on {encoded.device}")
-    chunks, per, blocks = _plan(b, g, n, p, d, compute_dtype, True,
-                                 fused_embed.sm_count(encoded.device))
+    chunks, per, blocks = _plan(b, g, n, p, d, compute_dtype, fused_embed.sm_count(encoded.device))
     encoded = fused_embed.aligned(encoded)
     args = (_f32(gout.reshape(())), _f32(patches_pn), kernel.to(compute_dtype).contiguous(),
             _f32(bias), _f32(weights))

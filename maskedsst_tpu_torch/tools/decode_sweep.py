@@ -101,9 +101,9 @@ def sweep(label, b, g, n, d, p, device) -> list:
     rows = []
     default = fused_simmim._plan
     sms = fused_embed.sm_count(device)
-    for bwd, names, fn in ((False, FWD_NAMES, lambda: fused_simmim._launch(*args, bf)),
-                           (True, BWD_NAMES, lambda: fused_simmim._launch_bwd(*args, gout, bf))):
-        chunks, per, _ = default(b, g, n, p, d, bf, bwd, sms)
+    for names, fn in ((FWD_NAMES, lambda: fused_simmim._launch(*args, bf)),
+                      (BWD_NAMES, lambda: fused_simmim._launch_bwd(*args, gout, bf))):
+        chunks, per, _ = default(b, g, n, p, d, bf, sms)
         split = [device_ms(fn, names=(name,)) for name in names]
         rows.append(dict(shape=label, kernel=names[0], per=per, split_ms=split))
         print(f"     {label} {names[0]}: chunk_plan gives {per} b's a block, {chunks} chunks; "
@@ -153,7 +153,7 @@ def alternate(libs: dict, label, b, g, n, d, p, device) -> list:
     gout = torch.tensor(1.9e-9, device=device)
     own_bind, own_plan = fused_simmim._bind, fused_simmim._plan
 
-    def parent_plan(b, g, n, p, d, compute_dtype, bwd, sms):
+    def parent_plan(b, g, n, p, d, compute_dtype, sms):
         chunks, per = fused_simmim._grid(b, g, sms)
         return chunks, per, g * chunks
 

@@ -502,15 +502,14 @@ def kernel_table(device, geometry: str = "enmap") -> List[dict]:
     cost = decode_cost(b, g, n, D, p, 2)
     row("fused_simmim_fwd", "simmim", [b, g, n, D, p], lambda: fused_simmim._launch(*dargs, bf),
         ("fused_simmim_fwd", "sum_partials"), cost["fwd"])
-    cdargs = [enc, kern.to(bf).requires_grad_(), bias.to(bf).requires_grad_()]
+    cenc, ckern, cbias = cdargs = [t.to(bf).clone().requires_grad_() for t in (enc, kern, bias)]
     with torch.no_grad():
-        composition_row(lambda: composition_decode(cdargs[0], patches, *cdargs[1:], weights),
+        composition_row(lambda: composition_decode(cenc, patches, ckern, cbias, weights),
                         "einsum, + bias - patches, abs, * weights, sum")
     row("fused_simmim_bwd", "simmim", [b, g, n, D, p],
         lambda: fused_simmim._launch_bwd(*dargs, gout, bf), ("fused_simmim_bwd", "reduce_partials"),
         cost["bwd"])
-    cdargs[0] = enc.detach().clone().requires_grad_()
-    loss = composition_decode(cdargs[0], patches, *cdargs[1:], weights)
+    loss = composition_decode(cenc, patches, ckern, cbias, weights)
     composition_row(lambda: torch.autograd.grad(loss, cdargs, gout.to(bf), retain_graph=True),
                     "the composition's autograd")
     out = torch.empty(attention_site(g, device), device=device)

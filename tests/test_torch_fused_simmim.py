@@ -165,18 +165,19 @@ def test_tc_form_routes_bf16_at_its_widths(p, d, tc, compute_dtype):
     assert fused_simmim._tc_form(compute_dtype, p, d) is want
 
 
-@pytest.mark.parametrize("bwd", [False, True])
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,g,n", [(1, 20, 64), (2, 5, 9), (61, 20, 64), (64, 20, 64),
-                                   (64, 5, 64), (255, 20, 64), (300, 2, 70)])
-def test_plan_covers_every_b_once_in_order(b, g, n, compute_dtype, bwd):
+                                   (64, 5, 64), (255, 20, 64), (300, 2, 70), (4, 3, 9),
+                                   (128, 20, 64), (64, 3, 64), (1000, 20, 64),
+                                   (255, 3, 64), (200, 5, 130)])
+def test_plan_covers_every_b_once_in_order(b, g, n, compute_dtype):
     """The grid of either form on an H100 (132 SMs): chunk c takes the b's
     [c per, min(b, (c + 1) per)), every b in exactly one nonempty chunk, in
     order; the tensor-core forms' grid (g x 64-token groups x chunks)
     spans at most its waves of resident blocks, with one b a block where
     that fits."""
     sms, p, d = 132, 10, 96
-    chunks, per, blocks = fused_simmim._plan(b, g, n, p, d, compute_dtype, bwd, sms)
+    chunks, per, blocks = fused_simmim._plan(b, g, n, p, d, compute_dtype, sms)
     ranges = [range(c * per, min(b, (c + 1) * per)) for c in range(chunks)]
     assert all(len(r) > 0 for r in ranges)
     assert [i for r in ranges for i in r] == list(range(b))
@@ -185,8 +186,6 @@ def test_plan_covers_every_b_once_in_order(b, g, n, compute_dtype, bwd):
         return
     groups = -(-n // 64)
     assert blocks == g * groups * chunks
-    bps, waves = ((fused_simmim.BWD_BLOCKS_PER_SM, fused_simmim.BWD_WAVES) if bwd
-                  else (fused_simmim.FWD_BLOCKS_PER_SM, fused_simmim.FWD_WAVES))
-    slots = waves * sms * bps
+    slots = fused_simmim.TC_WAVES * sms * fused_simmim.TC_BLOCKS_PER_SM
     assert blocks <= max(g * groups, slots)
     assert per == 1 or g * groups * b > slots
