@@ -87,7 +87,23 @@ Phases:
      nearer the plain bf16 step than other dropout masks are, both routes'
      distances from fp32 printed;
      serving_bench at batch 256 and a 1-cube request; bf16_soak at 32 steps
-     per leg (both finite, step-1 losses within 1e-2).
+     per leg (both finite, step-1 losses within 1e-2);
+  6. checkpoint path (train/checkpoint.py, io/torch_import.py): (a) phase
+     4's 640 tiles and recipe (bf16, batch 64, the store path, 9 steps an
+     epoch): a control run of 2 epochs + 3 steps, and a run stopped by a
+     max_steps break mid-epoch 1, whose model_*_at_step12.pt a new
+     Pretrainer resumes to the control's budget: every parameter, AdamW
+     moment and step, state.step, the generator and the scheduler equal
+     bit for bit, each resumed step launching phase 4's counts, every
+     kernel #1-#6 launched; the checkpoint's size, save and restore
+     seconds; (b) load_pretrained_params of that file into the EnMAP-DFC
+     classifier (bf16, embedding dropout 0): every carried encoder tensor
+     equal to the checkpoint's, the rest equal to a seeded model's; 10
+     finetune steps at batch 64 with phase 3's launches each, finite and
+     falling losses, steps/s; a mid-epoch finetune resume equal bit for
+     bit to its control; (c) the finetuned model through .pt, the export
+     tool's .pth and the importer: Predictor(batch_size=256) logits equal
+     bit for bit.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -99,6 +115,7 @@ device.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -870,6 +887,16 @@ def phase_train(card: str):
     return main_counts, per_step_seen
 
 
+@functools.lru_cache(maxsize=1)
+def pretrain_tiles(n_bands: int):
+    """The 640 unlabeled synthetic tiles of phases 4 and 6 (made once: each
+    sample is cached by the dataset)."""
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+
+    return SyntheticCubeDataset(num_tiles=10 * TRAIN_BATCH, n_bands=n_bands, labeled=False,
+                                seed=SEED)
+
+
 def pretrain_step_grads(trainer, img, bool_mask, seed):
     """Loss and parameter gradients of one forward/backward of the
     pretrainer's model (no clamp, no update) on a given crop and mask, its
@@ -894,13 +921,11 @@ def phase_pretrain(card: str):
     from maskedsst_tpu_torch.config import get_pretrain_config
     from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
     from maskedsst_tpu_torch.data.pipeline import split_dataset
-    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
     from maskedsst_tpu_torch.train.pretrainer import Pretrainer, largest_divisor
 
     base = get_pretrain_config("configs/pretrain_config.yaml", "configs/config.yaml", seed=SEED)
     t0 = time.perf_counter()
-    data = SyntheticCubeDataset(num_tiles=10 * TRAIN_BATCH, n_bands=base.n_bands,
-                                labeled=False, seed=SEED)
+    data = pretrain_tiles(base.n_bands)
     val_ds, train_ds = split_dataset(data, base.train_fraction, base.data_fraction, SEED)
     train_store = DeviceTileStore(train_ds, "cuda")
     val_store = DeviceTileStore(val_ds, "cuda")
@@ -1053,6 +1078,247 @@ def phase_pretrain(card: str):
         del trainer
         torch.cuda.empty_cache()
     return main_counts, seen[0]
+
+
+def states_equal(a, b) -> list:
+    """The names of what differs, bit for bit, between two TrainStates:
+    step, generator, each parameter, each optimizer moment and step, and
+    the optimizer's hyperparameters."""
+    import torch
+
+    diff = [] if a.step == b.step else ["step"]
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        diff.append("rng")
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    diff += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if oa["param_groups"] != ob["param_groups"]:
+        diff.append("optimizer param_groups")
+    for i, st in oa["state"].items():
+        diff += [f"optimizer state {i} {k}" for k, v in st.items()
+                 if not torch.equal(v, ob["state"][i][k])]
+    return diff
+
+
+def counting_steps(trainer, name: str, seen: list):
+    """Wraps the trainer's step method ``name`` so that each call records
+    its launches (a synchronize after each step; the numbers are unchanged)."""
+    import torch
+
+    step = getattr(trainer, name)
+
+    def counted(*args, **kwargs):
+        before = launch_counts()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        seen.append({n: after[n] - before[n] for n in after})
+        return out
+
+    setattr(trainer, name, counted)
+
+
+def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict):
+    """The checkpoint path: pretraining interrupted by a max_steps break and
+    resumed in a new trainer, bit for bit against an uninterrupted run; the
+    encoder carried into the EnMAP-DFC classifier; finetune steps and a
+    finetune resume; the reference .pth round trip through Predictor."""
+    import tempfile
+
+    import torch
+
+    from maskedsst_tpu_torch.config import get_finetune_config, get_pretrain_config
+    from maskedsst_tpu_torch.data.pipeline import DataLoader, split_dataset
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+    from maskedsst_tpu_torch.io.torch_import import (
+        import_vit_spatial_spectral,
+        load_torch_checkpoint,
+    )
+    from maskedsst_tpu_torch.serve import Predictor
+    from maskedsst_tpu_torch.tools.export_torch_checkpoint import export_checkpoint
+    from maskedsst_tpu_torch.train.checkpoint import restore_params, save_checkpoint
+    from maskedsst_tpu_torch.train.factory import build_finetune_model, load_pretrained_params
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+
+    quiet = lambda row: None  # noqa: E731
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out: dict = {}
+    try:
+        # --- (a) pretraining: control vs interrupted + resumed (bf16, batch
+        # 64, the store path; 576 train tiles: 9 steps an epoch) ------------
+        cfg = get_pretrain_config("configs/pretrain_config.yaml", "configs/config.yaml",
+                                  seed=SEED)
+        data = pretrain_tiles(cfg.n_bands)
+        spe = int(len(data) * cfg.train_fraction) // TRAIN_BATCH
+        budget, stop = 2 * spe + 3, spe + 3
+
+        def pretrainer():
+            return Pretrainer(cfg.copy(), dtype=torch.bfloat16, device="cuda")
+
+        control = pretrainer()
+        hist_c = control.fit(data, epochs=3, max_steps=budget, log=quiet, save_checkpoints=False)
+        interrupted = pretrainer()
+        interrupted.fit(data, epochs=3, max_steps=stop, log=quiet, models_dir=tmp, run_id="pre")
+        path = os.path.join(tmp, "pre", f"model_{cfg.encoder_name}_at_step{stop}.pt")
+        check(os.path.exists(path) and os.path.exists(
+                  os.path.join(tmp, "pre", f"model_{cfg.encoder_name}_ep0.pt")),
+              f"checkpoint: the max_steps break at step {stop} wrote {os.path.basename(path)} "
+              f"(and model_{cfg.encoder_name}_ep0.pt at the end of epoch 0)")
+        saves = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(os.path.join(tmp, "timed.pt"), interrupted.state, interrupted.config,
+                            extra=interrupted._scheduler_extra())
+            saves.append(time.perf_counter() - t0)
+        del interrupted
+
+        resumed = pretrainer()
+        restores = []
+        for _ in range(3):  # restoring the same file again leaves the same state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            at = resumed.resume(path)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t0)
+        save_s, restore_s = statistics.median(saves), statistics.median(restores)
+        on_card = all(p.is_cuda for p in resumed.model.parameters()) and all(
+            v.is_cuda for st in resumed.state.optimizer.state.values() for k, v in st.items()
+            if k != "step")
+        mib = os.path.getsize(path) / 2**20
+        print(f"     checkpoint {os.path.basename(path)}: {mib:.2f} MiB "
+              f"({resumed.num_params:,} parameters, two AdamW moments, step, generator), saved "
+              f"in {save_s:.3f} s, restored onto the card in {restore_s:.3f} s (medians of 3, "
+              f"host clock, synchronized; the page cache holds the file) on {card}", flush=True)
+        out["pretrain_ckpt_mib"], out["save_s"], out["restore_s"] = mib, save_s, restore_s
+        check(at == stop and on_card,
+              f"checkpoint: resume at step {at} == {stop}, parameters and moments on the card")
+
+        seen: list = []
+        counting_steps(resumed, "train_step_idx", seen)
+        reset_counts()
+        hist_r = resumed.fit(data, epochs=3, max_steps=budget, log=quiet, save_checkpoints=False)
+        torch.cuda.synchronize()
+        out["pretrain_resume"] = launch_counts()
+        steps = budget - stop
+        check(len(seen) == steps and all(c == pretrain_per_step for c in seen),
+              f"checkpoint: each of the resumed run's {len(seen)} steps launched phase 4's "
+              f"{pretrain_per_step}")
+        for name, n in out["pretrain_resume"].items():
+            check(n > 0, f"checkpoint path (pretraining resume): {name} launched {n} times")
+        diff = states_equal(control.state, resumed.state)
+        same_sched = control.scheduler.state_dict() == resumed.scheduler.state_dict()
+        check(not diff and same_sched and hist_r["val_loss"] == hist_c["val_loss"][1:],
+              f"checkpoint: pretraining resumed at step {stop} == uninterrupted to {budget}, "
+              f"bit for bit: {sum(1 for _ in control.model.parameters())} parameters, their "
+              f"AdamW moments and steps, state.step, the generator, the scheduler "
+              f"(differ: {diff[:6] or 'none'}; scheduler equal {same_sched}; validation "
+              f"losses {hist_r['val_loss']} vs {hist_c['val_loss'][1:]})")
+        del control, resumed
+        torch.cuda.empty_cache()
+
+        # --- (b) finetuning from that checkpoint (EnMAP-DFC classifier, bf16,
+        # embedding dropout 0: all of kernels #1-#4 run) --------------------
+        ft = get_finetune_config("configs/finetune_config_enmap.yaml", "configs/config.yaml",
+                                 seed=SEED)
+        ft.transformer_emb_dropout = 0.0
+        ft.batch_size = TRAIN_BATCH
+
+        def finetuner(pretrained: bool):
+            model, kw = build_finetune_model(ft, dtype=torch.bfloat16, device="cuda")
+            fresh = {k: v.clone() for k, v in model.state_dict().items()}
+            if pretrained:
+                model.load_state_dict(load_pretrained_params(path, ft, model, seed=ft.seed))
+            return Finetuner(ft.copy(), model, **kw), fresh
+
+        trainer, fresh = finetuner(True)
+        ckpt = restore_params(path, "cuda")
+        got = trainer.model.state_dict()
+        carried = [k for k in got if f"encoder.{k}" in ckpt and not k.startswith("head_linear.")]
+        skipped = sorted(k[len("encoder."):] for k in ckpt
+                         if k.startswith("encoder.") and k[len("encoder."):] not in got)
+        kept_fresh = sorted(k for k in got if k not in carried)
+        check(len(carried) > 0 and all(torch.equal(got[k], ckpt[f"encoder.{k}"]) for k in carried)
+              and all(torch.equal(got[k], fresh[k]) for k in kept_fresh),
+              f"checkpoint: {len(carried)} encoder tensors carried into the classifier bit for "
+              f"bit; fresh and equal to a seeded model: {kept_fresh}; skipped (the recipes' "
+              f"positions differ): {skipped}")
+        data_ft = SyntheticCubeDataset(num_tiles=160, n_bands=ft.n_bands, n_classes=ft.n_classes,
+                                       seed=SEED)
+        tiles = next(iter(DataLoader(data_ft, TRAIN_BATCH, shuffle=False)))
+        seen = []
+        counting_steps(trainer, "train_step", seen)
+        reset_counts()
+        walls, losses = [], []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(tiles["img"], tiles["label"])["loss"]))
+            walls.append(time.perf_counter() - t0)
+        out["finetune"] = launch_counts()
+        check(all(c == finetune_per_step for c in seen),
+              f"checkpoint: each of 10 finetune steps from the checkpoint launched "
+              f"{finetune_per_step}")
+        for name in ("fused_layer_fwd", "fused_layer_bwd", "layer_wgrad", "fused_embed_fwd",
+                     "fused_embed_bwd"):
+            check(out["finetune"][name] > 0,
+                  f"checkpoint path (finetuning): {name} launched {out['finetune'][name]} times")
+        first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+        check(all(math.isfinite(v) for v in losses) and last < first,
+              f"checkpoint: finetune losses finite, mean of steps 1-3 {first:.4f} > 8-10 "
+              f"{last:.4f} ({' '.join(f'{v:.4f}' for v in losses)})")
+        out["finetune_steps_per_s"] = 1 / statistics.median(walls[2:])
+        print(f"     finetuning from the checkpoint: {out['finetune_steps_per_s']:.3f} steps/s "
+              f"(batch {TRAIN_BATCH}, bf16, median of steps 3-10, host clock incl. the copy "
+              f"to the card and a synchronize) on {card}", flush=True)
+
+        # mid-epoch finetune resume against a control (128 train tiles: 2
+        # steps an epoch; the interrupted run stops in epoch 1)
+        val_ds, train_ds = split_dataset(data_ft, ft.train_fraction, ft.data_fraction, SEED)
+        fspe = -(-len(train_ds) // TRAIN_BATCH)
+        fbudget, fstop = 2 * fspe + 1, fspe + 1
+        control, _ = finetuner(True)
+        control.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, log=quiet,
+                    save_checkpoints=False)
+        interrupted, _ = finetuner(True)
+        hist_i = interrupted.fit(train_ds, val_ds, epochs=3, max_steps=fstop, log=quiet,
+                                 models_dir=tmp, run_id="ft")
+        fpath = os.path.join(tmp, "ft", f"{ft.method_name}_at_step{fstop}.pt")
+        resumed, _ = finetuner(False)
+        at = resumed.resume(fpath)
+        best = resumed._resume_extra.get("best_val_acc")
+        resumed.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, log=quiet,
+                    save_checkpoints=False)
+        diff = states_equal(control.state, resumed.state)
+        same_sched = control.scheduler.state_dict() == resumed.scheduler.state_dict()
+        check(at == fstop and best == hist_i["best_val_acc"] and not diff and same_sched,
+              f"checkpoint: finetuning resumed from {os.path.basename(fpath)} (best_val_acc "
+              f"{best}) == uninterrupted to step {fbudget}, bit for bit (differ: "
+              f"{diff[:6] or 'none'}; scheduler equal {same_sched})")
+        del control, interrupted, resumed
+        torch.cuda.empty_cache()
+
+        # --- (c) the reference format: the finetuned model through a .pth --
+        pt = os.path.join(tmp, "finetuned.pt")
+        save_checkpoint(pt, trainer.state, trainer.config)
+        pth = os.path.join(tmp, "finetuned.pth")
+        n = export_checkpoint(pt, pth)
+        back, _ = build_finetune_model(ft, dtype=torch.bfloat16, device="cuda")
+        back.load_state_dict(import_vit_spatial_spectral(
+            load_torch_checkpoint(pth)["model_state_dict"], back))
+        x = np.random.default_rng(SEED).standard_normal((300, ft.n_bands, 8, 8)).astype(np.float32)
+        a = Predictor(trainer.model, batch_size=BATCH)(x)
+        b = Predictor(back, batch_size=BATCH)(x)
+        check(a.shape == b.shape and np.array_equal(a, b),
+              f"checkpoint: finetuned model -> .pt -> export tool -> .pth ({n} reference-keyed "
+              f"tensors) -> import: Predictor(batch_size={BATCH}) logits of 300 cubes equal bit "
+              f"for bit ({a.shape})")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
 
 
 @contextlib.contextmanager
@@ -1340,6 +1606,9 @@ def main() -> int:
      per_step["houston_pretrain"]) = timed(
         "phase 5 tools: kernel_check (kernel #7), Houston2018 pretraining, serving_bench, "
         "bf16_soak", phase_tools, card)
+    ckpt = timed("phase 6 checkpoint path: pretraining resume, finetuning from the checkpoint, "
+                 "the .pth round trip", phase_checkpoint, card, per_step["pretrain"],
+                 per_step["emb_dropout_0"])
 
     batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
 
@@ -1379,6 +1648,8 @@ def main() -> int:
         entry["launches_pretrain"] = pre_counts[entry["name"]]
     for entry in kernels:
         entry["launches_houston_pretrain"] = houston_counts[entry["name"]]
+        entry["launches_checkpoint_resume"] = ckpt["pretrain_resume"][entry["name"]]
+        entry["launches_checkpoint_finetune"] = ckpt["finetune"][entry["name"]]
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",

@@ -6,8 +6,9 @@ same ``randperm`` stream), so train/val membership matches the JAX
 package's. ``DataLoader`` is synchronous: shuffle seeded per epoch, collate,
 and the trailing batch either dropped (``drop_last``) or padded to a
 multiple of ``pad_to_multiple`` with zero images and ``pad_label_value``
-labels (which the losses and metrics ignore). No prefetch thread yet
-(ROADMAP.md).
+labels (which the losses and metrics ignore); ``skip_next`` drops the
+first batches of the next epoch, where a resumed run starts mid-epoch. No
+prefetch thread yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ class DataLoader:
         self.pad_label_value = pad_label_value
         self.drop_last = drop_last
         self.epoch = 0
+        self.skip_next = 0  # batches to drop from the next epoch (a mid-epoch resume)
 
     def __len__(self) -> int:
         if self.drop_last:
@@ -90,6 +92,9 @@ class DataLoader:
     def __iter__(self) -> Iterator[dict]:
         batches = self._batch_indices()
         self.epoch += 1
+        if self.skip_next:
+            # dropped by index: the already-trained batches' samples are never read
+            batches, self.skip_next = batches[self.skip_next :], 0
         for idx in batches:
             yield self._make(idx)
 

@@ -3,15 +3,19 @@
 
     python -m maskedsst_tpu_torch.finetune {enmap|houston2018} --synthetic
         [--synthetic-tiles N] [--epochs N] [--steps N] [--fp32] [--cpu]
-        [--checkpoint none]
+        [--checkpoint PATH|none] [--resume CKPT] [--models-dir models]
 
 The model comes from ``method_name`` in the finetune config (only
-ViTSpatialSpectral is ported) with weights made from the seed. bf16 compute
-(fp32 parameters) is the default, as in the JAX ``finetune.py``; ``--fp32`` computes
-in fp32. It runs on the card unless ``--cpu`` is given. Only synthetic
-cubes are ported, and pretrained-weight loading is not (``--checkpoint``
-takes only ``none``). Prints ``FINAL train_loss=... best_val_acc=...`` at
-the end.
+ViTSpatialSpectral is ported) with weights made from the seed. Its encoder
+comes from ``--checkpoint`` (default: the config's ``checkpoint_path``): a
+reference ``.pth`` or this package's pretraining ``.pt``, with a fresh
+classification head; a path that does not exist trains from scratch, and
+``none`` loads nothing. ``--resume`` instead continues a full-state ``.pt``
+this driver wrote (parameters, optimizer, step, scheduler, best accuracy).
+bf16 compute (fp32 parameters) is the default, as in the JAX
+``finetune.py``; ``--fp32`` computes in fp32. It runs on the card unless
+``--cpu`` is given. Only synthetic cubes are ported. Prints ``FINAL
+train_loss=... best_val_acc=...`` at the end.
 """
 
 from __future__ import annotations
@@ -34,14 +38,20 @@ def main(argv=None) -> dict:
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--checkpoint", default=None,
-                        help="only 'none': loading pretrained weights is not ported yet")
+                        help="pretrained encoder (.pth or a pretraining .pt); 'none' loads "
+                             "nothing; default: the config's checkpoint_path")
+    parser.add_argument("--resume", default=None, metavar="CKPT",
+                        help="continue a full-state .pt checkpoint this driver wrote; "
+                             "excludes --checkpoint")
+    parser.add_argument("--models-dir", default="models", help="where checkpoints go")
     parser.add_argument("--fp32", action="store_true",
                         help="fp32 compute (default: bf16 compute, fp32 parameters)")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
     args = parser.parse_args(argv)
-    if args.checkpoint not in (None, "none"):
-        parser.error("loading a pretrained checkpoint is not ported yet (ROADMAP.md); "
-                     "use --checkpoint none")
+    if args.resume and args.checkpoint not in (None, "none"):
+        parser.error("--resume and --checkpoint are mutually exclusive: --resume restores the "
+                     "full finetune state (parameters included); pretrained encoder weights "
+                     "loaded on top would overwrite it")
     if not args.synthetic:
         parser.error("only synthetic cubes are ported yet (ROADMAP.md); pass --synthetic")
 
@@ -50,7 +60,7 @@ def main(argv=None) -> dict:
     from maskedsst_tpu_torch.config import get_finetune_config
     from maskedsst_tpu_torch.data.pipeline import split_dataset
     from maskedsst_tpu_torch.data.resolve import get_dataset
-    from maskedsst_tpu_torch.train.factory import build_finetune_model
+    from maskedsst_tpu_torch.train.factory import build_finetune_model, load_pretrained_params
     from maskedsst_tpu_torch.train.finetuner import Finetuner
 
     device = "cpu" if args.cpu else "cuda"
@@ -62,10 +72,21 @@ def main(argv=None) -> dict:
         f"configs/finetune_config_{args.dataset}.yaml", args.config, SEED
     )
     config.synthetic_tiles = args.synthetic_tiles
-    config.checkpoint_path = None
+    if args.checkpoint is not None:
+        config.checkpoint_path = None if args.checkpoint == "none" else args.checkpoint
     model, trainer_kwargs = build_finetune_model(
         config, dtype=None if args.fp32 else torch.bfloat16, device=device
     )
+    # a resume restores the parameters itself: the config's checkpoint_path
+    # is superseded
+    ckpt_path = None if args.resume else config.get("checkpoint_path")
+    if ckpt_path:
+        params = load_pretrained_params(ckpt_path, config, model, seed=SEED)
+        if params is None:
+            print(f"[finetune] checkpoint {ckpt_path!r} not found — training from scratch")
+        else:
+            model.load_state_dict(params)
+            print(f"[finetune] pretrained encoder loaded from {ckpt_path}")
     dataset = get_dataset(config, supervised=True, synthetic=True)
     val_ds, train_ds = split_dataset(dataset, config.train_fraction, config.data_fraction, SEED)
     print(f"device: {torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}")
@@ -74,7 +95,11 @@ def main(argv=None) -> dict:
     trainer = Finetuner(config, model, tile_size=dataset.tile_size, **trainer_kwargs)
     print(f"Model name: {config.method_name}")
     print(f"Model parameters: {trainer.num_params:,}")
-    history = trainer.fit(train_ds, val_ds, epochs=args.epochs, max_steps=args.steps)
+    if args.resume:
+        step = trainer.resume(args.resume)
+        print(f"resumed from {args.resume} at step {step}")
+    history = trainer.fit(train_ds, val_ds, epochs=args.epochs, max_steps=args.steps,
+                          models_dir=args.models_dir)
     print(f"best val acc: {history['best_val_acc']:.4f}")
     if history["throughput"]:
         print("throughput:", {k: round(v, 2) for k, v in history["throughput"].items()})

@@ -4,13 +4,16 @@
     python -m maskedsst_tpu_torch.pretrain --synthetic
         [--pretrain-config configs/pretrain_config.yaml] [--config configs/config.yaml]
         [--synthetic-tiles N] [--epochs N] [--steps N] [--batch-size N] [--fp32] [--cpu]
+        [--models-dir models] [--resume CKPT]
 
 The model comes from the merged pretrain config with weights made from the
 seed. bf16 compute (fp32 parameters) is the default, as in the JAX
 ``pretrain.py``; ``--fp32`` computes in fp32. It runs on the card unless
-``--cpu`` is given. Only synthetic cubes are ported, and no checkpoint is
-written. Prints ``FINAL train_loss=...`` at the end when an epoch
-completed.
+``--cpu`` is given. Only synthetic cubes are ported. Full-state
+checkpoints go to ``models_dir/run_id/`` (``model_{encoder}_ep{N}.pt`` by
+``model_save_freq``, ``model_{encoder}_at_step{S}.pt`` at a ``--steps``
+break, each with a ``.json`` sidecar); ``--resume`` continues one exactly.
+Prints ``FINAL train_loss=...`` at the end when an epoch completed.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--fp32", action="store_true",
                         help="fp32 compute (default: bf16 compute, fp32 parameters)")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
+    parser.add_argument("--models-dir", default="models", help="where checkpoints go")
+    parser.add_argument("--resume", default=None, metavar="CKPT",
+                        help="continue from a full-state .pt checkpoint this driver wrote")
     args = parser.parse_args(argv)
     if not args.synthetic:
         parser.error("only synthetic cubes are ported yet (ROADMAP.md); pass --synthetic")
@@ -61,8 +67,11 @@ def main(argv=None) -> dict:
                          tile_size=dataset.tile_size, device=device)
     print(f"device: {torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}")
     print(f"model parameters: {trainer.num_params:,}")
-    print("checkpoints: none are written (saving is not ported yet, ROADMAP.md)")
-    history = trainer.fit(dataset, epochs=args.epochs, max_steps=args.steps)
+    if args.resume:
+        step = trainer.resume(args.resume)
+        print(f"resumed from {args.resume} at step {step}")
+    history = trainer.fit(dataset, epochs=args.epochs, max_steps=args.steps,
+                          models_dir=args.models_dir)
     if history["throughput"]:
         print("throughput:", {k: round(v, 2) for k, v in history["throughput"].items()})
     if history["train_loss"]:

@@ -1,10 +1,13 @@
 """Finetune model factory: builds the model named by ``config.method_name``
-with weights made from ``config.seed``, plus the trainer flags it needs.
+with weights made from ``config.seed``, plus the trainer flags it needs,
+and loads pretrained encoder weights into it (``load_pretrained_params``).
 Only ``ViTSpatialSpectral`` is ported; ``li`` and ``ViTRGB`` raise.
 """
 
 from __future__ import annotations
 
+import copy
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -50,3 +53,53 @@ def build_finetune_model(
             f"method {name} is not ported yet (ROADMAP.md, Queue 1, Slice E)"
         )
     raise NotImplementedError(f"method {name} not available")
+
+
+def load_pretrained_params(path: str, config: Config, model: ViTSpatialSpectral,
+                           seed: int = 5) -> Optional[Dict[str, torch.Tensor]]:
+    """A ``state_dict`` for ``model`` (the finetune model of ``config``):
+    the pretrained encoder of the checkpoint at ``path`` over weights made
+    fresh from ``seed``, with the reference's head surgery (a fresh
+    classification head; ``pos_embed`` truncated under ``patch_sub``).
+    None when ``path`` does not exist.
+
+    ``.pth``: the reference format, through ``io/torch_import.py``.
+    ``.pt``: this package's pretraining checkpoint; the ``encoder.*``
+    entries of its model, ``head_linear`` skipped, keys the model lacks
+    printed and skipped. Tensors come back on the CPU."""
+    if not os.path.exists(path):
+        return None
+    fresh = {k: v.detach().cpu().clone()
+             for k, v in copy.deepcopy(model).init_weights(seed).state_dict().items()}
+    patch_sub = config.get("patch_sub", 0)
+
+    if path.endswith(".pth"):
+        from maskedsst_tpu_torch.io.torch_import import (
+            load_pretrained_encoder,
+            load_torch_checkpoint,
+        )
+
+        return load_pretrained_encoder(load_torch_checkpoint(path), model, fresh, patch_sub)
+
+    from maskedsst_tpu_torch.train.checkpoint import restore_params
+
+    params = restore_params(path)
+    enc = {k[len("encoder."):]: v for k, v in params.items() if k.startswith("encoder.")} or params
+    merged = dict(fresh)
+    for key, val in enc.items():
+        if key.startswith("head_linear."):
+            continue  # a fresh classification head (the reference's head surgery)
+        if key not in fresh:
+            print(f"[finetune] skipping checkpoint key {key!r} absent from model")
+            continue
+        if key == "pos_embed" and patch_sub:
+            want = (config.image_size - patch_sub) ** 2
+            # the reference asserts before it truncates: a checkpoint
+            # pretrained at a smaller image_size would make the slice a no-op
+            assert val.shape[1] >= want, (
+                f"checkpoint pos_embed has {val.shape[1]} positions < the {want} this finetune "
+                f"geometry needs (image_size {config.image_size} - patch_sub {patch_sub}); the "
+                "checkpoint was pretrained at a smaller image_size")
+            val = val[:, :want, :]
+        merged[key] = val
+    return merged

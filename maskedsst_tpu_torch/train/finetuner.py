@@ -13,13 +13,19 @@ averages over all windows, from per-chunk sums.
 JAX loop's budgets: strict epoch/step overrides, validation on
 ``get_val_epochs``, the plateau scheduler stepped at the end of every
 completed epoch with the last mean validation loss, and a raise when the
-logged loss is NaN. Not ported yet (ROADMAP.md): the device-resident tile
-store with index batches, the superstep, resume and checkpoints, the
-tracker and multi-host.
+logged loss is NaN. It writes full-state checkpoints
+(``train/checkpoint.py``) at ``checkpoint_save_epochs`` and the epoch
+budget once a validation has run, ``best_{method}`` on a new best, and one
+at every budget end that saved nothing else; ``resume`` restores one with
+the loop state of its sidecar (scheduler, ``best_val_acc``, the last
+validation loss), and ``fit`` continues it bit for bit. Not ported yet
+(ROADMAP.md): the device-resident tile store with index batches, the
+superstep, the tracker and multi-host.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from typing import Callable, Dict, Optional, Tuple
@@ -29,6 +35,11 @@ import torch
 
 from maskedsst_tpu_torch.config import Config
 from maskedsst_tpu_torch.data.pipeline import DataLoader
+from maskedsst_tpu_torch.train.checkpoint import (
+    load_metadata,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from maskedsst_tpu_torch.train.losses import cross_entropy, cross_entropy_sums
 from maskedsst_tpu_torch.train.metrics import confusion_matrix, macro_accuracy, micro_accuracy
 from maskedsst_tpu_torch.train.optim import (
@@ -86,6 +97,7 @@ class Finetuner:
         self.crop = config.image_size != tile_size and config.dataset in ("dfc", "worldcover")
         self.shifting_window = bool(config.get("shifting_window", False))
         self.eval_chunk = int(config.get("eval_chunk", 256))
+        self._resume_extra: dict = {}
 
     @property
     def window(self) -> int:
@@ -196,10 +208,34 @@ class Finetuner:
             "macro_acc": float((recall * present).sum() / max(present.sum(), 1)),
         }
 
+    # --- checkpoints ----------------------------------------------------------
+    def resume(self, path: str) -> int:
+        """Restore the full finetune state from a checkpoint this trainer
+        wrote: parameters, Adam moments, step and generator, then from the
+        sidecar the plateau scheduler, ``best_val_acc`` and the last mean
+        validation loss, which the next ``fit`` takes up once. Returns the
+        step."""
+        restore_checkpoint(path, self.state)
+        try:
+            extra = load_metadata(path).get("extra", {})
+        except FileNotFoundError:
+            extra = {}
+        if extra.get("scheduler"):
+            self.scheduler.load_state_dict(extra["scheduler"])
+        self._resume_extra = dict(extra)
+        return self.state.step
+
     # --- loop ----------------------------------------------------------------
     def fit(self, train_dataset, val_dataset, epochs: Optional[int] = None,
-            max_steps: Optional[int] = None, log: Callable[[dict], None] = print) -> dict:
+            max_steps: Optional[int] = None, log: Callable[[dict], None] = print,
+            models_dir: str = "models", save_checkpoints: bool = True,
+            run_id: Optional[str] = None) -> dict:
+        """Train from the state's step to the budgets; checkpoints go to
+        ``models_dir/run_id/``."""
         cfg = self.config
+        cfg.run_id = run_id or f"local-{int(time.time())}-{os.getpid()}"
+        cfg.num_params = self.num_params
+        run_dir = os.path.join(models_dir, str(cfg.run_id))
         val_bs = cfg.get("val_batch_size", cfg.batch_size)
         loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True,
                             seed=int(cfg.get("seed", 5)), pad_to_multiple=cfg.batch_size,
@@ -212,9 +248,20 @@ class Finetuner:
         epoch_budget = epochs if epochs is not None else cfg.epoch
         step_budget = max_steps if max_steps is not None else cfg.max_steps
         validation_epochs = set(get_val_epochs(cfg, max(len(loader), 1)))
-        history = {"train": [], "val": [], "best_val_acc": 0.0}
-        last_val_loss = None
-        step, epoch = self.state.step, 0
+        best_val_acc = float(self._resume_extra.get("best_val_acc") or 0.0)
+        # the last mean validation loss keeps stepping the scheduler at every
+        # epoch end, across a resume too
+        last_val_loss = self._resume_extra.get("last_val_loss")
+        self._resume_extra = {}  # taken up once
+        history = {"train": [], "val": [], "best_val_acc": best_val_acc}
+        # a resumed run continues the loader's shuffle at its epoch and skips
+        # the batches of that epoch trained before the save; the truncated
+        # epoch's end hooks fire once, in the run that completes it
+        step = self.state.step
+        steps_per_epoch = max(1, len(loader))
+        start_epoch = epoch = step // steps_per_epoch
+        resume_skip = step - start_epoch * steps_per_epoch
+        loader.epoch, loader.skip_next = start_epoch, resume_skip
         win = {k: deque(maxlen=cfg.logging_freq) for k in ("loss", "acc", "macro_acc")}
         train_seconds, train_steps = 0.0, 0
 
@@ -230,8 +277,19 @@ class Finetuner:
             log({"step": step, "epoch": epoch, **means,
                  "lr": get_learning_rates(self.state.optimizer)[0]})
 
+        def loop_extra() -> dict:
+            """The loop state a resume cannot rederive from the train state."""
+            return {"epoch": epoch, "step": step, "best_val_acc": best_val_acc,
+                    "last_val_loss": last_val_loss, "scheduler": self.scheduler.state_dict()}
+
+        def save(name: str, **extra) -> None:
+            save_checkpoint(os.path.join(run_dir, name), self.state, cfg,
+                            extra={**loop_extra(), **extra})
+
         while not done():
             metrics, consumed = None, 0
+            # the batches a complete pass over this epoch yields
+            expected = len(loader) - (resume_skip if epoch == start_epoch else 0)
             for batch in loader:
                 t0 = time.perf_counter()
                 metrics = self.train_step(batch["img"], batch["label"])
@@ -247,23 +305,40 @@ class Finetuner:
                     log_step()
                 if strict and step >= step_budget:
                     break
-            epoch_complete = consumed >= len(loader)
+            epoch_complete = consumed >= expected
             if metrics is not None:
                 history["train"].append({k: float(v) for k, v in metrics.items()})
+            val_mean, new_best = None, False
             if epoch_complete and (epoch in validation_epochs or epoch == epoch_budget):
-                mean = self.validate(val_loader)
-                if mean is not None:
-                    log({"step": step, "epoch": epoch, "val_loss": mean["loss"],
-                         "val_acc": mean["acc"], "val_macro_acc": mean["macro_acc"]})
-                    history["val"].append(mean)
-                    last_val_loss = mean["loss"]
-                    history["best_val_acc"] = max(history["best_val_acc"], mean["acc"])
+                val_mean = self.validate(val_loader)
+                if val_mean is not None:
+                    log({"step": step, "epoch": epoch, "val_loss": val_mean["loss"],
+                         "val_acc": val_mean["acc"], "val_macro_acc": val_mean["macro_acc"]})
+                    history["val"].append(val_mean)
+                    last_val_loss = val_mean["loss"]
+                    if val_mean["acc"] > best_val_acc:
+                        best_val_acc = history["best_val_acc"] = val_mean["acc"]
+                        new_best = True
             # the plateau scheduler steps at the end of EVERY completed epoch
             # with the (possibly stale) last mean validation loss
             if epoch_complete and last_val_loss is not None:
                 self.scheduler.step(last_val_loss)
+            # saves come after the scheduler step, and only where a validation
+            # ran (the reference saves from inside its validation)
+            saved_this_epoch = False
+            if val_mean is not None and save_checkpoints:
+                if epoch == epoch_budget or epoch in cfg.get("checkpoint_save_epochs", []):
+                    save(f"{cfg.method_name}_at_ep{epoch}.pt")
+                    saved_this_epoch = True
+                if new_best:
+                    save(f"best_{cfg.method_name}.pt", val_acc=best_val_acc)
+                    saved_this_epoch = True
             if epoch_complete:
                 epoch += 1
+            # every budget end leaves a resumable checkpoint where it stopped:
+            # mid-epoch, or at the end of an epoch that saved nothing
+            if save_checkpoints and done() and (not epoch_complete or not saved_this_epoch):
+                save(f"{cfg.method_name}_at_step{step}.pt")
             if len(loader) == 0:
                 break
         history["throughput"] = (

@@ -19,7 +19,8 @@ Pretraining:
 
 Schedulers: ``ReduceLROnPlateau(factor 0.9, patience 5, rel threshold
 1e-4)``, stepped by the mean validation loss, or :class:`CosineAnnealingLR`
-(T_max 50), whose rate is set per group in closed form each epoch.
+(T_max 50), whose rate is set per group in closed form each epoch. Both
+have ``state_dict`` / ``load_state_dict`` (a checkpoint's sidecar).
 
 Groups are ordered head first, then the rest, the order in which the JAX
 package's ``get_learning_rates`` reports them.
@@ -130,6 +131,12 @@ class CosineAnnealingLR:
         c = (1 + math.cos(math.pi * self.epoch / self.t_max)) / 2
         set_learning_rates(self.optimizer,
                            [self.eta_min + (b - self.eta_min) * c for b in self.bases])
+
+    def state_dict(self) -> dict:
+        return {"epoch": self.epoch, "bases": list(self.bases)}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.epoch, self.bases = int(state["epoch"]), [float(b) for b in state["bases"]]
 
 
 def build_scheduler(name: Optional[str], optimizer: torch.optim.Optimizer):

@@ -14,12 +14,17 @@ host batches when the set exceeds the store's budget; it has the JAX
 loop's epoch and step budgets, logs the mean loss every ``logging_freq``
 steps and raises when it is NaN, validates (sliding windows, one mask per
 chunk from a seed folded with the chunk index) and steps the scheduler on
-completed epochs only. Not ported yet (ROADMAP.md): the superstep (CUDA
-graphs later), resume and checkpoints, the tracker, multi-host.
+completed epochs only, and writes full-state checkpoints
+(``train/checkpoint.py``) after them, by ``model_save_freq``, and at a
+``max_steps`` break. ``resume`` restores one; ``fit`` then continues at its
+step, on the loader's epoch and past the batches already trained, so a
+resumed run gives the bits of an uninterrupted one. Not ported yet
+(ROADMAP.md): the superstep (CUDA graphs later), the tracker, multi-host.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -31,6 +36,11 @@ from maskedsst_tpu_torch.config import Config
 from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
 from maskedsst_tpu_torch.data.pipeline import DataLoader, split_dataset
 from maskedsst_tpu_torch.models import SimMIMSpatialSpectral, ViTSpatialSpectral
+from maskedsst_tpu_torch.train.checkpoint import (
+    load_metadata,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from maskedsst_tpu_torch.train.optim import (
     CosineAnnealingLR,
     build_pretrain_optimizer,
@@ -193,12 +203,36 @@ class Pretrainer:
             losses.append(self.model(w, rng=rng, bool_mask=mask))
         return torch.stack(losses).mean()
 
+    # --- checkpoints ----------------------------------------------------------
+    def resume(self, path: str) -> int:
+        """Restore the full train state (parameters, AdamW moments, step,
+        generator) from a checkpoint this trainer wrote, and the scheduler
+        from its sidecar; returns the step."""
+        restore_checkpoint(path, self.state)
+        try:
+            sched = load_metadata(path).get("extra", {}).get("scheduler")
+        except FileNotFoundError:
+            sched = None
+        if sched and self.scheduler is not None:
+            self.scheduler.load_state_dict(sched)
+        return self.state.step
+
+    def _scheduler_extra(self) -> dict:
+        return {"scheduler": self.scheduler.state_dict()} if self.scheduler is not None else {}
+
     # --- loop ----------------------------------------------------------------
     def fit(self, dataset, epochs: Optional[int] = None, max_steps: Optional[int] = None,
-            log: Callable[[dict], None] = print) -> dict:
+            log: Callable[[dict], None] = print, models_dir: str = "models",
+            save_checkpoints: bool = True, run_id: Optional[str] = None) -> dict:
+        """Train from the state's step to the budgets (``max_steps`` counts
+        from step 0, a resumed run's steps included); checkpoints go to
+        ``models_dir/run_id/``."""
         cfg = self.config
         seed = int(cfg.get("seed", 5))
         bs = cfg.batch_size
+        cfg.run_id = run_id or f"local-{int(time.time())}-{os.getpid()}"
+        cfg.model_params = self.num_params
+        run_dir = os.path.join(models_dir, str(cfg.run_id))
         val_ds, train_ds = split_dataset(dataset, cfg.train_fraction, cfg.data_fraction, seed)
 
         # tiles on the card when they fit the budget (and the dataset does
@@ -228,6 +262,17 @@ class Pretrainer:
         epochs = epochs if epochs is not None else cfg.epoch
         steps_per_epoch = max(1, len(loader))
         start = step = self.state.step
+        # a resumed run continues the loader's shuffle at its epoch and skips
+        # the batches of that epoch trained before the save; the truncated
+        # epoch's end hooks fire once, in the run that completes it
+        start_epoch = step // steps_per_epoch
+        resume_skip = step - start_epoch * steps_per_epoch
+        loader.epoch = start_epoch
+        if resume_skip and train_store is None:
+            loader.skip_next = resume_skip
+        model_save_freq = cfg.get("model_save_freq", 1)
+        if start_epoch > 10 and model_save_freq == 1:
+            model_save_freq = 10  # the switch at epoch 10 fired before the save
         freq = cfg.logging_freq
         window: deque = deque(maxlen=freq)  # device scalars until a logging boundary
         history: dict = {"train_loss": [], "val_loss": []}
@@ -237,12 +282,21 @@ class Pretrainer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-        for epoch in range(epochs):
+        def save(name: str, epoch: int) -> None:
+            save_checkpoint(os.path.join(run_dir, name), self.state, cfg,
+                            extra={"epoch": epoch, **self._scheduler_extra()})
+
+        for epoch in range(start_epoch, epochs):
+            # the budget before any step: a run resumed at or past it trains nothing
             if max_steps is not None and step >= max_steps:
                 break
             last = None
             t0 = time.perf_counter()
-            for batch in loader:
+            if train_store is not None:
+                batches = list(loader)[resume_skip if epoch == start_epoch else 0 :]
+            else:
+                batches = loader
+            for batch in batches:
                 if train_store is not None:
                     last = self.train_step_idx(train_store.arrays["img"], batch)["loss"]
                 else:
@@ -260,7 +314,7 @@ class Pretrainer:
             sync()
             train_seconds += time.perf_counter() - t0
             # epoch-end hooks fire only for completed epochs
-            epoch_complete = step - start >= (epoch + 1) * steps_per_epoch
+            epoch_complete = step >= (epoch + 1) * steps_per_epoch
             if last is not None and epoch_complete:
                 history["train_loss"].append(float(last))
                 log({"step": step, "epoch": epoch, "loss": history["train_loss"][-1]})
@@ -282,7 +336,18 @@ class Pretrainer:
                         self.scheduler.step(val_loss)
             if isinstance(self.scheduler, CosineAnnealingLR) and epoch_complete:
                 self.scheduler.step()
+            # saves come after validation and the scheduler step, so that a
+            # checkpoint carries the post-epoch rate and scheduler counters
+            saved_this_epoch = False
+            if save_checkpoints and epoch_complete and epoch % model_save_freq == 0:
+                save(f"model_{cfg.encoder_name}_ep{epoch}.pt", epoch)
+                saved_this_epoch = True
+            if epoch == 10 and model_save_freq == 1 and epoch_complete:
+                model_save_freq = 10
             if max_steps is not None and step >= max_steps:
+                # a step budget always leaves a resumable checkpoint where it stopped
+                if save_checkpoints and not saved_this_epoch:
+                    save(f"model_{cfg.encoder_name}_at_step{step}.pt", epoch)
                 break
         steps = step - start
         history["throughput"] = (

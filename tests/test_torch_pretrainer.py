@@ -257,7 +257,7 @@ def test_fit_runs_budgets_and_validation():
     data = SyntheticCubeDataset(num_tiles=40, n_bands=20, labeled=False, seed=0)
     rows = []
     trainer = Pretrainer(cfg, device="cpu")
-    history = trainer.fit(data, max_steps=12, log=rows.append)
+    history = trainer.fit(data, max_steps=12, log=rows.append, save_checkpoints=False)
     # 36 train tiles -> 9 steps per epoch; val split 4 tiles = one batch
     assert trainer.state.step == 12
     assert len(history["train_loss"]) == 1 and len(history["val_loss"]) == 1
@@ -269,7 +269,8 @@ def test_fit_runs_budgets_and_validation():
 def test_fit_warns_when_val_split_is_smaller_than_a_batch(capsys):
     cfg = _cfg(get_pretrain_config, **NARROW, batch_size=8)
     data = SyntheticCubeDataset(num_tiles=20, n_bands=20, labeled=False, seed=0)
-    history = Pretrainer(cfg, device="cpu").fit(data, epochs=1, log=lambda row: None)
+    history = Pretrainer(cfg, device="cpu").fit(data, epochs=1, log=lambda row: None,
+                                                save_checkpoints=False)
     assert "smaller than batch_size" in capsys.readouterr().out
     assert history["val_loss"] == [] and len(history["train_loss"]) == 1
 
