@@ -103,7 +103,29 @@ Phases:
      falling losses, steps/s; a mid-epoch finetune resume equal bit for
      bit to its control; (c) the finetuned model through .pt, the export
      tool's .pth and the importer: Predictor(batch_size=256) logits equal
-     bit for bit.
+     bit for bit;
+  7. real data path (native/, etl/pack_tiles.py, data/resolve.py, the
+     Finetuner's device store): (a) the packer writes 512 seeded labeled
+     EnMAP-DFC tiles [200, 64, 64] (labels -1..7, 1.68 GB) and 256
+     unlabeled ones to .msts files; the native reader's gather, crops and
+     labels, raw and standardized, equal the numpy reader bit for bit, and
+     its tiles/s and MB/s; (b) get_dataset -> split_dataset ->
+     Finetuner.fit from the labeled store at batch 64 (embedding dropout
+     0, 2 epochs) and at the recipe's batch 2 (1 epoch), each on the
+     device store and streamed from the host from the same weights and
+     seed: phase 3's launches at every store step, per-step losses and the
+     final state equal bit for bit, validation on the card against host
+     windows (accuracies exact, loss within 1e-5), steps/s of both paths
+     from whole-epoch timing; a store-path resume mid-epoch bit for bit
+     against its control; (c) pretraining from the unlabeled store through
+     get_dataset, phase 4's launches at each of 10 steps, finite losses,
+     the supervised path refusing that store; (d) Houston2018 on an
+     injected scene [50, 1202, 4768]: the 22,350 fixed train patches on
+     the device store, the recipe's random patches streamed (no store),
+     10 steps each at batch 32 with the layer kernels' launches; (e) the
+     finetune and pretrain drivers in process on a config whose train
+     paths are the stores, 20 steps each, each writing its _at_step20
+     checkpoint.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -934,7 +956,8 @@ def phase_pretrain(card: str):
           f"pretrain: {len(train_store)} train and {len(val_store)} val tiles "
           f"{tuple(store.shape[1:])} resident on the card "
           f"({time.perf_counter() - t0:.1f} s to make and upload)")
-    batches = IndexBatcher(len(train_store), TRAIN_BATCH, shuffle=True, seed=SEED)
+    batches = IndexBatcher(len(train_store), TRAIN_BATCH, shuffle=True, drop_last=True,
+                           seed=SEED)
     idx_all = batches.take(60)
     depth = base.transformer_depth
     per_step_want = {"fused_layer_fwd": 2 * depth, "fused_layer_bwd": 2 * depth,
@@ -974,7 +997,8 @@ def phase_pretrain(card: str):
         check(n > 0, f"pretraining path: {name} launched {n} times")
 
     # --- (b) one validation pass (the val store's first batch) ---------------
-    val_idx = next(iter(IndexBatcher(len(val_store), TRAIN_BATCH, shuffle=False)))
+    val_idx = next(iter(IndexBatcher(len(val_store), TRAIN_BATCH, shuffle=False,
+                                     drop_last=True)))
     tiles = val_store.arrays["img"][torch.as_tensor(val_idx, device="cuda")]
     windows = TRAIN_BATCH * (64 // base.image_size) ** 2
     chunks = windows // largest_divisor(windows, 512)
@@ -1321,6 +1345,304 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
 
 
 
+def recording_steps(trainer, name: str, seen: list, metrics: list):
+    """Wraps the trainer's step method ``name`` so that each call records
+    its launches (counted on the host as they are made) and its metrics,
+    with no synchronize: the trainer's own epoch timing stays as it is."""
+    step = getattr(trainer, name)
+
+    def recorded(*args, **kwargs):
+        before = launch_counts()
+        out = step(*args, **kwargs)
+        after = launch_counts()
+        seen.append({n: after[n] - before[n] for n in after})
+        metrics.append(out)
+        return out
+
+    setattr(trainer, name, recorded)
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint8), np.ascontiguousarray(b).view(np.uint8))
+
+
+def phase_real_data(card: str, per_step: dict):
+    """The real data path: the .msts packer and reader, finetuning from a
+    packed store through get_dataset (the device-store path against the
+    streaming path, validation on the card, a store-path resume),
+    pretraining from an unlabeled store, Houston2018 on an injected
+    full-size scene, and both drivers on the stores."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+    import yaml
+
+    from maskedsst_tpu_torch import finetune as finetune_driver
+    from maskedsst_tpu_torch import pretrain as pretrain_driver
+    from maskedsst_tpu_torch.config import get_finetune_config, get_pretrain_config
+    from maskedsst_tpu_torch.data.constants import ENMAP_MEANS_CLIPPED, ENMAP_STDS_CLIPPED
+    from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
+    from maskedsst_tpu_torch.data.houston2018 import Houston2018Dataset
+    from maskedsst_tpu_torch.data.pipeline import DataLoader, split_dataset
+    from maskedsst_tpu_torch.data.resolve import get_dataset, tile_size
+    from maskedsst_tpu_torch.etl import pack_tiles as packer
+    from maskedsst_tpu_torch.native import PackedTileStore
+    from maskedsst_tpu_torch.train.factory import build_finetune_model
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+
+    quiet = lambda row: None  # noqa: E731
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    out: dict = {}
+    try:
+        # --- (a) pack and read: 512 labeled EnMAP-DFC tiles, 256 unlabeled --
+        t0 = time.perf_counter()
+        # the packer's synthetic tiles are seeded by 0
+        labeled = packer.main(["--synthetic", "--synthetic-tiles", "512", "--n-bands", "200",
+                               "--out", os.path.join(tmp, "dfc.msts")])
+        unlabeled = packer.main(["--synthetic", "--synthetic-tiles", "256", "--n-bands", "200",
+                                 "--unlabeled", "--out", os.path.join(tmp, "enmap.msts")])
+        print(f"     packed {labeled} ({os.path.getsize(labeled) / 1e9:.2f} GB) and {unlabeled} "
+              f"({os.path.getsize(unlabeled) / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s "
+              "(tiles made and written)", flush=True)
+        std = (ENMAP_MEANS_CLIPPED[:200], ENMAP_STDS_CLIPPED[:200])
+        native, plain = PackedTileStore(labeled), PackedTileStore(labeled, native=False)
+        nstd = PackedTileStore(labeled, standardize=std)
+        pstd = PackedTileStore(labeled, standardize=std, native=False)
+        rng = np.random.default_rng(SEED)
+        idx = rng.permutation(512)[:128]
+        xs, ys = rng.integers(0, 64 - 8 + 1, 128), rng.integers(0, 64 - 8 + 1, 128)
+        labels = native.gather_labels(np.arange(512))
+        reads = {
+            "gather": same_bits(native.gather(idx), plain.gather(idx)),
+            "gather_crop": same_bits(native.gather_crop(idx, xs, ys, 8),
+                                     plain.gather_crop(idx, xs, ys, 8)),
+            "gather_labels": same_bits(native.gather_labels(idx), plain.gather_labels(idx)),
+            "standardized gather": same_bits(nstd.gather(idx), pstd.gather(idx)),
+            "standardized gather_crop": same_bits(nstd.gather_crop(idx, xs, ys, 8),
+                                                  pstd.gather_crop(idx, xs, ys, 8)),
+        }
+        check(all(reads.values()) and (native.num_tiles, native.bands, native.height,
+                                       native.width) == (512, 200, 64, 64)
+              and labels.min() == -1 and labels.max() == 7,
+              f"real data: {native.num_tiles} tiles [200, 64, 64], DFC labels in "
+              f"{labels.min()}..{labels.max()}; the native reader equals the numpy reader bit "
+              f"for bit on 128 tiles (crops 8x8 at seeded origins): {reads}")
+        order = rng.permutation(512)
+        tile_mb = 200 * 64 * 64 * 4 / 1e6
+        for name, st in ((f"native reader ({native.threads} threads)", native),
+                         ("numpy reader", plain)):
+            st.gather(order[:64])  # warm-up (the page cache holds the file)
+            t = time.perf_counter()
+            for lo in range(0, 512, 64):
+                st.gather(order[lo : lo + 64])
+            dt = time.perf_counter() - t
+            print(f"     {name}: {512 / dt:.1f} tiles/s, {512 * tile_mb / dt:.1f} MB/s (gather "
+                  f"of 8 shuffled batches of 64 whole tiles, host clock) on the host of {card}",
+                  flush=True)
+        del native, plain, nstd, pstd
+
+        # --- (b) finetuning from the .msts through get_dataset ---------------
+        ft = get_finetune_config("configs/finetune_config_enmap.yaml", "configs/config.yaml",
+                                 seed=SEED)
+        ft.train_path = labeled
+        dataset = get_dataset(ft, supervised=True)
+        check(isinstance(dataset, PackedTileStore) and tile_size(dataset) == 64,
+              f"real data: get_dataset resolves {os.path.basename(labeled)} to a "
+              f"PackedTileStore of {len(dataset)} labeled 64x64 tiles")
+        val_ds, train_ds = split_dataset(dataset, ft.train_fraction, ft.data_fraction, SEED)
+
+        def finetuner(batch, emb_rate, device_data):
+            cfg = ft.copy()
+            cfg.batch_size, cfg.transformer_emb_dropout = batch, emb_rate
+            cfg.device_data = device_data
+            cfg.max_steps = 0  # the config's budget: a validation at every epoch end
+            model, kw = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
+            return Finetuner(cfg, model, tile_size=64, **kw)
+
+        reset_counts()
+        for batch, route, epochs in ((TRAIN_BATCH, "emb_dropout_0", 2), (2, "recipe", 1)):
+            emb_rate = 0.0 if route == "emb_dropout_0" else 0.1
+            runs = {}
+            for device_data in (True, False):
+                trainer = finetuner(batch, emb_rate, device_data)
+                seen, metrics = [], []
+                recording_steps(trainer, "train_step_idx" if device_data else "train_step",
+                                seen, metrics)
+                hist = trainer.fit(train_ds, val_ds, epochs=epochs, max_steps=10**9, log=quiet,
+                                   save_checkpoints=False)
+                runs[device_data] = trainer, hist, seen, [float(m["loss"]) for m in metrics]
+            store, h_store, seen, losses = runs[True]
+            stream, h_stream, _, s_losses = runs[False]
+            steps = epochs * -(-len(train_ds) // batch)
+            tag = f"real data finetune batch {batch} ({route}, bf16)"
+            check(h_store["device_store"] and not h_stream["device_store"] and len(seen) == steps
+                  and all(c == per_step[route] for c in seen),
+                  f"{tag}: {len(seen)} store-path steps ({len(train_ds)} train tiles, the last "
+                  f"batch of each epoch padded with -1), each launching phase 3's "
+                  f"{per_step[route]}; the streaming run built no store")
+            diff = states_equal(store.state, stream.state)
+            check(losses == s_losses and all(math.isfinite(v) for v in losses) and not diff,
+                  f"{tag}: store path == streaming path bit for bit: {len(losses)} per-step "
+                  f"losses (last {losses[-1]:.6f}), every parameter and Adam moment, the "
+                  f"generator (differ: {diff[:6] or 'none'})")
+            vs, vh = h_store["val"], h_stream["val"]
+            check(len(vs) == len(vh) == epochs and all(
+                      a["acc"] == b["acc"] and a["macro_acc"] == b["macro_acc"]
+                      and abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+                      for a, b in zip(vs, vh)),
+                  f"{tag}: validation on the card (_eval_sums_idx) == host windows: acc "
+                  f"{[v['acc'] for v in vs]}, macro {[v['macro_acc'] for v in vs]} exactly, "
+                  f"loss {[v['loss'] for v in vs]} vs {[v['loss'] for v in vh]} within 1e-5")
+            rate = {k: h["throughput"]["steps_per_s"] for k, h in (("store", h_store),
+                                                                    ("streaming", h_stream))}
+            out[f"finetune_b{batch}_steps_per_s"] = rate
+            print(f"     {tag}: store path {rate['store']:.2f} steps/s, streaming path "
+                  f"{rate['streaming']:.2f} steps/s ({steps} steps, whole epochs timed with one "
+                  f"synchronize each, validation excluded; the streamed batches read from the "
+                  f".msts on the host) on {card}", flush=True)
+            if batch == TRAIN_BATCH:
+                val_store = DeviceTileStore(val_ds, "cuda")
+                on_card = store.validate(IndexBatcher(len(val_store), 2, shuffle=False), val_store)
+                host = store.validate(DataLoader(val_ds, 2, shuffle=False, pad_to_multiple=2))
+                check(on_card["acc"] == host["acc"] and on_card["macro_acc"] == host["macro_acc"]
+                      and abs(on_card["loss"] - host["loss"]) <= 1e-5 * abs(host["loss"]),
+                      f"{tag}: the trained model's validation of {len(val_ds)} tiles on the "
+                      f"card {on_card} == host windows {host} (loss within 1e-5)")
+                del val_store
+            del store, stream, runs
+            torch.cuda.empty_cache()
+
+        # a mid-epoch resume on the store path against its control
+        spe = -(-len(train_ds) // TRAIN_BATCH)
+        budget, stop = 2 * spe + 3, spe + 3
+        control = finetuner(TRAIN_BATCH, 0.0, True)
+        control.fit(train_ds, val_ds, epochs=3, max_steps=budget, log=quiet,
+                    save_checkpoints=False)
+        interrupted = finetuner(TRAIN_BATCH, 0.0, True)
+        interrupted.fit(train_ds, val_ds, epochs=3, max_steps=stop, log=quiet, models_dir=tmp,
+                        run_id="ft")
+        resumed = finetuner(TRAIN_BATCH, 0.0, True)
+        at = resumed.resume(os.path.join(tmp, "ft", f"{ft.method_name}_at_step{stop}.pt"))
+        hist = resumed.fit(train_ds, val_ds, epochs=3, max_steps=budget, log=quiet,
+                           save_checkpoints=False)
+        diff = states_equal(control.state, resumed.state)
+        same_sched = control.scheduler.state_dict() == resumed.scheduler.state_dict()
+        check(at == stop and hist["device_store"] and not diff and same_sched,
+              f"real data: the store path resumed at step {stop} == uninterrupted to {budget}, "
+              f"bit for bit (differ: {diff[:6] or 'none'}; scheduler equal {same_sched})")
+        del control, interrupted, resumed
+        torch.cuda.empty_cache()
+
+        # --- (c) pretraining from the unlabeled .msts -------------------------
+        pc = get_pretrain_config("configs/pretrain_config.yaml", "configs/config.yaml",
+                                 seed=SEED)
+        pc.train_path = unlabeled
+        pdata = get_dataset(pc, supervised=False)
+        ft_unlabeled = ft.copy()
+        ft_unlabeled.train_path = unlabeled
+        try:
+            get_dataset(ft_unlabeled, supervised=True)
+            refused = "nothing"
+        except ValueError as exc:
+            refused = str(exc)
+        check(isinstance(pdata, PackedTileStore) and not pdata.has_labels
+              and "unlabeled tile store" in refused,
+              f"real data: {os.path.basename(unlabeled)} resolves to an unlabeled store of "
+              f"{len(pdata)} tiles; the supervised path raises ({refused})")
+        trainer = Pretrainer(pc, dtype=torch.bfloat16, tile_size=tile_size(pdata), device="cuda")
+        seen, metrics = [], []
+        recording_steps(trainer, "train_step_idx", seen, metrics)
+        trainer.fit(pdata, max_steps=10, log=quiet, save_checkpoints=False)
+        losses = [float(m["loss"]) for m in metrics]
+        check(len(seen) == 10 and all(c == per_step["pretrain"] for c in seen)
+              and all(math.isfinite(v) for v in losses),
+              f"real data pretraining (bf16, batch {pc.batch_size}): 10 store-path steps, each "
+              f"launching phase 4's {per_step['pretrain']}, losses finite (last "
+              f"{losses[-1]:.6e})")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # --- (d) Houston2018 on an injected full-size scene -------------------
+        t0 = time.perf_counter()
+        hrng = np.random.default_rng(SEED)
+        scene = hrng.standard_normal((50, 1202, 4768), dtype=np.float32)
+        scene[48:] = 0.0  # the zero padding from 48 to 50 bands
+        gt = hrng.integers(-1, 20, (1202, 4768))
+        hc = get_finetune_config("configs/finetune_config_houston2018.yaml",
+                                 "configs/config.yaml", seed=SEED)
+        fixed = Houston2018Dataset("", "", patch_size=8, fix_train_patches=True, img=scene,
+                                   label=gt)
+        drawn = Houston2018Dataset("", "", patch_size=8, fix_train_patches=False,
+                                   drop_unlabeled=True, img=scene, label=gt, seed=SEED)
+        print(f"     Houston2018 scene [50, 1202, 4768] fp32 ({scene.nbytes / 1e9:.2f} GB) made "
+              f"and patched in {time.perf_counter() - t0:.1f} s", flush=True)
+        check(len(fixed) == 22350 and not fixed.stochastic and drawn.stochastic,
+              f"houston2018: {len(fixed)} fixed 8x8 train patches (rows 601:, columns 596:2980), "
+              f"the random-patch set stochastic")
+        for name, ds, want_store in (("fixed patches", fixed, True),
+                                     ("random patches", drawn, False)):
+            val, train = split_dataset(ds, hc.train_fraction, hc.data_fraction, SEED)
+            cfg = hc.copy()
+            model, kw = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
+            trainer = Finetuner(cfg, model, tile_size=tile_size(ds), **kw)
+            seen, metrics = [], []
+            recording_steps(trainer, "train_step_idx" if want_store else "train_step",
+                            seen, metrics)
+            t0 = time.perf_counter()
+            hist = trainer.fit(train, val, epochs=1, max_steps=10, log=quiet,
+                               save_checkpoints=False)
+            losses = [float(m["loss"]) for m in metrics]
+            where = (f"the device store ({len(train)} patches, "
+                     f"{len(train) * (50 * 8 * 8 * 4 + 8 * 8 * 8) / 1e9:.2f} GB)" if want_store
+                     else "streamed, no store built")
+            check(hist["device_store"] is want_store and len(seen) == 10
+                  and all(c == per_step["recipe"] for c in seen)
+                  and all(math.isfinite(v) for v in losses),
+                  f"houston2018 {name} (batch {cfg.batch_size}, bf16): {where}; 10 steps each "
+                  f"launching {per_step['recipe']}, losses finite (last {losses[-1]:.4f}); fit "
+                  f"took {time.perf_counter() - t0:.1f} s")
+            del trainer, model
+            torch.cuda.empty_cache()
+        del scene, gt, fixed, drawn
+
+        # --- (e) the drivers on the stores ------------------------------------
+        with open("configs/config.yaml") as f:
+            general = yaml.safe_load(f)
+        general["data"]["dfc"]["train_path"] = labeled
+        general["data"]["enmap"]["train_path"] = unlabeled
+        config = os.path.join(tmp, "config.yaml")
+        with open(config, "w") as f:
+            yaml.safe_dump(general, f)
+        models = os.path.join(tmp, "models")
+        for name, main, argv, ckpt in (
+                ("finetune", finetune_driver.main,
+                 ["enmap", "--config", config, "--steps", "20", "--checkpoint", "none"],
+                 "ViTSpatialSpectral_at_step20.pt"),
+                ("pretrain", pretrain_driver.main, ["--config", config, "--steps", "20"],
+                 "model_ViTSpatialSpectral_at_step20.pt")):
+            t0 = time.perf_counter()
+            log_path = os.path.join(tmp, f"{name}.log")
+            with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+                main(argv + ["--models-dir", os.path.join(models, name)])
+            with open(log_path) as log:
+                final = [line.strip() for line in log if line.startswith("FINAL")]
+            found = glob.glob(os.path.join(models, name, "*", ckpt))
+            check(len(found) == 1 and len(final) == 1,
+                  f"real data: the {name} driver ({' '.join(argv).replace(config, '<tmp yaml>')}) "
+                  f"trained from its .msts, wrote {ckpt} and printed '{final}' in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        out["counts"] = launch_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, n in out["counts"].items():
+        check(n > 0, f"real data path: {name} launched {n} times")
+    return out
+
+
 @contextlib.contextmanager
 def smooth_l1():
     """Route the SimMIM model's decode + weighted L1 to a plain decode with
@@ -1609,6 +1931,8 @@ def main() -> int:
     ckpt = timed("phase 6 checkpoint path: pretraining resume, finetuning from the checkpoint, "
                  "the .pth round trip", phase_checkpoint, card, per_step["pretrain"],
                  per_step["emb_dropout_0"])
+    real = timed("phase 7 real data path: the .msts store, finetuning and pretraining from it, "
+                 "Houston2018 on a full-size scene, the drivers", phase_real_data, card, per_step)
 
     batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
 
@@ -1650,6 +1974,7 @@ def main() -> int:
         entry["launches_houston_pretrain"] = houston_counts[entry["name"]]
         entry["launches_checkpoint_resume"] = ckpt["pretrain_resume"][entry["name"]]
         entry["launches_checkpoint_finetune"] = ckpt["finetune"][entry["name"]]
+        entry["launches_real_data"] = real["counts"][entry["name"]]
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",

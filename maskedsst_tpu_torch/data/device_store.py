@@ -2,8 +2,8 @@
 ``data/device_store.py`` on one card.
 
 The store uploads the whole tile set to the card once; each training step
-then moves only a [batch] index vector and gathers its batch there (the
-pretrainer reads just the crop windows). A set larger than the byte budget
+then moves only a [batch] index vector and gathers its batch there (both
+trainers read just the crop windows). A set larger than the byte budget
 raises ``MemoryError``, and the trainer streams batches from the host
 instead, as the JAX ``fit`` does.
 """
@@ -54,27 +54,40 @@ class DeviceTileStore:
 
 
 class IndexBatcher:
-    """Epoch iterator over full batches of indices (int64 numpy), shuffled
-    with a numpy generator seeded by ``seed + epoch``, as the host
-    DataLoader; the ragged tail is dropped (the JAX trainer's
-    ``drop_last=True``, its only use in pretraining)."""
+    """Epoch iterator over batches of indices (int32 numpy), shuffled with a
+    numpy generator seeded by ``seed + epoch``, as the host DataLoader; the
+    JAX package's signature and defaults. The ragged tail is dropped under
+    ``drop_last``, else padded to ``batch_size`` with -1 under
+    ``pad_to_batch`` (else yielded short). A consumer must mask the -1
+    entries: indexing a tensor with -1 reads the last tile."""
 
-    def __init__(self, num_samples: int, batch_size: int, shuffle: bool = True, seed: int = 0):
+    def __init__(self, num_samples: int, batch_size: int, shuffle: bool = True,
+                 drop_last: bool = False, seed: int = 0, pad_to_batch: bool = True):
         self.num_samples = num_samples
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.drop_last = drop_last
         self.seed = seed
+        self.pad_to_batch = pad_to_batch
         self.epoch = 0
 
     def __len__(self) -> int:
-        return self.num_samples // self.batch_size
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return -(-self.num_samples // self.batch_size)
 
     def __iter__(self) -> Iterator[np.ndarray]:
         order = (np.random.default_rng(self.seed + self.epoch).permutation(self.num_samples)
                  if self.shuffle else np.arange(self.num_samples))
         self.epoch += 1
-        for lo in range(0, len(self) * self.batch_size, self.batch_size):
-            yield order[lo : lo + self.batch_size].astype(np.int64)
+        for lo in range(0, self.num_samples, self.batch_size):
+            idx = order[lo : lo + self.batch_size]
+            if len(idx) < self.batch_size:
+                if self.drop_last:
+                    return
+                if self.pad_to_batch:
+                    idx = np.concatenate([idx, -np.ones(self.batch_size - len(idx), idx.dtype)])
+            yield idx.astype(np.int32)
 
     def take(self, steps: int) -> np.ndarray:
         """The next ``steps`` index batches stacked into [steps, batch_size],
@@ -82,7 +95,7 @@ class IndexBatcher:
         if len(self) == 0:
             raise ValueError(
                 f"IndexBatcher yields no batches ({self.num_samples} samples "
-                f"< batch_size {self.batch_size})"
+                f"< batch_size {self.batch_size} with drop_last)"
             )
         out: list = []
         while len(out) < steps:

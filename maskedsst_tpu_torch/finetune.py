@@ -1,8 +1,8 @@
 """Supervised finetuning entry point of the PyTorch port (the repo's
 ``finetune.py``, on one CUDA card).
 
-    python -m maskedsst_tpu_torch.finetune {enmap|houston2018} --synthetic
-        [--synthetic-tiles N] [--epochs N] [--steps N] [--fp32] [--cpu]
+    python -m maskedsst_tpu_torch.finetune {enmap|houston2018} [--config configs/config.yaml]
+        [--synthetic] [--synthetic-tiles N] [--epochs N] [--steps N] [--fp32] [--cpu]
         [--checkpoint PATH|none] [--resume CKPT] [--models-dir models]
 
 The model comes from ``method_name`` in the finetune config (only
@@ -14,8 +14,11 @@ classification head; a path that does not exist trains from scratch, and
 this driver wrote (parameters, optimizer, step, scheduler, best accuracy).
 bf16 compute (fp32 parameters) is the default, as in the JAX
 ``finetune.py``; ``--fp32`` computes in fp32. It runs on the card unless
-``--cpu`` is given. Only synthetic cubes are ported. Prints ``FINAL
-train_loss=... best_val_acc=...`` at the end.
+``--cpu`` is given. The data comes from ``--config``'s data section (its
+``train_path``: a ``.msts`` tile store, the EnMAP-DFC tile directory or the
+Houston2018 scene; a missing one raises), or from seeded synthetic cubes
+with ``--synthetic``. Prints ``FINAL train_loss=... best_val_acc=...`` at
+the end.
 """
 
 from __future__ import annotations
@@ -52,14 +55,11 @@ def main(argv=None) -> dict:
         parser.error("--resume and --checkpoint are mutually exclusive: --resume restores the "
                      "full finetune state (parameters included); pretrained encoder weights "
                      "loaded on top would overwrite it")
-    if not args.synthetic:
-        parser.error("only synthetic cubes are ported yet (ROADMAP.md); pass --synthetic")
-
     import torch
 
     from maskedsst_tpu_torch.config import get_finetune_config
     from maskedsst_tpu_torch.data.pipeline import split_dataset
-    from maskedsst_tpu_torch.data.resolve import get_dataset
+    from maskedsst_tpu_torch.data.resolve import get_dataset, tile_size
     from maskedsst_tpu_torch.train.factory import build_finetune_model, load_pretrained_params
     from maskedsst_tpu_torch.train.finetuner import Finetuner
 
@@ -87,12 +87,12 @@ def main(argv=None) -> dict:
         else:
             model.load_state_dict(params)
             print(f"[finetune] pretrained encoder loaded from {ckpt_path}")
-    dataset = get_dataset(config, supervised=True, synthetic=True)
+    dataset = get_dataset(config, supervised=True, synthetic=args.synthetic)
     val_ds, train_ds = split_dataset(dataset, config.train_fraction, config.data_fraction, SEED)
     print(f"device: {torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}")
     print(f"len(train_dataset)={len(train_ds)}")
     print(f"len(val_dataset)={len(val_ds)}")
-    trainer = Finetuner(config, model, tile_size=dataset.tile_size, **trainer_kwargs)
+    trainer = Finetuner(config, model, tile_size=tile_size(dataset), **trainer_kwargs)
     print(f"Model name: {config.method_name}")
     print(f"Model parameters: {trainer.num_params:,}")
     if args.resume:

@@ -1,15 +1,18 @@
 """SimMIM masked pretraining entry point of the PyTorch port (the repo's
 ``pretrain.py``, on one CUDA card).
 
-    python -m maskedsst_tpu_torch.pretrain --synthetic
+    python -m maskedsst_tpu_torch.pretrain
         [--pretrain-config configs/pretrain_config.yaml] [--config configs/config.yaml]
-        [--synthetic-tiles N] [--epochs N] [--steps N] [--batch-size N] [--fp32] [--cpu]
-        [--models-dir models] [--resume CKPT]
+        [--synthetic] [--synthetic-tiles N] [--epochs N] [--steps N] [--batch-size N]
+        [--fp32] [--cpu] [--models-dir models] [--resume CKPT]
 
 The model comes from the merged pretrain config with weights made from the
 seed. bf16 compute (fp32 parameters) is the default, as in the JAX
 ``pretrain.py``; ``--fp32`` computes in fp32. It runs on the card unless
-``--cpu`` is given. Only synthetic cubes are ported. Full-state
+``--cpu`` is given. The data comes from ``--config``'s data section (its
+``train_path``: an unlabeled ``.msts`` tile store or the EnMAP tile
+directory; a missing one raises), or from seeded synthetic cubes with
+``--synthetic``. Full-state
 checkpoints go to ``models_dir/run_id/`` (``model_{encoder}_ep{N}.pt`` by
 ``model_save_freq``, ``model_{encoder}_at_step{S}.pt`` at a ``--steps``
 break, each with a ``.json`` sidecar); ``--resume`` continues one exactly.
@@ -44,13 +47,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--resume", default=None, metavar="CKPT",
                         help="continue from a full-state .pt checkpoint this driver wrote")
     args = parser.parse_args(argv)
-    if not args.synthetic:
-        parser.error("only synthetic cubes are ported yet (ROADMAP.md); pass --synthetic")
-
     import torch
 
     from maskedsst_tpu_torch.config import get_pretrain_config
-    from maskedsst_tpu_torch.data.resolve import get_dataset
+    from maskedsst_tpu_torch.data.resolve import get_dataset, tile_size
     from maskedsst_tpu_torch.train.pretrainer import Pretrainer
 
     device = "cpu" if args.cpu else "cuda"
@@ -62,9 +62,9 @@ def main(argv=None) -> dict:
     config.synthetic_tiles = args.synthetic_tiles
     if args.batch_size is not None:
         config.batch_size = args.batch_size
-    dataset = get_dataset(config, supervised=False, synthetic=True)
+    dataset = get_dataset(config, supervised=False, synthetic=args.synthetic)
     trainer = Pretrainer(config, dtype=None if args.fp32 else torch.bfloat16,
-                         tile_size=dataset.tile_size, device=device)
+                         tile_size=tile_size(dataset), device=device)
     print(f"device: {torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}")
     print(f"model parameters: {trainer.num_params:,}")
     if args.resume:

@@ -75,7 +75,7 @@ def houston_pretrainer(dtype, device, steps: int, overrides=()):
     data = SyntheticCubeDataset(num_tiles=HOUSTON_TILES, n_bands=cfg.n_bands,
                                 tile_size=cfg.image_size, labeled=False, seed=0)
     store = DeviceTileStore(data, device)
-    idx = IndexBatcher(len(store), cfg.batch_size, shuffle=True, seed=0).take(steps)
+    idx = IndexBatcher(len(store), cfg.batch_size, shuffle=True, drop_last=True, seed=0).take(steps)
     return trainer, store.arrays["img"], idx
 
 

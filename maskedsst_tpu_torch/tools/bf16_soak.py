@@ -40,7 +40,8 @@ LEGS = {"bf16": torch.bfloat16, "fp32": None}
 def run_leg(cfg, dtype, steps: int, device, store_img: torch.Tensor):
     """(losses [steps] as float64, wall seconds) of one leg."""
     trainer = Pretrainer(cfg, dtype=dtype, device=device)
-    idx = IndexBatcher(store_img.shape[0], cfg.batch_size, shuffle=True, seed=0).take(steps)
+    idx = IndexBatcher(store_img.shape[0], cfg.batch_size, shuffle=True, drop_last=True,
+                       seed=0).take(steps)
     sync(device)
     t0 = time.perf_counter()
     losses = [trainer.train_step_idx(store_img, i)["loss"] for i in idx]

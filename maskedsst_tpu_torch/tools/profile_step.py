@@ -44,7 +44,8 @@ def pretrain_step(dtype, device, calls: int, overrides=()):
     data = SyntheticCubeDataset(num_tiles=2 * cfg.batch_size, n_bands=cfg.n_bands,
                                 labeled=False, seed=0)
     store = DeviceTileStore(data, device).arrays["img"]
-    it = iter(IndexBatcher(len(data), cfg.batch_size, shuffle=True, seed=0).take(calls))
+    it = iter(IndexBatcher(len(data), cfg.batch_size, shuffle=True, drop_last=True,
+                           seed=0).take(calls))
     return lambda: trainer.train_step_idx(store, next(it))
 
 

@@ -9,18 +9,25 @@ with split head/backbone learning rates; it returns loss, micro and macro
 accuracy. Validation slides ``image_size`` windows over the tiles and
 averages over all windows, from per-chunk sums.
 
-``fit`` streams batches from the host (synchronous ``DataLoader``) with the
-JAX loop's budgets: strict epoch/step overrides, validation on
+``fit`` keeps the tiles on the card (``DeviceTileStore``, unless
+``device_data`` is off or the dataset draws anew on every read): each step
+moves only its index vector and gathers just its crop windows there
+(``train_step_idx``), and validation windows the tiles there
+(``_eval_sums_idx``). A set larger than the store's budget streams host
+batches (``DataLoader``) instead, as does a stochastic one; the two paths
+take the same samples and draws, so they give the same bits. The loop has
+the JAX loop's budgets: strict epoch/step overrides, validation on
 ``get_val_epochs``, the plateau scheduler stepped at the end of every
 completed epoch with the last mean validation loss, and a raise when the
-logged loss is NaN. It writes full-state checkpoints
-(``train/checkpoint.py``) at ``checkpoint_save_epochs`` and the epoch
-budget once a validation has run, ``best_{method}`` on a new best, and one
-at every budget end that saved nothing else; ``resume`` restores one with
-the loop state of its sidecar (scheduler, ``best_val_acc``, the last
-validation loss), and ``fit`` continues it bit for bit. Not ported yet
-(ROADMAP.md): the device-resident tile store with index batches, the
-superstep, the tracker and multi-host.
+logged loss is NaN. Metrics stay on the card until a logging boundary or
+an epoch's end; whole epochs are timed, each ending in one synchronize. It
+writes full-state checkpoints (``train/checkpoint.py``) at
+``checkpoint_save_epochs`` and the epoch budget once a validation has run,
+``best_{method}`` on a new best, and one at every budget end that saved
+nothing else; ``resume`` restores one with the loop state of its sidecar
+(scheduler, ``best_val_acc``, the last validation loss), and ``fit``
+continues it bit for bit. Not ported yet (ROADMAP.md): the superstep (CUDA
+graphs later), the tracker and multi-host.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from maskedsst_tpu_torch.config import Config
+from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
 from maskedsst_tpu_torch.data.pipeline import DataLoader
 from maskedsst_tpu_torch.train.checkpoint import (
     load_metadata,
@@ -48,6 +56,7 @@ from maskedsst_tpu_torch.train.optim import (
     make_head_label_fn,
     plateau_scheduler,
 )
+from maskedsst_tpu_torch.train.pretrainer import largest_divisor
 from maskedsst_tpu_torch.train.train_state import TrainState
 from maskedsst_tpu_torch.train.windows import window_tiles
 
@@ -139,8 +148,48 @@ class Finetuner:
         acc and macro_acc as device scalars. The crop is taken where the
         batch lies, before the copy to the card, so a host batch moves only
         its crop windows."""
+        return self._update(*self._to_device(
+            *self._prep(torch.as_tensor(img), torch.as_tensor(label), xy)))
+
+    def _gather_batch(self, store_img: torch.Tensor, store_label: torch.Tensor,
+                      idx: torch.Tensor):
+        """The tiles at ``idx`` and their labels; a -1 index (the padded
+        tail of an epoch) reads tile 0 under the ignored label."""
+        safe = idx.clamp(min=0)
+        return store_img[safe], self._mask_pad(store_label[safe], idx)
+
+    def _gather_crop_batch(self, store_img: torch.Tensor, store_label: torch.Tensor,
+                           idx: torch.Tensor, xy: Tuple[int, int], s: int):
+        """Gather + crop on the card: reads only the [B, C, s, s] windows of
+        the indexed tiles and the [B, s, s] windows of their labels."""
+        x0, y0 = xy
+        safe = idx.clamp(min=0)
+        img = store_img[:, :, x0 : x0 + s, y0 : y0 + s][safe]
+        label = store_label[:, x0 : x0 + s, y0 : y0 + s][safe]
+        return img, self._mask_pad(label, idx)
+
+    def _mask_pad(self, label: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        keep = (idx >= 0).reshape((-1,) + (1,) * (label.dim() - 1))
+        return torch.where(keep, label, torch.full_like(label, self.config.ignored_label))
+
+    def train_step_idx(self, store_img: torch.Tensor, store_label: torch.Tensor, idx,
+                       xy: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
+        """One update on the store's tiles at ``idx`` ([B] indices, -1 for
+        padding), as ``train_step`` on the same tiles: the crop origin is
+        drawn first (or given as ``xy``), then the dropout seeds."""
+        idx = torch.as_tensor(idx, dtype=torch.int64).to(store_img.device)
+        if self.crop and not self.shifting_window and store_label.dim() == 3:
+            s, xy = (self.window, xy) if xy is not None else self._crop_draw()
+            img, label = self._gather_crop_batch(store_img, store_label, idx, xy, s)
+            if self.center_pixel:
+                label = label[:, s // 2, s // 2]
+            return self._update(img, label)
+        return self._update(*self._prep(*self._gather_batch(store_img, store_label, idx), xy))
+
+    def _update(self, img: torch.Tensor, label: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Forward in train mode, cross-entropy, backward and the Adam step
+        on a batch on the card; loss and accuracies as device scalars."""
         cfg = self.config
-        img, label = self._to_device(*self._prep(torch.as_tensor(img), torch.as_tensor(label), xy))
         self.model.train()
         self.model.zero_grad(set_to_none=True)
         logits = self.model(img, rng=self.state.rng)
@@ -175,6 +224,24 @@ class Finetuner:
             "cm": confusion_matrix(pred, label, cfg.n_classes, cfg.ignored_label),
         }
 
+    @torch.no_grad()
+    def _eval_sums_idx(self, store_img: torch.Tensor, store_label: torch.Tensor,
+                       idx) -> Dict[str, torch.Tensor]:
+        """``_eval_sums`` over every window of the store's tiles at ``idx``:
+        gathered and windowed on the card, in chunks of
+        ``largest_divisor(windows, 256)``, the sums added there."""
+        idx = torch.as_tensor(idx, dtype=torch.int64).to(store_img.device)
+        img, label = self._gather_batch(store_img, store_label, idx)
+        if self.crop:
+            img, label = window_tiles(img, self.window, label)
+        n = img.shape[0]
+        chunk = largest_divisor(n, 256)
+        sums = None
+        for lo in range(0, n, chunk):
+            out = self._eval_sums(img[lo : lo + chunk], label[lo : lo + chunk])
+            sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
+        return sums
+
     def _window_batch(self, img: np.ndarray, label: np.ndarray):
         """Host-side sliding windows at stride s over the tiles, then
         fixed-size chunks padded with ignored labels."""
@@ -190,12 +257,19 @@ class Finetuner:
                                                  cl.dtype)])
             yield ci, cl
 
-    def validate(self, val_loader) -> Optional[dict]:
-        """Mean loss, acc and macro_acc over every window of the loader."""
+    def validate(self, val_loader, val_store: Optional[DeviceTileStore] = None) -> Optional[dict]:
+        """Mean loss, acc and macro_acc over every window of the loader's
+        batches: host batches, or index batches into ``val_store``."""
         sums = None
         for batch in val_loader:
-            for ci, cl in self._window_batch(batch["img"], batch["label"]):
-                out = {k: v.cpu().numpy() for k, v in self._eval_sums(ci, cl).items()}
+            if val_store is not None:
+                parts = [self._eval_sums_idx(val_store.arrays["img"], val_store.arrays["label"],
+                                             batch)]
+            else:
+                parts = (self._eval_sums(ci, cl)
+                         for ci, cl in self._window_batch(batch["img"], batch["label"]))
+            for part in parts:
+                out = {k: v.cpu().numpy() for k, v in part.items()}
                 sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
         if sums is None or sums["n_valid"] <= 0:
             return None
@@ -237,11 +311,30 @@ class Finetuner:
         cfg.num_params = self.num_params
         run_dir = os.path.join(models_dir, str(cfg.run_id))
         val_bs = cfg.get("val_batch_size", cfg.batch_size)
-        loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True,
-                            seed=int(cfg.get("seed", 5)), pad_to_multiple=cfg.batch_size,
-                            pad_label_value=cfg.ignored_label)
-        val_loader = DataLoader(val_dataset, val_bs, shuffle=False, pad_to_multiple=val_bs,
+        seed = int(cfg.get("seed", 5))
+        # the tiles on the card unless they exceed the store's budget; a
+        # dataset that draws anew on every read streams (a store made once
+        # would freeze one draw for the whole run)
+        train_store = val_store = None
+        if cfg.get("device_data", True) and not getattr(train_dataset, "stochastic", False):
+            try:
+                train_store = DeviceTileStore(train_dataset, self.device)
+                val_store = DeviceTileStore(val_dataset, self.device)
+            except MemoryError as exc:
+                print(f"[finetune] streaming from host: {exc}")
+                train_store = val_store = None
+        if train_store is not None:
+            # the ragged tails pad with -1: ignored labels, as the streamed
+            # batches' padding
+            loader = IndexBatcher(len(train_store), cfg.batch_size, shuffle=True,
+                                  drop_last=False, seed=seed)
+            val_loader = IndexBatcher(len(val_store), val_bs, shuffle=False, drop_last=False)
+        else:
+            loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, seed=seed,
+                                pad_to_multiple=cfg.batch_size,
                                 pad_label_value=cfg.ignored_label)
+            val_loader = DataLoader(val_dataset, val_bs, shuffle=False, pad_to_multiple=val_bs,
+                                    pad_label_value=cfg.ignored_label)
         # config budgets run until BOTH are exhausted; explicit overrides stop
         # at whichever is hit first
         strict = epochs is not None or max_steps is not None
@@ -253,7 +346,8 @@ class Finetuner:
         # epoch end, across a resume too
         last_val_loss = self._resume_extra.get("last_val_loss")
         self._resume_extra = {}  # taken up once
-        history = {"train": [], "val": [], "best_val_acc": best_val_acc}
+        history = {"train": [], "val": [], "best_val_acc": best_val_acc,
+                   "device_store": train_store is not None}
         # a resumed run continues the loader's shuffle at its epoch and skips
         # the batches of that epoch trained before the save; the truncated
         # epoch's end hooks fire once, in the run that completes it
@@ -261,7 +355,9 @@ class Finetuner:
         steps_per_epoch = max(1, len(loader))
         start_epoch = epoch = step // steps_per_epoch
         resume_skip = step - start_epoch * steps_per_epoch
-        loader.epoch, loader.skip_next = start_epoch, resume_skip
+        loader.epoch = start_epoch
+        if train_store is None:
+            loader.skip_next = resume_skip
         win = {k: deque(maxlen=cfg.logging_freq) for k in ("loss", "acc", "macro_acc")}
         train_seconds, train_steps = 0.0, 0
 
@@ -286,16 +382,23 @@ class Finetuner:
             save_checkpoint(os.path.join(run_dir, name), self.state, cfg,
                             extra={**loop_extra(), **extra})
 
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
         while not done():
             metrics, consumed = None, 0
             # the batches a complete pass over this epoch yields
-            expected = len(loader) - (resume_skip if epoch == start_epoch else 0)
-            for batch in loader:
-                t0 = time.perf_counter()
-                metrics = self.train_step(batch["img"], batch["label"])
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                train_seconds += time.perf_counter() - t0
+            skip = resume_skip if epoch == start_epoch else 0
+            expected = len(loader) - skip
+            batches = loader if train_store is None else list(loader)[skip:]
+            t0 = time.perf_counter()
+            for batch in batches:
+                if train_store is None:
+                    metrics = self.train_step(batch["img"], batch["label"])
+                else:
+                    metrics = self.train_step_idx(train_store.arrays["img"],
+                                                  train_store.arrays["label"], batch)
                 train_steps += 1
                 for k in win:
                     win[k].append(metrics[k])
@@ -305,12 +408,14 @@ class Finetuner:
                     log_step()
                 if strict and step >= step_budget:
                     break
+            sync()
+            train_seconds += time.perf_counter() - t0
             epoch_complete = consumed >= expected
             if metrics is not None:
                 history["train"].append({k: float(v) for k, v in metrics.items()})
             val_mean, new_best = None, False
             if epoch_complete and (epoch in validation_epochs or epoch == epoch_budget):
-                val_mean = self.validate(val_loader)
+                val_mean = self.validate(val_loader, val_store)
                 if val_mean is not None:
                     log({"step": step, "epoch": epoch, "val_loss": val_mean["loss"],
                          "val_acc": val_mean["acc"], "val_macro_acc": val_mean["macro_acc"]})

@@ -89,10 +89,12 @@ def plateau_scheduler(optimizer: torch.optim.Optimizer, factor: float = 0.9,
     """torch ReduceLROnPlateau with the recipe's settings (mode min, relative
     threshold, no cooldown): after ``patience`` epochs without the metric
     falling below best * (1 - threshold), every group's lr is multiplied by
-    ``factor``."""
+    ``factor``, however small it is (``eps=0``: torch's default 1e-8 skips
+    every cut once a rate is <= 1e-7, where the JAX scheduler goes on
+    cutting)."""
     return torch.optim.lr_scheduler.ReduceLROnPlateau(
         optimizer, mode="min", factor=factor, patience=patience, threshold=threshold,
-        threshold_mode="rel", cooldown=0, min_lr=0.0,
+        threshold_mode="rel", cooldown=0, min_lr=0.0, eps=0.0,
     )
 
 

@@ -247,8 +247,8 @@ class Pretrainer:
                 print(f"[pretrain] streaming from host: {exc}")
                 train_store = val_store = None
         if train_store is not None:
-            loader = IndexBatcher(len(train_store), bs, shuffle=True, seed=seed)
-            val_loader = (IndexBatcher(len(val_store), bs, shuffle=False)
+            loader = IndexBatcher(len(train_store), bs, shuffle=True, drop_last=True, seed=seed)
+            val_loader = (IndexBatcher(len(val_store), bs, shuffle=False, drop_last=True)
                           if val_store is not None else [])
             if not cfg.get("skip_val", False) and val_store is None:
                 print(f"[pretrain] WARNING: val split ({len(val_ds)} tiles) is smaller than "

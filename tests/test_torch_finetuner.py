@@ -141,6 +141,26 @@ def test_finetune_step_matches_jax(jax_side):
     assert sum(m.sum() for m in sensitive.values()) <= 5e-3 * total
 
 
+def test_store_step_matches_jax(jax_side):
+    """The device-store step at full width: the batch gathered from a store
+    by index (here the store holds the batch itself), the same tolerances."""
+    from maskedsst_tpu_torch.data.device_store import DeviceTileStore
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+
+    img, label = _batch(0)
+    tiles = SyntheticCubeDataset(num_tiles=3, n_bands=200, tile_size=8, seed=0)
+    store = DeviceTileStore([tiles[2], {"img": img[1], "label": label[1]},
+                             {"img": img[0], "label": label[0]}], "cpu")
+    trainer = _port_trainer(jax_side["params0"])
+    m = trainer.train_step_idx(store.arrays["img"], store.arrays["label"], [2, 1])
+    for key in ("loss", "acc", "macro_acc"):
+        assert abs(float(m[key]) - jax_side[key]) <= 2e-5, key
+    got = _leaves(grads_to_flax(trainer.model))
+    for name, want in jax_side["grads"].items():
+        err = np.abs(got[name] - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), f"{name}: {err:.3e}"
+
+
 def test_injected_crop_origin_matches_jax_prep(jax_side):
     jt = jax_side["crop_finetuner"]
     trainer = _port_trainer(jax_side["params0"])

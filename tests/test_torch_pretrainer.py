@@ -282,10 +282,33 @@ def test_store_and_index_batcher():
     np.testing.assert_array_equal(store.arrays["img"][3].numpy(), data[3]["img"])
     with pytest.raises(MemoryError):
         DeviceTileStore(data, "cpu", max_bytes=100)
-    batches = IndexBatcher(5, 2, shuffle=True, seed=3)
+    batches = IndexBatcher(5, 2, shuffle=True, drop_last=True, seed=3)
     assert len(batches) == 2
     first = list(batches)
     assert len(first) == 2 and sorted(np.concatenate(first).tolist()) != [0, 1, 2, 3]
-    assert IndexBatcher(5, 2, shuffle=False).take(3).tolist() == [[0, 1], [2, 3], [0, 1]]
+    assert IndexBatcher(5, 2, shuffle=False, drop_last=True).take(3).tolist() == [
+        [0, 1], [2, 3], [0, 1]]
     with pytest.raises(ValueError, match="no batches"):
-        IndexBatcher(1, 2).take(1)
+        IndexBatcher(1, 2, drop_last=True).take(1)
+
+
+def test_fit_store_path_drops_the_ragged_tail_as_jax():
+    """The store path's epochs (drop_last=True at its IndexBatcher, as the
+    JAX Pretrainer): 18 train tiles at batch 4 are 4 steps an epoch, each
+    a full batch of the JAX IndexBatcher's shuffle, never a -1."""
+    from maskedsst_tpu.data.device_store import IndexBatcher as JaxIndexBatcher
+
+    cfg = _cfg(get_pretrain_config, **NARROW, batch_size=4, skip_val=True)
+    data = SyntheticCubeDataset(num_tiles=20, n_bands=20, labeled=False, seed=0)
+    trainer = Pretrainer(cfg, device="cpu")
+    seen = []
+    step = trainer.train_step_idx
+    trainer.train_step_idx = lambda store, idx, **kw: seen.append(np.asarray(idx)) or step(
+        store, idx, **kw)
+    trainer.fit(data, epochs=2, log=lambda row: None, save_checkpoints=False)
+    want = JaxIndexBatcher(18, 4, shuffle=True, drop_last=True, seed=cfg.seed)
+    want = [b for _ in range(2) for b in want]
+    assert len(seen) == len(want) == 8 and trainer.state.step == 8
+    for got, w in zip(seen, want):
+        np.testing.assert_array_equal(got, w)
+        assert got.min() >= 0

@@ -165,6 +165,38 @@ def test_plateau_scheduler_matches_jax():
     assert optim.get_learning_rates(opt)[0] < 0.005  # it did reduce
 
 
+@pytest.mark.parametrize("groups", ["pretrain", "head_backbone"])
+def test_plateau_scheduler_keeps_cutting_small_rates_as_jax(groups):
+    """800 flat epochs (a validation loss of 1.0 each): the JAX scheduler
+    cuts every sixth epoch however small the rate; torch's default eps 1e-8
+    would stop cutting at 1e-7 (from lr 0.008 at epoch 654, ending at
+    9.15e-8 against JAX's 6.57e-9). The pretraining recipe's single AdamW
+    group from 0.008, and the finetune recipe's head and backbone groups.
+    JAX holds each rate in fp32, one rounding per cut (133 cuts): rel 1e-5."""
+    model = _Tiny()
+    if groups == "pretrain":
+        opt = optim.build_pretrain_optimizer(model, "AdamW", 0.008, 0.05)
+        tx = jax_optim.build_optimizer("AdamW", 0.008, 0.05)
+    else:
+        opt = optim.build_optimizer(model, 0.0005, 0.005, head_lr=0.005,
+                                    head_label_fn=optim.make_head_label_fn(None))
+        tx = jax_optim.build_optimizer("Adam", 0.0005, 0.005, head_lr=0.005,
+                                       head_label_fn=jax_head_fn(None))
+    sched = optim.plateau_scheduler(opt)
+    state = tx.init(jax.tree_util.tree_map(jnp.asarray, flax_from_params(model.state_dict())))
+    jsched = jax_optim.ReduceLROnPlateau(factor=0.9, patience=5)
+    start = optim.get_learning_rates(opt)
+    for _ in range(800):
+        sched.step(1.0)
+        state = jsched.update(state, 1.0)
+        assert optim.get_learning_rates(opt) == pytest.approx(
+            jax_optim.get_learning_rates(state), rel=1e-5)
+    for lr, lr0 in zip(optim.get_learning_rates(opt), start):
+        assert lr == pytest.approx(lr0 * 0.9 ** 133, rel=1e-12)
+    if groups == "pretrain":
+        assert optim.get_learning_rates(opt)[0] == pytest.approx(6.57e-9, rel=1e-3)
+
+
 def test_set_learning_rates():
     opt = optim.build_optimizer(_Tiny(), 0.001, 0.0, head_lr=0.01,
                                 head_label_fn=optim.make_head_label_fn(None))
@@ -246,7 +278,8 @@ def test_get_dataset_synthetic():
     hcfg.synthetic_tiles = 2
     hds = get_dataset(hcfg, supervised=True, synthetic=True)
     assert hds[0]["img"].shape == (50, 8, 8)  # 5 spectral blocks: seq 5
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the real branch: the config's dfc train_path is not in the repo
+    with pytest.raises(FileNotFoundError, match="data/enmap_dfc_dataset/MexicoCity/train"):
         get_dataset(cfg, supervised=True, synthetic=False)
 
 
