@@ -125,7 +125,28 @@ Phases:
      10 steps each at batch 32 with the layer kernels' launches; (e) the
      finetune and pretrain drivers in process on a config whose train
      paths are the stores, 20 steps each, each writing its _at_step20
-     checkpoint.
+     checkpoint;
+  8. drivers (data/pipeline.py's prefetch thread, utils/tracking.py, the
+     finetune_sweep and inference_example entry points): (a) phase 7's
+     labeled .msts finetuned at batch 64 (2 epochs) and 2 (1 epoch) on the
+     device store, streamed with prefetch 2 and with prefetch 0, and at
+     batch 64 also read sample by sample (prefetch 2 and 0): per-step
+     losses, parameters, Adam moments and the generator equal bit for bit,
+     phase 3's launches a step, the threads back to their count after
+     fit, steps/s of each path; (b) Houston2018's random patches streamed
+     with prefetch 2 and 0 from the same seeds, 30 steps: bit for bit, and
+     no producer thread left 1 s after the max_steps break mid-epoch; (c)
+     the pretraining driver with --log-grad-norm and --jsonl (bf16 20
+     steps, fp32 10): the boundary rows' keys, grad_norm finite and > 0
+     and each the mean of its window, every step's norm within 1e-6 of the
+     fp64 norm of that step's gradients before the clamp, phase 4's
+     launches a step; (d) finetune_sweep from (c)'s checkpoint with --set
+     overrides: the learned positions and the block kernel carried bit for
+     bit, a fresh head, phase 3's launches a step; (e) inference_example
+     --tiles 8 from (d)'s checkpoint in fp32: #1 and #3 launched once per
+     window batch of a tile, the logits within 1e-3 of the same model's
+     plain versions on the CPU, the argmax equal wherever the top-2 margin
+     exceeds 1e-3.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -141,8 +162,10 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1165,7 +1188,6 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
     from maskedsst_tpu_torch.train.finetuner import Finetuner
     from maskedsst_tpu_torch.train.pretrainer import Pretrainer
 
-    quiet = lambda row: None  # noqa: E731
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     out: dict = {}
     try:
@@ -1181,9 +1203,11 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
             return Pretrainer(cfg.copy(), dtype=torch.bfloat16, device="cuda")
 
         control = pretrainer()
-        hist_c = control.fit(data, epochs=3, max_steps=budget, log=quiet, save_checkpoints=False)
+        hist_c = control.fit(data, epochs=3, max_steps=budget, tracker=quiet_tracker(),
+                             save_checkpoints=False)
         interrupted = pretrainer()
-        interrupted.fit(data, epochs=3, max_steps=stop, log=quiet, models_dir=tmp, run_id="pre")
+        interrupted.fit(data, epochs=3, max_steps=stop, tracker=quiet_tracker("pre"),
+                        models_dir=tmp)
         path = os.path.join(tmp, "pre", f"model_{cfg.encoder_name}_at_step{stop}.pt")
         check(os.path.exists(path) and os.path.exists(
                   os.path.join(tmp, "pre", f"model_{cfg.encoder_name}_ep0.pt")),
@@ -1222,7 +1246,8 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
         seen: list = []
         counting_steps(resumed, "train_step_idx", seen)
         reset_counts()
-        hist_r = resumed.fit(data, epochs=3, max_steps=budget, log=quiet, save_checkpoints=False)
+        hist_r = resumed.fit(data, epochs=3, max_steps=budget, tracker=quiet_tracker(),
+                             save_checkpoints=False)
         torch.cuda.synchronize()
         out["pretrain_resume"] = launch_counts()
         steps = budget - stop
@@ -1302,16 +1327,16 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
         fspe = -(-len(train_ds) // TRAIN_BATCH)
         fbudget, fstop = 2 * fspe + 1, fspe + 1
         control, _ = finetuner(True)
-        control.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, log=quiet,
+        control.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, tracker=quiet_tracker(),
                     save_checkpoints=False)
         interrupted, _ = finetuner(True)
-        hist_i = interrupted.fit(train_ds, val_ds, epochs=3, max_steps=fstop, log=quiet,
-                                 models_dir=tmp, run_id="ft")
+        hist_i = interrupted.fit(train_ds, val_ds, epochs=3, max_steps=fstop,
+                                 tracker=quiet_tracker("ft"), models_dir=tmp)
         fpath = os.path.join(tmp, "ft", f"{ft.method_name}_at_step{fstop}.pt")
         resumed, _ = finetuner(False)
         at = resumed.resume(fpath)
         best = resumed._resume_extra.get("best_val_acc")
-        resumed.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, log=quiet,
+        resumed.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, tracker=quiet_tracker(),
                     save_checkpoints=False)
         diff = states_equal(control.state, resumed.state)
         same_sched = control.scheduler.state_dict() == resumed.scheduler.state_dict()
@@ -1345,6 +1370,16 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
 
 
 
+def quiet_tracker(run_id=None):
+    """A Tracker that prints and writes nothing; ``run_id`` names the
+    directory of the checkpoints that fit writes."""
+    from maskedsst_tpu_torch.utils.tracking import Tracker
+
+    tracker = Tracker("chip_smoke", use_wandb=False, quiet=True)
+    tracker.run_id = run_id or tracker.run_id
+    return tracker
+
+
 def recording_steps(trainer, name: str, seen: list, metrics: list):
     """Wraps the trainer's step method ``name`` so that each call records
     its launches (counted on the host as they are made) and its metrics,
@@ -1367,12 +1402,13 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
         np.ascontiguousarray(a).view(np.uint8), np.ascontiguousarray(b).view(np.uint8))
 
 
-def phase_real_data(card: str, per_step: dict):
+def phase_real_data(card: str, per_step: dict, store_dir: str):
     """The real data path: the .msts packer and reader, finetuning from a
     packed store through get_dataset (the device-store path against the
     streaming path, validation on the card, a store-path resume),
     pretraining from an unlabeled store, Houston2018 on an injected
-    full-size scene, and both drivers on the stores."""
+    full-size scene, and both drivers on the stores. The labeled store is
+    packed into ``store_dir`` (phase 8 reads it; the caller removes it)."""
     import glob
     import shutil
     import tempfile
@@ -1394,7 +1430,6 @@ def phase_real_data(card: str, per_step: dict):
     from maskedsst_tpu_torch.train.finetuner import Finetuner
     from maskedsst_tpu_torch.train.pretrainer import Pretrainer
 
-    quiet = lambda row: None  # noqa: E731
     tmp = tempfile.mkdtemp(prefix="chip_smoke_real_")
     out: dict = {}
     try:
@@ -1402,7 +1437,7 @@ def phase_real_data(card: str, per_step: dict):
         t0 = time.perf_counter()
         # the packer's synthetic tiles are seeded by 0
         labeled = packer.main(["--synthetic", "--synthetic-tiles", "512", "--n-bands", "200",
-                               "--out", os.path.join(tmp, "dfc.msts")])
+                               "--out", os.path.join(store_dir, "dfc.msts")])
         unlabeled = packer.main(["--synthetic", "--synthetic-tiles", "256", "--n-bands", "200",
                                  "--unlabeled", "--out", os.path.join(tmp, "enmap.msts")])
         print(f"     packed {labeled} ({os.path.getsize(labeled) / 1e9:.2f} GB) and {unlabeled} "
@@ -1472,8 +1507,8 @@ def phase_real_data(card: str, per_step: dict):
                 seen, metrics = [], []
                 recording_steps(trainer, "train_step_idx" if device_data else "train_step",
                                 seen, metrics)
-                hist = trainer.fit(train_ds, val_ds, epochs=epochs, max_steps=10**9, log=quiet,
-                                   save_checkpoints=False)
+                hist = trainer.fit(train_ds, val_ds, epochs=epochs, max_steps=10**9,
+                                   tracker=quiet_tracker(), save_checkpoints=False)
                 runs[device_data] = trainer, hist, seen, [float(m["loss"]) for m in metrics]
             store, h_store, seen, losses = runs[True]
             stream, h_stream, _, s_losses = runs[False]
@@ -1520,14 +1555,14 @@ def phase_real_data(card: str, per_step: dict):
         spe = -(-len(train_ds) // TRAIN_BATCH)
         budget, stop = 2 * spe + 3, spe + 3
         control = finetuner(TRAIN_BATCH, 0.0, True)
-        control.fit(train_ds, val_ds, epochs=3, max_steps=budget, log=quiet,
+        control.fit(train_ds, val_ds, epochs=3, max_steps=budget, tracker=quiet_tracker(),
                     save_checkpoints=False)
         interrupted = finetuner(TRAIN_BATCH, 0.0, True)
-        interrupted.fit(train_ds, val_ds, epochs=3, max_steps=stop, log=quiet, models_dir=tmp,
-                        run_id="ft")
+        interrupted.fit(train_ds, val_ds, epochs=3, max_steps=stop, tracker=quiet_tracker("ft"),
+                        models_dir=tmp)
         resumed = finetuner(TRAIN_BATCH, 0.0, True)
         at = resumed.resume(os.path.join(tmp, "ft", f"{ft.method_name}_at_step{stop}.pt"))
-        hist = resumed.fit(train_ds, val_ds, epochs=3, max_steps=budget, log=quiet,
+        hist = resumed.fit(train_ds, val_ds, epochs=3, max_steps=budget, tracker=quiet_tracker(),
                            save_checkpoints=False)
         diff = states_equal(control.state, resumed.state)
         same_sched = control.scheduler.state_dict() == resumed.scheduler.state_dict()
@@ -1556,7 +1591,7 @@ def phase_real_data(card: str, per_step: dict):
         trainer = Pretrainer(pc, dtype=torch.bfloat16, tile_size=tile_size(pdata), device="cuda")
         seen, metrics = [], []
         recording_steps(trainer, "train_step_idx", seen, metrics)
-        trainer.fit(pdata, max_steps=10, log=quiet, save_checkpoints=False)
+        trainer.fit(pdata, max_steps=10, tracker=quiet_tracker(), save_checkpoints=False)
         losses = [float(m["loss"]) for m in metrics]
         check(len(seen) == 10 and all(c == per_step["pretrain"] for c in seen)
               and all(math.isfinite(v) for v in losses),
@@ -1593,7 +1628,7 @@ def phase_real_data(card: str, per_step: dict):
             recording_steps(trainer, "train_step_idx" if want_store else "train_step",
                             seen, metrics)
             t0 = time.perf_counter()
-            hist = trainer.fit(train, val, epochs=1, max_steps=10, log=quiet,
+            hist = trainer.fit(train, val, epochs=1, max_steps=10, tracker=quiet_tracker(),
                                save_checkpoints=False)
             losses = [float(m["loss"]) for m in metrics]
             where = (f"the device store ({len(train)} patches, "
@@ -1636,6 +1671,7 @@ def phase_real_data(card: str, per_step: dict):
                   f"trained from its .msts, wrote {ckpt} and printed '{final}' in "
                   f"{time.perf_counter() - t0:.1f} s")
         out["counts"] = launch_counts()
+        out["labeled"] = labeled
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, n in out["counts"].items():
@@ -1859,6 +1895,379 @@ def phase_tools(card: str):
     return check_path, model_paths, drop_cases, houston_counts, seen[0]
 
 
+@contextlib.contextmanager
+def class_recording(cls, name: str, seen: list, metrics: list):
+    """``recording_steps`` for every instance of ``cls``: the drivers make
+    their trainers themselves. Restores the method on exit."""
+    step = getattr(cls, name)
+
+    def recorded(self, *args, **kwargs):
+        before = launch_counts()
+        out = step(self, *args, **kwargs)
+        after = launch_counts()
+        seen.append({n: after[n] - before[n] for n in after})
+        metrics.append(out)
+        return out
+
+    setattr(cls, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(cls, name, step)
+
+
+class PerSampleReads:
+    """A dataset without its batch read: the loader reads it sample by
+    sample and collates."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+
+def prefetch_threads() -> list:
+    import threading
+
+    return [t for t in threading.enumerate() if t.name == "DataLoader-prefetch" and t.is_alive()]
+
+
+def threads_back(before: int, limit_s: float = 1.0) -> float:
+    """Seconds until ``threading.active_count()`` is back to ``before`` and
+    no prefetch thread is alive, or -1 when that takes longer than
+    ``limit_s``."""
+    import threading
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 <= limit_s:
+        if threading.active_count() == before and not prefetch_threads():
+            return time.perf_counter() - t0
+        time.sleep(0.01)
+    return -1.0
+
+
+def run_quietly(log_path: str, main, argv):
+    """A driver's main(argv) with its standard output sent to log_path;
+    returns its result and its output's lines."""
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        result = main(argv)
+    with open(log_path) as log:
+        return result, [line.rstrip("\n") for line in log]
+
+
+def phase_drivers(card: str, per_step: dict, labeled: str):
+    """Phase 8, the drivers: the loader's prefetch thread on phase 7's
+    .msts and on Houston2018's random patches, pretraining through its
+    driver with a JSONL Tracker and log_grad_norm, the sweep driver from
+    that pretraining checkpoint, and the inference example from the
+    sweep's checkpoint."""
+    import copy
+    import glob
+    import threading
+
+    import torch
+
+    from maskedsst_tpu_torch import finetune_sweep, inference_example
+    from maskedsst_tpu_torch import pretrain as pretrain_driver
+    from maskedsst_tpu_torch.config import get_finetune_config
+    from maskedsst_tpu_torch.data.houston2018 import Houston2018Dataset
+    from maskedsst_tpu_torch.data.pipeline import split_dataset
+    from maskedsst_tpu_torch.data.resolve import get_dataset, tile_size
+    from maskedsst_tpu_torch.ops import dropout_sample
+    from maskedsst_tpu_torch.serve import Predictor
+    from maskedsst_tpu_torch.train import pretrainer as pretrainer_mod
+    from maskedsst_tpu_torch.train.checkpoint import restore_params
+    from maskedsst_tpu_torch.train.factory import build_finetune_model
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+    out: dict = {"steps_per_s": {}}
+    drop_before = dropout_sample.launches
+    reset_counts()
+    try:
+        # --- (a) phase 7's .msts: the store, streamed with prefetch 2 and 0 --
+        ft = get_finetune_config("configs/finetune_config_enmap.yaml", "configs/config.yaml",
+                                 seed=SEED)
+        ft.train_path = labeled
+        dataset = get_dataset(ft, supervised=True)
+        val_ds, train_ds = split_dataset(dataset, ft.train_fraction, ft.data_fraction, SEED)
+        # streamed: a batch read a batch at a time (read_batch), or sample
+        # by sample and collated, as the JAX loader reads
+        paths = {"store": (True, 2, False), "prefetch 2": (False, 2, False),
+                 "prefetch 0": (False, 0, False),
+                 "per-sample reads, prefetch 2": (False, 2, True),
+                 "per-sample reads, prefetch 0": (False, 0, True)}
+        for batch, route, epochs in ((TRAIN_BATCH, "emb_dropout_0", 2), (2, "recipe", 1)):
+            names = list(paths) if batch == TRAIN_BATCH else list(paths)[:3]
+            runs = {}
+            for name in names:
+                device_data, prefetch, per_sample = paths[name]
+                cfg = ft.copy()
+                cfg.batch_size = batch
+                cfg.transformer_emb_dropout = 0.0 if route == "emb_dropout_0" else 0.1
+                cfg.device_data, cfg.prefetch = device_data, prefetch
+                cfg.max_steps = 0  # the config's budget: a validation at every epoch end
+                model, kw = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
+                trainer = Finetuner(cfg, model, tile_size=64, **kw)
+                seen, metrics = [], []
+                recording_steps(trainer, "train_step_idx" if device_data else "train_step",
+                                seen, metrics)
+                threads = threading.active_count()
+                hist = trainer.fit(PerSampleReads(train_ds) if per_sample else train_ds, val_ds,
+                                   epochs=epochs, max_steps=10**9, tracker=quiet_tracker(),
+                                   save_checkpoints=False)
+                runs[name] = (trainer, hist, seen, [float(m["loss"]) for m in metrics],
+                              threads_back(threads))
+            tag = f"drivers: .msts finetune batch {batch} ({route}, bf16, {epochs} epochs)"
+            store, h_store, seen, losses, _ = runs["store"]
+            steps = epochs * -(-len(train_ds) // batch)
+            for name in names[1:]:
+                other, hist, o_seen, o_losses, back = runs[name]
+                diff = states_equal(store.state, other.state)
+                check(h_store["device_store"] and not hist["device_store"]
+                      and len(seen) == len(o_seen) == steps
+                      and all(c == per_step[route] for c in seen + o_seen)
+                      and losses == o_losses and all(math.isfinite(v) for v in losses)
+                      and not diff and back >= 0,
+                      f"{tag}: streamed with {name} == the store path bit for bit: {steps} "
+                      f"per-step losses (last {losses[-1]:.6f}), every parameter and Adam moment, "
+                      f"the generator (differ: {diff[:6] or 'none'}); each step launching phase "
+                      f"3's {per_step[route]}; threads back to their count {back:.3f} s after fit")
+            check([v["acc"] for v in runs["prefetch 2"][1]["val"]]
+                  == [v["acc"] for v in runs["prefetch 0"][1]["val"]],
+                  f"{tag}: validation of the streamed runs equal with prefetch 2 and 0: "
+                  f"{[v['acc'] for v in runs['prefetch 2'][1]['val']]}")
+            rate = {name: runs[name][1]["throughput"]["steps_per_s"] for name in names}
+            out["steps_per_s"][f"msts_b{batch}"] = rate
+            print(f"     {tag}: store path {rate['store']:.2f} steps/s; streamed "
+                  + ", ".join(f"with {name} {rate[name]:.2f}" for name in names[1:])
+                  + f" ({steps} steps each, whole epochs timed with one synchronize each, "
+                  f"validation excluded) on {card}", flush=True)
+            del runs, store, trainer, model
+            torch.cuda.empty_cache()
+
+        # --- (b) Houston2018's random patches: streamed, prefetch 2 and 0 ---
+        t0 = time.perf_counter()
+        hrng = np.random.default_rng(SEED)
+        scene = hrng.standard_normal((50, 1202, 4768), dtype=np.float32)
+        scene[48:] = 0.0
+        gt = hrng.integers(-1, 20, (1202, 4768))
+        hc = get_finetune_config("configs/finetune_config_houston2018.yaml",
+                                 "configs/config.yaml", seed=SEED)
+        print(f"     Houston2018 scene [50, 1202, 4768] made in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        hsteps = 30
+        runs = {}
+        for prefetch in (2, 0):
+            drawn = Houston2018Dataset("", "", patch_size=8, fix_train_patches=False,
+                                       drop_unlabeled=True, img=scene, label=gt, seed=SEED)
+            val, train = split_dataset(drawn, hc.train_fraction, hc.data_fraction, SEED)
+            cfg = hc.copy()
+            cfg.prefetch = prefetch
+            model, kw = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
+            trainer = Finetuner(cfg, model, tile_size=tile_size(drawn), **kw)
+            seen, metrics = [], []
+            recording_steps(trainer, "train_step", seen, metrics)
+            threads = threading.active_count()
+            hist = trainer.fit(train, val, epochs=1, max_steps=hsteps, tracker=quiet_tracker(),
+                               save_checkpoints=False)
+            back = threads_back(threads)
+            runs[prefetch] = (trainer, hist, seen, [float(m["loss"]) for m in metrics], back,
+                              len(train))
+        (t2, h2, seen2, l2, back2, n_train), (t0_, h0, seen0, l0, _, _) = runs[2], runs[0]
+        diff = states_equal(t2.state, t0_.state)
+        check(not h2["device_store"] and not h0["device_store"] and len(l2) == len(l0) == hsteps
+              and l2 == l0 and all(math.isfinite(v) for v in l2) and not diff
+              and all(c == per_step["recipe"] for c in seen2 + seen0),
+              f"drivers: houston2018 random patches streamed (batch {hc.batch_size}, bf16, "
+              f"{hsteps} of the epoch's {-(-n_train // hc.batch_size)} steps): prefetch 2 == "
+              f"prefetch 0 bit for bit: per-step losses (last {l2[-1]:.4f}), parameters, Adam "
+              f"moments, the generator (differ: {diff[:6] or 'none'}); each step launching "
+              f"{per_step['recipe']}")
+        check(0 <= back2 <= 1.0,
+              f"drivers: the max_steps break at step {hsteps} mid-epoch with prefetch 2 left no "
+              f"producer: threading.active_count() back to its count before fit in "
+              f"{back2:.3f} s (limit 1 s)")
+        rate = {k: runs[k][1]["throughput"]["steps_per_s"] for k in (2, 0)}
+        out["steps_per_s"]["houston_random"] = rate
+        print(f"     houston2018 random patches streamed: prefetch 2 {rate[2]:.2f} steps/s, "
+              f"prefetch 0 {rate[0]:.2f} ({hsteps} steps each, one synchronize at the end, "
+              f"batch {hc.batch_size}) on {card}", flush=True)
+        del runs, t2, t0_, trainer, model, scene, gt, drawn
+        torch.cuda.empty_cache()
+
+        # --- (c) the pretraining driver: a JSONL Tracker and log_grad_norm ---
+        models = os.path.join(tmp, "models")
+        raw_norms: list = []
+        clamp = pretrainer_mod.clamp_gradients_
+
+        def recording_clamp(params, bound):
+            """The raw gradients' global norm in fp64 on the host, then the
+            trainer's clamp."""
+            params = list(params)
+            norms = [torch.linalg.vector_norm(q.grad.double()) for q in params
+                     if q.grad is not None]
+            raw_norms.append(float(torch.linalg.vector_norm(torch.stack(norms))))
+            clamp(params, bound)
+
+        keys = {"epoch", "loss", "lr", "steps_per_sec", "items_per_sec",
+                "items_per_sec_per_chip", "grad_norm"}
+        for dtype_flag, steps in (("bf16", 20), ("fp32", 10)):
+            jsonl = os.path.join(tmp, f"pretrain_{dtype_flag}.jsonl")
+            argv = ["--synthetic", "--synthetic-tiles", str(10 * TRAIN_BATCH), "--steps",
+                    str(steps), "--log-grad-norm", "--jsonl", jsonl, "--models-dir",
+                    os.path.join(models, f"pretrain_{dtype_flag}")]
+            if dtype_flag == "fp32":
+                argv.append("--fp32")
+            # fp32 takes the FMA form of the layer backward, weight gradients included
+            want = dict(per_step["pretrain"], **({"layer_wgrad": 0} if dtype_flag == "fp32"
+                                                   else {}))
+            seen, metrics = [], []
+            raw_norms.clear()
+            pretrainer_mod.clamp_gradients_ = recording_clamp
+            t0 = time.perf_counter()
+            try:
+                with class_recording(Pretrainer, "train_step_idx", seen, metrics):
+                    run_quietly(os.path.join(tmp, f"pretrain_{dtype_flag}.log"),
+                                pretrain_driver.main, argv)
+            finally:
+                pretrainer_mod.clamp_gradients_ = clamp
+            with open(jsonl) as f:
+                rows = [json.loads(line) for line in f]
+            bounds = [r for r in rows if "lr" in r]
+            norms = [float(m["grad_norm"]) for m in metrics]
+            rel = max(abs(a - b) / b for a, b in zip(norms, raw_norms))
+            freq = 10
+            window_ok = all(
+                r["grad_norm"] == float(torch.stack([m["grad_norm"] for m in
+                                                     metrics[r["step"] - freq : r["step"]]])
+                                        .float().mean())
+                for r in bounds)
+            check(len(seen) == steps and all(c == want for c in seen)
+                  and [r["step"] for r in bounds] == list(range(freq, steps + 1, freq))
+                  and all(set(r) - {"step"} == keys for r in bounds)
+                  and all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0 for r in bounds)
+                  and window_ok and len(raw_norms) == steps and rel <= 1e-6,
+                  f"drivers: pretrain driver ({dtype_flag}, {steps} steps, --log-grad-norm, "
+                  f"--jsonl): each step launching {want}; boundary "
+                  f"rows at steps {[r['step'] for r in bounds]} with the keys {sorted(keys)}; "
+                  f"grad_norm {[round(r['grad_norm'], 6) for r in bounds]} finite, > 0, each "
+                  f"the mean of its window's per-step norms; every step's norm vs the fp64 norm "
+                  f"of that step's .grads before the clamp: max rel {rel:.2e} <= 1e-6 "
+                  f"({time.perf_counter() - t0:.1f} s); other rows "
+                  f"{[(r['step'], sorted(set(r) - {'step'})) for r in rows if 'lr' not in r]}")
+        pre_ckpt = glob.glob(os.path.join(models, "pretrain_bf16", "*",
+                                          "model_ViTSpatialSpectral_at_step20.pt"))
+        check(len(pre_ckpt) == 1, f"drivers: the pretrain driver wrote {pre_ckpt}")
+        torch.cuda.empty_cache()
+
+        # --- (d) the sweep driver from that pretraining checkpoint -----------
+        captured: dict = {}
+        fit = Finetuner.fit
+
+        def spy_fit(self, *args, **kwargs):
+            captured["trainer"] = self
+            captured["start"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            return fit(self, *args, **kwargs)
+
+        seen, metrics = [], []
+        argv = ["enmap", "--synthetic", "--steps", "20", "--set", "lr=0.001",
+                "--set", "linear_eval=false", "--set", f"checkpoint_path={pre_ckpt[0]}",
+                "--set", "spectral_pos_embed=false",
+                "--models-dir", os.path.join(models, "sweep")]
+        Finetuner.fit = spy_fit
+        t0 = time.perf_counter()
+        try:
+            with class_recording(Finetuner, "train_step_idx", seen, metrics):
+                _, lines = run_quietly(os.path.join(tmp, "sweep.log"), finetune_sweep.main, argv)
+        finally:
+            Finetuner.fit = fit
+        trainer = captured["trainer"]
+        start, ckpt = captured["start"], restore_params(pre_ckpt[0], "cuda")
+        carried = ("pos_embedding", "to_patch_embedding.blockwise_kernel")
+        fresh_model, _ = build_finetune_model(trainer.config, device="cpu")
+        fresh = fresh_model.state_dict()
+        head_fresh = all(torch.equal(start[k].cpu(), fresh[k]) for k in
+                         ("head_linear.weight", "head_linear.bias"))
+        rows = [line for line in lines if line.startswith("[enmap-simmim-downstream] step")]
+        cfg = trainer.config
+        check(all(torch.equal(start[k], ckpt[f"encoder.{k}"]) for k in carried) and head_fresh
+              and cfg.lr == 0.001 and cfg.linear_eval is False and cfg.spectral_pos_embed is False
+              and len(seen) == 20 and all(c == per_step["recipe"] for c in seen)
+              and all(math.isfinite(float(m["loss"])) for m in metrics)
+              and any(line.startswith("best val acc:") for line in lines) and len(rows) == 2,
+              f"drivers: finetune_sweep enmap --synthetic --steps 20 --set lr=0.001 --set "
+              f"linear_eval=false --set spectral_pos_embed=false --set checkpoint_path=<(c)'s "
+              f".pt>: {', '.join(carried)} equal the checkpoint's bit for bit, head_linear "
+              f"fresh (a seeded model's); each of {len(seen)} steps launching phase 3's "
+              f"{per_step['recipe']}; {len(rows)} tracker rows, e.g. '{rows[-1] if rows else ''}'; "
+              f"{time.perf_counter() - t0:.1f} s")
+        ft_ckpt = glob.glob(os.path.join(models, "sweep", "*", "ViTSpatialSpectral_at_step20.pt"))
+        check(len(ft_ckpt) == 1, f"drivers: the sweep driver wrote {ft_ckpt}")
+        del trainer, captured, fresh_model
+        torch.cuda.empty_cache()
+
+        # --- (e) the inference example from the sweep's checkpoint -----------
+        tiles = 8
+        before = launch_counts()
+        t0 = time.perf_counter()
+        result, lines = run_quietly(os.path.join(tmp, "inference.log"), inference_example.main,
+                                    ["--synthetic", "--tiles", str(tiles), "--checkpoint",
+                                     ft_ckpt[0]])
+        after = launch_counts()
+        out["counts"] = launch_counts()  # the main path ends here
+        used = {n: after[n] - before[n] for n in after}
+        model, config = result["model"], result["config"]
+        depth = config.transformer_depth
+        want = {n: 0 for n in used}
+        want.update(fused_layer_fwd=2 * depth * tiles, fused_embed_fwd=tiles)
+        state = model.state_dict()
+        trained = restore_params(ft_ckpt[0], "cuda")
+        fresh_model, _ = build_finetune_model(config, device="cpu")
+        fresh = fresh_model.state_dict()
+        carried = [k for k in state if k in trained and not k.startswith("head_linear.")]
+        kept = sorted(k for k in state if k not in carried)
+        check(used == want and result["windows"].shape[0] == tiles * 64
+              and all(torch.equal(state[k], trained[k]) for k in carried)
+              and all(torch.equal(state[k].cpu(), fresh[k]) for k in kept)
+              and any(line.startswith(f"mean tile accuracy over {tiles} tiles") for line in lines),
+              f"drivers: inference_example --synthetic --tiles {tiles} --checkpoint <(d)'s .pt> "
+              f"(fp32): launches {used} == {want} ({tiles} window batches of 64, one a tile); "
+              f"{len(carried)} tensors equal to the checkpoint's, fresh as a seeded model (the "
+              f"loader's head surgery; the recipe's sin-cos tables where the sweep learned "
+              f"positions): {kept}; '{lines[-1]}' ({time.perf_counter() - t0:.1f} s)")
+        windows = result["windows"]
+        logits = Predictor(model, batch_size=64)(windows)
+        ref = Predictor(copy.deepcopy(model), batch_size=64, device="cpu")(windows)
+        err = float((np.abs(logits - ref) / np.maximum(1.0, np.abs(ref))).max())
+        top2 = np.sort(ref, axis=1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        sure = margin > 1e-3
+        same = result["preds"] == ref.argmax(axis=1)
+        check(err <= TOL_MODEL["float32"] and bool(same[sure].all()),
+              f"drivers: the example's fp32 logits on the card vs the same model's plain "
+              f"versions on the CPU: max|d|/max(1,|ref|) {err:.3e} <= "
+              f"{TOL_MODEL['float32']:.0e}; its argmax equal at all {int(sure.sum())} of "
+              f"{sure.size} pixels whose top-2 margin exceeds 1e-3 "
+              f"({int((~same).sum())} differ in all)")
+        out["drop_launches"] = dropout_sample.launches - drop_before
+        del model, result, fresh_model
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, n in out["counts"].items():
+        check(n > 0, f"drivers path: {name} launched {n} times")
+    check(out["drop_launches"] == 0,
+          f"drivers path: dropout_sample launched {out['drop_launches']} times (a check-path "
+          "kernel)")
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
@@ -1931,8 +2340,16 @@ def main() -> int:
     ckpt = timed("phase 6 checkpoint path: pretraining resume, finetuning from the checkpoint, "
                  "the .pth round trip", phase_checkpoint, card, per_step["pretrain"],
                  per_step["emb_dropout_0"])
-    real = timed("phase 7 real data path: the .msts store, finetuning and pretraining from it, "
-                 "Houston2018 on a full-size scene, the drivers", phase_real_data, card, per_step)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_stores_")
+    try:
+        real = timed("phase 7 real data path: the .msts store, finetuning and pretraining from "
+                     "it, Houston2018 on a full-size scene, the drivers", phase_real_data, card,
+                     per_step, store_dir)
+        drivers = timed("phase 8 drivers: the prefetch thread, the tracked pretraining driver, "
+                        "the sweep driver, the inference example", phase_drivers, card, per_step,
+                        real["labeled"])
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
 
     batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
 
@@ -1975,11 +2392,12 @@ def main() -> int:
         entry["launches_checkpoint_resume"] = ckpt["pretrain_resume"][entry["name"]]
         entry["launches_checkpoint_finetune"] = ckpt["finetune"][entry["name"]]
         entry["launches_real_data"] = real["counts"][entry["name"]]
+        entry["launches_drivers"] = drivers["counts"][entry["name"]]
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",
         replaces="scripts/tpu_kernel_check.py:167", launches=drop_launches,
-        launches_model_paths=drop_model_paths,
+        launches_model_paths=drop_model_paths, launches_drivers=drivers["drop_launches"],
         max_abs_err=max(c["max_abs_err"] for c in drop_cases),
         ms=attn["ms"], plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
         bound_by=attn["bound_by"], library_ms=None, library_note=LIBRARY_NONE["dropout_sample"],

@@ -3,8 +3,9 @@
 A task YAML (pretrain or finetune) is merged with the shared
 ``config.yaml`` sections ``data[dataset]``, ``transformer`` and, for
 pretraining, ``masked_modeling``, last write wins, into an attribute-access
-object, so the repo's ``configs/*.yaml`` files drop in unchanged. Same
-semantics as the JAX package's ``config.py``.
+object, so the repo's ``configs/*.yaml`` files drop in unchanged; the sweep
+helpers coerce a controller's values and re-derive the derived fields.
+Same semantics as the JAX package's ``config.py``.
 """
 
 from __future__ import annotations
@@ -117,6 +118,55 @@ def get_finetune_config(
         hyper["patch_sub"] = 0
 
     return Config(hyper)
+
+
+def rederive_finetune_config(config: Config) -> Config:
+    """Recompute the derived finetune fields (``spectral_pos``,
+    ``patch_sub``; the li baseline's pixelwise assert) after sweep or
+    command-line overrides, so that a swept ``band_patch_size`` or
+    ``pixelwise`` leaves no stale field. Changes ``config`` in place and
+    returns it."""
+    if config.method_name == "li":
+        assert config.pixelwise, "the li baseline predicts a single center pixel"
+    elif config.method_name == "ViTSpatialSpectral":
+        config.spectral_pos = get_spectral_pos(
+            config.dataset, config.n_bands, config.band_patch_size
+        )
+    config.patch_sub = 1 if (config.pixelwise and config.image_size % 2 == 0) else 0
+    return config
+
+
+def verify_sweep_params(hyperparams: Dict[str, Any]) -> Dict[str, Any]:
+    """The sweep controller's values coerced: string booleans ("false",
+    "False") to bools, ``checkpoint_path`` "none"/"None" to None. An absent
+    ``spectral_pos_embed`` or ``blockwise_patch_embed`` reads True, an
+    absent ``spectral_only`` or ``pixelwise`` False; ``checkpoint_path``,
+    ``linear_eval``, ``shifting_window`` and ``overwrite_li_optim`` are
+    required (``KeyError``)."""
+    falsy = [False, "false", "False"]
+
+    def as_bool(key: str, allow_none: bool = False, required: bool = False) -> bool:
+        if required:
+            return hyperparams[key] not in falsy
+        val = hyperparams.get(key)
+        if allow_none:  # absent or None reads False
+            return val not in falsy + [None]
+        return val not in falsy  # absent reads True
+
+    checkpoint_path = hyperparams["checkpoint_path"]
+    if checkpoint_path in ["none", "None"]:
+        checkpoint_path = None
+
+    return {
+        "checkpoint_path": checkpoint_path,
+        "linear_eval": as_bool("linear_eval", required=True),
+        "spectral_pos_embed": as_bool("spectral_pos_embed"),
+        "blockwise_patch_embed": as_bool("blockwise_patch_embed"),
+        "spectral_only": as_bool("spectral_only", allow_none=True),
+        "pixelwise": as_bool("pixelwise", allow_none=True),
+        "shifting_window": as_bool("shifting_window", required=True),
+        "overwrite_li_optim": as_bool("overwrite_li_optim", required=True),
+    }
 
 
 def match_wavelengths_to_reference(

@@ -3,16 +3,31 @@
 ``split_dataset`` reproduces the reference's seeded
 ``torch.utils.data.random_split([val, train, rest], Generator(seed))`` (the
 same ``randperm`` stream), so train/val membership matches the JAX
-package's. ``DataLoader`` is synchronous: shuffle seeded per epoch, collate,
-and the trailing batch either dropped (``drop_last``) or padded to a
-multiple of ``pad_to_multiple`` with zero images and ``pad_label_value``
-labels (which the losses and metrics ignore); ``skip_next`` drops the
-first batches of the next epoch, where a resumed run starts mid-epoch. No
-prefetch thread yet (ROADMAP.md).
+package's. ``DataLoader``: shuffle seeded per epoch, collate, and the
+trailing batch either dropped (``drop_last``) or padded to a multiple of
+``pad_to_multiple`` with zero images and ``pad_label_value`` labels (which
+the losses and metrics ignore); ``skip_next`` drops the first batches of
+the next epoch, where a resumed run starts mid-epoch. A dataset with a
+``read_batch(indices)`` (the ``.msts`` store, also through ``Subset``) is
+read a batch at a time, which equals the per-sample reads collated.
+
+With ``prefetch`` > 0 (2 by default) a producer thread reads and collates
+up to that many batches ahead into a bounded queue: numpy reads only (the
+``.msts`` reader releases the GIL in its ctypes calls), never CUDA, torch
+tensors or a trainer's generator, so the batches and every draw of the
+trainer are those of ``prefetch=0``. A consumer that leaves an epoch early
+(a step budget's break) stops the producer, which drops its batches and
+ends within one read; a dataset error is raised in the consumer, never
+taken for the epoch's end. A dataset that draws anew on every read
+(``stochastic``) is read in order by the one producer, so it draws as the
+synchronous loader does; after an early exit its generator has advanced by
+the batches read ahead (the JAX loader does the same).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator, List, Sequence
 
 import numpy as np
@@ -54,6 +69,15 @@ class Subset:
     def __getitem__(self, i):
         return self.dataset[self.indices[i]]
 
+    @property
+    def read_batch(self):
+        """The wrapped dataset's batch read at the mapped indices, or None
+        when it has none."""
+        read = getattr(self.dataset, "read_batch", None)
+        if read is None:
+            return None
+        return lambda idx: read(np.asarray([self.indices[int(i)] for i in idx]))
+
 
 def _collate(samples: List[dict]) -> dict:
     out = {}
@@ -63,15 +87,28 @@ def _collate(samples: List[dict]) -> dict:
     return out
 
 
+class _Raised:
+    """A dataset error carried from the producer to the consumer."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+_END = object()
+
+
 class DataLoader:
-    """Epoch iterator over numpy batches ``{"img": ..., "label": ...}``."""
+    """Epoch iterator over numpy batches ``{"img": ..., "label": ...}``,
+    ``prefetch`` batches read ahead on a thread (0: on the caller's)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 pad_to_multiple: int = 1, pad_label_value: int = -1, drop_last: bool = False):
+                 pad_to_multiple: int = 1, pad_label_value: int = -1, drop_last: bool = False,
+                 prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.prefetch = prefetch
         self.pad_to_multiple = max(1, pad_to_multiple)
         self.pad_label_value = pad_label_value
         self.drop_last = drop_last
@@ -95,11 +132,51 @@ class DataLoader:
         if self.skip_next:
             # dropped by index: the already-trained batches' samples are never read
             batches, self.skip_next = batches[self.skip_next :], 0
-        for idx in batches:
-            yield self._make(idx)
+        if self.prefetch <= 0:
+            for idx in batches:
+                yield self._make(idx)
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()  # set when the consumer leaves the epoch
+
+        def put(item) -> bool:
+            """Every put gives way to ``stop``: a full queue must not hold
+            the thread, and its batches, after the consumer has left."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for idx in batches:
+                    if not put(self._make(idx)):
+                        return
+            except BaseException as exc:
+                put(_Raised(exc))
+                return
+            put(_END)
+
+        thread = threading.Thread(target=produce, name="DataLoader-prefetch", daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _END:
+                    return
+                if isinstance(item, _Raised):
+                    raise item.exc
+                yield item
+        finally:
+            stop.set()
 
     def _make(self, idx: np.ndarray) -> dict:
-        batch = _collate([self.dataset[int(i)] for i in idx])
+        read = getattr(self.dataset, "read_batch", None)
+        batch = read(idx) if read is not None else _collate([self.dataset[int(i)] for i in idx])
         m, n = self.pad_to_multiple, len(idx)
         if m > 1 and n % m:
             pad = m - n % m

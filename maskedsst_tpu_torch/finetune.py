@@ -3,7 +3,7 @@
 
     python -m maskedsst_tpu_torch.finetune {enmap|houston2018} [--config configs/config.yaml]
         [--synthetic] [--synthetic-tiles N] [--epochs N] [--steps N] [--fp32] [--cpu]
-        [--checkpoint PATH|none] [--resume CKPT] [--models-dir models]
+        [--checkpoint PATH|none] [--resume CKPT] [--models-dir models] [--jsonl PATH]
 
 The model comes from ``method_name`` in the finetune config (only
 ViTSpatialSpectral is ported) with weights made from the seed. Its encoder
@@ -17,8 +17,10 @@ bf16 compute (fp32 parameters) is the default, as in the JAX
 ``--cpu`` is given. The data comes from ``--config``'s data section (its
 ``train_path``: a ``.msts`` tile store, the EnMAP-DFC tile directory or the
 Houston2018 scene; a missing one raises), or from seeded synthetic cubes
-with ``--synthetic``. Prints ``FINAL train_loss=... best_val_acc=...`` at
-the end.
+with ``--synthetic``. The rows go through a ``Tracker`` of the JAX project
+name (``utils/tracking.py``: stdout, wandb only when its gate opens, and
+``--jsonl PATH`` one JSON object a row). Prints ``FINAL train_loss=...
+best_val_acc=...`` at the end.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--fp32", action="store_true",
                         help="fp32 compute (default: bf16 compute, fp32 parameters)")
     parser.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
+    parser.add_argument("--jsonl", default=None, metavar="PATH",
+                        help="also append the logged rows to PATH as JSON lines")
     args = parser.parse_args(argv)
     if args.resume and args.checkpoint not in (None, "none"):
         parser.error("--resume and --checkpoint are mutually exclusive: --resume restores the "
@@ -62,6 +66,7 @@ def main(argv=None) -> dict:
     from maskedsst_tpu_torch.data.resolve import get_dataset, tile_size
     from maskedsst_tpu_torch.train.factory import build_finetune_model, load_pretrained_params
     from maskedsst_tpu_torch.train.finetuner import Finetuner
+    from maskedsst_tpu_torch.utils.tracking import Tracker
 
     device = "cpu" if args.cpu else "cuda"
     if device == "cuda" and not torch.cuda.is_available():
@@ -98,8 +103,10 @@ def main(argv=None) -> dict:
     if args.resume:
         step = trainer.resume(args.resume)
         print(f"resumed from {args.resume} at step {step}")
-    history = trainer.fit(train_ds, val_ds, epochs=args.epochs, max_steps=args.steps,
-                          models_dir=args.models_dir)
+    tracker = Tracker("downstream", config, jsonl_path=args.jsonl)
+    history = trainer.fit(train_ds, val_ds, tracker=tracker, models_dir=args.models_dir,
+                          epochs=args.epochs, max_steps=args.steps)
+    tracker.finish()
     print(f"best val acc: {history['best_val_acc']:.4f}")
     if history["throughput"]:
         print("throughput:", {k: round(v, 2) for k, v in history["throughput"].items()})

@@ -8,6 +8,7 @@ a file either package packs, the other reads. Usage:
   batch = store.gather(indices)                  # [n, C, H, W] float32
   crops = store.gather_crop(indices, xs, ys, 8)  # [n, C, 8, 8]
   labels = store.gather_labels(indices)          # [n, H, W] int32
+  batch = store.read_batch(indices)              # {"img", "label" int64}: a DataLoader batch
 
 ``PackedTileStore(native=True)`` (the default) reads through the C++
 library, which ``g++`` builds at first use into ``build/native/`` at the
@@ -260,6 +261,15 @@ class PackedTileStore:
         if self.has_labels:
             sample["label"] = self.gather_labels([i])[0].astype(np.int64)
         return sample
+
+    def read_batch(self, indices) -> dict:
+        """The samples at ``indices`` collated, as ``DataLoader`` would stack
+        ``self[i]`` for each (the same values and dtypes), in one gather
+        each for the images and the labels."""
+        batch = {"img": self.gather(indices)}
+        if self.has_labels:
+            batch["label"] = self.gather_labels(indices).astype(np.int64)
+        return batch
 
     def close(self) -> None:
         if self._handle is not None:

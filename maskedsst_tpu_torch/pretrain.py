@@ -4,7 +4,8 @@
     python -m maskedsst_tpu_torch.pretrain
         [--pretrain-config configs/pretrain_config.yaml] [--config configs/config.yaml]
         [--synthetic] [--synthetic-tiles N] [--epochs N] [--steps N] [--batch-size N]
-        [--fp32] [--cpu] [--models-dir models] [--resume CKPT]
+        [--fp32] [--cpu] [--models-dir models] [--resume CKPT] [--jsonl PATH]
+        [--log-grad-norm]
 
 The model comes from the merged pretrain config with weights made from the
 seed. bf16 compute (fp32 parameters) is the default, as in the JAX
@@ -12,8 +13,11 @@ seed. bf16 compute (fp32 parameters) is the default, as in the JAX
 ``--cpu`` is given. The data comes from ``--config``'s data section (its
 ``train_path``: an unlabeled ``.msts`` tile store or the EnMAP tile
 directory; a missing one raises), or from seeded synthetic cubes with
-``--synthetic``. Full-state
-checkpoints go to ``models_dir/run_id/`` (``model_{encoder}_ep{N}.pt`` by
+``--synthetic``. The rows go through a ``Tracker`` of the JAX project
+name (``utils/tracking.py``: stdout, wandb only when its gate opens, and
+``--jsonl PATH`` one JSON object a row); ``--log-grad-norm`` adds the
+window's mean gradient norm to them. Full-state checkpoints go to
+``models_dir/run_id/`` (``model_{encoder}_ep{N}.pt`` by
 ``model_save_freq``, ``model_{encoder}_at_step{S}.pt`` at a ``--steps``
 break, each with a ``.json`` sidecar); ``--resume`` continues one exactly.
 Prints ``FINAL train_loss=...`` at the end when an epoch completed.
@@ -46,12 +50,17 @@ def main(argv=None) -> dict:
     parser.add_argument("--models-dir", default="models", help="where checkpoints go")
     parser.add_argument("--resume", default=None, metavar="CKPT",
                         help="continue from a full-state .pt checkpoint this driver wrote")
+    parser.add_argument("--jsonl", default=None, metavar="PATH",
+                        help="also append the logged rows to PATH as JSON lines")
+    parser.add_argument("--log-grad-norm", action="store_true",
+                        help="log the window's mean global norm of the raw gradients")
     args = parser.parse_args(argv)
     import torch
 
     from maskedsst_tpu_torch.config import get_pretrain_config
     from maskedsst_tpu_torch.data.resolve import get_dataset, tile_size
     from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+    from maskedsst_tpu_torch.utils.tracking import Tracker
 
     device = "cpu" if args.cpu else "cuda"
     if device == "cuda" and not torch.cuda.is_available():
@@ -62,6 +71,8 @@ def main(argv=None) -> dict:
     config.synthetic_tiles = args.synthetic_tiles
     if args.batch_size is not None:
         config.batch_size = args.batch_size
+    if args.log_grad_norm:
+        config.log_grad_norm = True
     dataset = get_dataset(config, supervised=False, synthetic=args.synthetic)
     trainer = Pretrainer(config, dtype=None if args.fp32 else torch.bfloat16,
                          tile_size=tile_size(dataset), device=device)
@@ -70,8 +81,10 @@ def main(argv=None) -> dict:
     if args.resume:
         step = trainer.resume(args.resume)
         print(f"resumed from {args.resume} at step {step}")
-    history = trainer.fit(dataset, epochs=args.epochs, max_steps=args.steps,
+    tracker = Tracker("enmap-mim-spatial-spectral", config, jsonl_path=args.jsonl)
+    history = trainer.fit(dataset, epochs=args.epochs, max_steps=args.steps, tracker=tracker,
                           models_dir=args.models_dir)
+    tracker.finish()
     if history["throughput"]:
         print("throughput:", {k: round(v, 2) for k, v in history["throughput"].items()})
     if history["train_loss"]:

@@ -15,19 +15,25 @@ moves only its index vector and gathers just its crop windows there
 (``train_step_idx``), and validation windows the tiles there
 (``_eval_sums_idx``). A set larger than the store's budget streams host
 batches (``DataLoader``) instead, as does a stochastic one; the two paths
-take the same samples and draws, so they give the same bits. The loop has
-the JAX loop's budgets: strict epoch/step overrides, validation on
-``get_val_epochs``, the plateau scheduler stepped at the end of every
-completed epoch with the last mean validation loss, and a raise when the
-logged loss is NaN. Metrics stay on the card until a logging boundary or
-an epoch's end; whole epochs are timed, each ending in one synchronize. It
-writes full-state checkpoints (``train/checkpoint.py``) at
+take the same samples and draws, so they give the same bits (the host
+batches are read ahead on the loader's thread, ``config.prefetch``, 2 by
+default). The loop has the JAX loop's budgets: strict epoch/step
+overrides, validation on ``get_val_epochs``, the plateau scheduler stepped
+at the end of every completed epoch with the last mean validation loss,
+and a raise when the logged loss is NaN. It logs the JAX loop's rows
+through a ``Tracker`` (``utils/tracking.py``): every ``logging_freq``
+steps the window means of loss, acc and macro_acc with the rate and the
+window's steps/s and items/s, after each validation ``val_loss``,
+``val_acc`` and ``val_macro_acc``. Metrics stay on the card until a
+logging boundary or an epoch's end; whole epochs are timed, each ending in
+one synchronize (``history["throughput"]``). It writes full-state
+checkpoints (``train/checkpoint.py``) to ``models_dir/run_id/`` at
 ``checkpoint_save_epochs`` and the epoch budget once a validation has run,
 ``best_{method}`` on a new best, and one at every budget end that saved
 nothing else; ``resume`` restores one with the loop state of its sidecar
 (scheduler, ``best_val_acc``, the last validation loss), and ``fit``
 continues it bit for bit. Not ported yet (ROADMAP.md): the superstep (CUDA
-graphs later), the tracker and multi-host.
+graphs later) and multi-host.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from __future__ import annotations
 import os
 import time
 from collections import deque
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +65,7 @@ from maskedsst_tpu_torch.train.optim import (
 from maskedsst_tpu_torch.train.pretrainer import largest_divisor
 from maskedsst_tpu_torch.train.train_state import TrainState
 from maskedsst_tpu_torch.train.windows import window_tiles
+from maskedsst_tpu_torch.utils.tracking import Throughput, Tracker
 
 
 def get_val_epochs(config: Config, steps_per_epoch: int) -> list:
@@ -300,15 +307,17 @@ class Finetuner:
         return self.state.step
 
     # --- loop ----------------------------------------------------------------
-    def fit(self, train_dataset, val_dataset, epochs: Optional[int] = None,
-            max_steps: Optional[int] = None, log: Callable[[dict], None] = print,
+    def fit(self, train_dataset, val_dataset, tracker: Optional[Tracker] = None,
             models_dir: str = "models", save_checkpoints: bool = True,
-            run_id: Optional[str] = None) -> dict:
-        """Train from the state's step to the budgets; checkpoints go to
-        ``models_dir/run_id/``."""
+            epochs: Optional[int] = None, max_steps: Optional[int] = None) -> dict:
+        """Train from the state's step to the budgets, logging to ``tracker``
+        (default: a ``Tracker`` of the JAX project name); checkpoints go to
+        ``models_dir/<tracker.run_id>/``."""
         cfg = self.config
-        cfg.run_id = run_id or f"local-{int(time.time())}-{os.getpid()}"
+        tracker = tracker or Tracker("downstream", cfg)
+        cfg.run_id = tracker.run_id
         cfg.num_params = self.num_params
+        tracker.update_config(cfg)
         run_dir = os.path.join(models_dir, str(cfg.run_id))
         val_bs = cfg.get("val_batch_size", cfg.batch_size)
         seed = int(cfg.get("seed", 5))
@@ -330,11 +339,12 @@ class Finetuner:
                                   drop_last=False, seed=seed)
             val_loader = IndexBatcher(len(val_store), val_bs, shuffle=False, drop_last=False)
         else:
+            prefetch = int(cfg.get("prefetch", 2))
             loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, seed=seed,
                                 pad_to_multiple=cfg.batch_size,
-                                pad_label_value=cfg.ignored_label)
+                                pad_label_value=cfg.ignored_label, prefetch=prefetch)
             val_loader = DataLoader(val_dataset, val_bs, shuffle=False, pad_to_multiple=val_bs,
-                                    pad_label_value=cfg.ignored_label)
+                                    pad_label_value=cfg.ignored_label, prefetch=prefetch)
         # config budgets run until BOTH are exhausted; explicit overrides stop
         # at whichever is hit first
         strict = epochs is not None or max_steps is not None
@@ -360,6 +370,8 @@ class Finetuner:
             loader.skip_next = resume_skip
         win = {k: deque(maxlen=cfg.logging_freq) for k in ("loss", "acc", "macro_acc")}
         train_seconds, train_steps = 0.0, 0
+        meter = Throughput(cfg.batch_size)
+        meter.start()
 
         def done() -> bool:
             if strict:
@@ -370,8 +382,10 @@ class Finetuner:
             means = {k: float(torch.stack(list(v)).float().mean()) for k, v in win.items() if v}
             if "loss" in means and not np.isfinite(means["loss"]):
                 raise ValueError("Loss is NaN")
-            log({"step": step, "epoch": epoch, **means,
-                 "lr": get_learning_rates(self.state.optimizer)[0]})
+            # the rates are read after the means' fetch, which waits for the card
+            tracker.log({"epoch": epoch, **means,
+                         "lr": get_learning_rates(self.state.optimizer)[0],
+                         **meter.window_stats()}, step=step)
 
         def loop_extra() -> dict:
             """The loop state a resume cannot rederive from the train state."""
@@ -404,6 +418,7 @@ class Finetuner:
                     win[k].append(metrics[k])
                 step += 1
                 consumed += 1
+                meter.tick()
                 if step % cfg.logging_freq == 0:
                     log_step()
                 if strict and step >= step_budget:
@@ -417,8 +432,9 @@ class Finetuner:
             if epoch_complete and (epoch in validation_epochs or epoch == epoch_budget):
                 val_mean = self.validate(val_loader, val_store)
                 if val_mean is not None:
-                    log({"step": step, "epoch": epoch, "val_loss": val_mean["loss"],
-                         "val_acc": val_mean["acc"], "val_macro_acc": val_mean["macro_acc"]})
+                    tracker.log({"epoch": epoch, "val_loss": val_mean["loss"],
+                                 "val_acc": val_mean["acc"],
+                                 "val_macro_acc": val_mean["macro_acc"]}, step=step)
                     history["val"].append(val_mean)
                     last_val_loss = val_mean["loss"]
                     if val_mean["acc"] > best_val_acc:

@@ -15,7 +15,8 @@ Pretraining:
   optax's ``adamw``: decoupled decay on every parameter;
 * before it, every gradient clamped elementwise to [-1, 1]
   (:func:`clamp_gradients_`, the JAX chain's ``optax.clip``: a value
-  clamp, not a norm clip).
+  clamp, not a norm clip); :func:`global_norm` of the raw gradients, taken
+  before the clamp, is the ``log_grad_norm`` metric.
 
 Schedulers: ``ReduceLROnPlateau(factor 0.9, patience 5, rel threshold
 1e-4)``, stepped by the mean validation loss, or :class:`CosineAnnealingLR`
@@ -114,6 +115,14 @@ def clamp_gradients_(params: Iterable[torch.Tensor], bound: float) -> None:
     for p in params:
         if p.grad is not None:
             p.grad.clamp_(-bound, bound)
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm``: the L2 norm of all the tensors together, as
+    one fp32 scalar where they lie (per-tensor norms, then the norm of
+    those)."""
+    norms = [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 class CosineAnnealingLR:

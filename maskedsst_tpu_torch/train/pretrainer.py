@@ -5,21 +5,28 @@ One training step: one crop origin per batch in [0, tile − image_size),
 then the mask (drawn on the card), then the dropout seeds, all from the
 trainer's generator; the SimMIM loss in train mode through the fused ops
 (the CUDA kernels on the card); backward; every gradient clamped to
-[-1, 1]; AdamW. The step returns the loss as a device tensor, and ``fit``
-reads it on the host only at logging boundaries and epoch ends.
+[-1, 1]; AdamW. The step returns the loss as a device tensor, and with
+``log_grad_norm`` the global L2 norm of the raw gradients (before the
+clamp) as another; ``fit`` reads them on the host only at logging
+boundaries and epoch ends.
 
 ``fit`` keeps the tiles on the card (``DeviceTileStore``: each step moves
 only its index vector and gathers just the crop windows there), or streams
-host batches when the set exceeds the store's budget; it has the JAX
-loop's epoch and step budgets, logs the mean loss every ``logging_freq``
-steps and raises when it is NaN, validates (sliding windows, one mask per
-chunk from a seed folded with the chunk index) and steps the scheduler on
-completed epochs only, and writes full-state checkpoints
-(``train/checkpoint.py``) after them, by ``model_save_freq``, and at a
-``max_steps`` break. ``resume`` restores one; ``fit`` then continues at its
-step, on the loader's epoch and past the batches already trained, so a
-resumed run gives the bits of an uninterrupted one. Not ported yet
-(ROADMAP.md): the superstep (CUDA graphs later), the tracker, multi-host.
+host batches (read ahead on the loader's thread) when the set exceeds the
+store's budget; it has the JAX loop's epoch and step budgets, logs through
+a ``Tracker`` (``utils/tracking.py``) the JAX loop's rows: every
+``logging_freq`` steps the window's mean loss (a raise when it is NaN),
+the rate, the window's steps/s and items/s and, with ``log_grad_norm``,
+the window's mean gradient norm; at a completed epoch's end the last
+step's loss and the validation loss. It validates (sliding windows, one
+mask per chunk from a seed folded with the chunk index) and steps the
+scheduler on completed epochs only, and writes full-state checkpoints
+(``train/checkpoint.py``) to ``models_dir/run_id/`` after them, by
+``model_save_freq``, and at a ``max_steps`` break. ``resume`` restores
+one; ``fit`` then continues at its step, on the loader's epoch and past
+the batches already trained, so a resumed run gives the bits of an
+uninterrupted one. Not ported yet (ROADMAP.md): the superstep (CUDA graphs
+later), multi-host.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from __future__ import annotations
 import os
 import time
 from collections import deque
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,9 +54,11 @@ from maskedsst_tpu_torch.train.optim import (
     build_scheduler,
     clamp_gradients_,
     get_learning_rates,
+    global_norm,
 )
 from maskedsst_tpu_torch.train.train_state import TrainState
 from maskedsst_tpu_torch.train.windows import window_tiles
+from maskedsst_tpu_torch.utils.tracking import Throughput, Tracker
 
 VAL_SEED = 7  # the JAX loop's validation key, PRNGKey(7)
 
@@ -122,6 +131,7 @@ class Pretrainer:
         optimizer = build_pretrain_optimizer(self.model, config.optimizer, config.lr,
                                              config.weight_decay)
         self.grad_clamp = 1.0 if config.get("clip_grad_norm") else None
+        self.log_grad_norm = bool(config.get("log_grad_norm", False))
         rng = torch.Generator().manual_seed(int(config.get("seed", 5)))
         self.state = TrainState(self.model, optimizer, rng)
         self.scheduler = build_scheduler(config.scheduler, optimizer)
@@ -135,8 +145,11 @@ class Pretrainer:
         x0, y0 = torch.randint(0, hi, (2,), generator=self.state.rng).tolist()
         return x0, y0
 
-    def _update(self, img: torch.Tensor, bool_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """Loss, backward, clamp, AdamW; the mask drawn when not given."""
+    def _update(self, img: torch.Tensor,
+                bool_mask: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Loss, backward, clamp, AdamW; the mask drawn when not given.
+        Returns the loss and, with ``log_grad_norm``, the raw gradients'
+        global norm, as device scalars."""
         model = self.model
         model.train()
         model.zero_grad(set_to_none=True)
@@ -144,10 +157,14 @@ class Pretrainer:
             bool_mask = model.sample_mask(img.shape[0], img.device, self.state.rng)
         loss = model(img, rng=self.state.rng, bool_mask=bool_mask)
         loss.backward()
+        metrics = {"loss": loss.detach()}
+        if self.log_grad_norm:
+            metrics["grad_norm"] = global_norm(
+                p.grad for p in model.parameters() if p.grad is not None)
         if self.grad_clamp is not None:
             clamp_gradients_(model.parameters(), self.grad_clamp)
         self.state.apply_gradients()
-        return loss.detach()
+        return metrics
 
     def train_step(self, tiles, xy: Optional[Tuple[int, int]] = None,
                    bool_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -162,7 +179,7 @@ class Pretrainer:
         else:
             tiles = tiles[:, :, :s, :s]
         img = tiles.to(self.device, torch.float32)
-        return {"loss": self._update(img, bool_mask)}
+        return self._update(img, bool_mask)
 
     def _gather_crop(self, store_img: torch.Tensor, idx: torch.Tensor, xy: Tuple[int, int],
                      s: int) -> torch.Tensor:
@@ -181,7 +198,7 @@ class Pretrainer:
             img = self._gather_crop(store_img, idx, xy if xy is not None else self._crop_draw(), s)
         else:
             img = store_img[idx][:, :, :s, :s]
-        return {"loss": self._update(img, bool_mask)}
+        return self._update(img, bool_mask)
 
     @torch.no_grad()
     def _step_val(self, tiles: torch.Tensor, seed: int,
@@ -222,16 +239,20 @@ class Pretrainer:
 
     # --- loop ----------------------------------------------------------------
     def fit(self, dataset, epochs: Optional[int] = None, max_steps: Optional[int] = None,
-            log: Callable[[dict], None] = print, models_dir: str = "models",
-            save_checkpoints: bool = True, run_id: Optional[str] = None) -> dict:
+            tracker: Optional[Tracker] = None, models_dir: str = "models",
+            save_checkpoints: bool = True) -> dict:
         """Train from the state's step to the budgets (``max_steps`` counts
-        from step 0, a resumed run's steps included); checkpoints go to
-        ``models_dir/run_id/``."""
+        from step 0, a resumed run's steps included), logging to ``tracker``
+        (default: a ``Tracker`` of the JAX project name); checkpoints go to
+        ``models_dir/<tracker.run_id>/``. A streamed set is read ahead by
+        ``config.prefetch`` batches (default 2; 0 reads on this thread)."""
         cfg = self.config
+        tracker = tracker or Tracker("enmap-mim-spatial-spectral", cfg)
         seed = int(cfg.get("seed", 5))
         bs = cfg.batch_size
-        cfg.run_id = run_id or f"local-{int(time.time())}-{os.getpid()}"
+        cfg.run_id = tracker.run_id
         cfg.model_params = self.num_params
+        tracker.update_config(cfg)
         run_dir = os.path.join(models_dir, str(cfg.run_id))
         val_ds, train_ds = split_dataset(dataset, cfg.train_fraction, cfg.data_fraction, seed)
 
@@ -256,8 +277,10 @@ class Pretrainer:
                       "never step (the reference's drop_last=True val loader is empty in this "
                       "regime too)")
         else:
-            loader = DataLoader(train_ds, bs, shuffle=True, seed=seed, drop_last=True)
-            val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=True)
+            prefetch = int(cfg.get("prefetch", 2))
+            loader = DataLoader(train_ds, bs, shuffle=True, seed=seed, drop_last=True,
+                                prefetch=prefetch)
+            val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=True, prefetch=prefetch)
 
         epochs = epochs if epochs is not None else cfg.epoch
         steps_per_epoch = max(1, len(loader))
@@ -275,8 +298,22 @@ class Pretrainer:
             model_save_freq = 10  # the switch at epoch 10 fired before the save
         freq = cfg.logging_freq
         window: deque = deque(maxlen=freq)  # device scalars until a logging boundary
+        gn_window: deque = deque(maxlen=freq)
         history: dict = {"train_loss": [], "val_loss": []}
         train_seconds = 0.0
+        meter = Throughput(bs)
+        meter.start()
+
+        def log_row(epoch: int) -> None:
+            loss = float(torch.stack(list(window)).float().mean())
+            if np.isnan(loss):
+                raise ValueError("Loss is NaN")
+            # the rates are read after the loss fetch, which waits for the card
+            row = {"epoch": epoch, "loss": loss,
+                   "lr": get_learning_rates(self.state.optimizer)[0], **meter.window_stats()}
+            if gn_window:
+                row["grad_norm"] = float(torch.stack(list(gn_window)).float().mean())
+            tracker.log(row, step=step)
 
         def sync():
             if self.device.type == "cuda":
@@ -298,17 +335,17 @@ class Pretrainer:
                 batches = loader
             for batch in batches:
                 if train_store is not None:
-                    last = self.train_step_idx(train_store.arrays["img"], batch)["loss"]
+                    metrics = self.train_step_idx(train_store.arrays["img"], batch)
                 else:
-                    last = self.train_step(batch["img"])["loss"]
+                    metrics = self.train_step(batch["img"])
+                last = metrics["loss"]
                 window.append(last)
+                if "grad_norm" in metrics:
+                    gn_window.append(metrics["grad_norm"])
                 step += 1
+                meter.tick()
                 if step % freq == 0:
-                    loss = float(torch.stack(list(window)).float().mean())
-                    if np.isnan(loss):
-                        raise ValueError("Loss is NaN")
-                    log({"step": step, "epoch": epoch, "loss": loss,
-                         "lr": get_learning_rates(self.state.optimizer)[0]})
+                    log_row(epoch)
                 if max_steps is not None and step >= max_steps:
                     break
             sync()
@@ -317,7 +354,7 @@ class Pretrainer:
             epoch_complete = step >= (epoch + 1) * steps_per_epoch
             if last is not None and epoch_complete:
                 history["train_loss"].append(float(last))
-                log({"step": step, "epoch": epoch, "loss": history["train_loss"][-1]})
+                tracker.log({"epoch": epoch, "loss": history["train_loss"][-1]}, step=step)
             if not cfg.get("skip_val", False) and epoch_complete:
                 val_losses = []
                 for vi, batch in enumerate(val_loader):
@@ -331,7 +368,7 @@ class Pretrainer:
                 if val_losses:
                     val_loss = float(np.mean(val_losses))
                     history["val_loss"].append(val_loss)
-                    log({"step": step, "epoch": epoch, "val_loss": val_loss})
+                    tracker.log({"epoch": epoch, "val_loss": val_loss}, step=step)
                     if isinstance(self.scheduler, torch.optim.lr_scheduler.ReduceLROnPlateau):
                         self.scheduler.step(val_loss)
             if isinstance(self.scheduler, CosineAnnealingLR) and epoch_complete:

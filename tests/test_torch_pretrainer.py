@@ -46,6 +46,7 @@ from maskedsst_tpu_torch.train.optim import (
     clamp_gradients_,
 )
 from maskedsst_tpu_torch.train.pretrainer import Pretrainer, fold_seed
+from maskedsst_tpu_torch.utils.tracking import Tracker
 
 CONFIGS = ("configs/pretrain_config.yaml", "configs/config.yaml")
 NARROW = dict(n_bands=20, transformer_dim=16, transformer_depth=1, transformer_n_heads=2,
@@ -62,6 +63,17 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+class _Capture(Tracker):
+    """A quiet tracker that keeps its (step, row) pairs."""
+
+    def __init__(self):
+        super().__init__("test", use_wandb=False, quiet=True)
+        self.rows = []
+
+    def log(self, metrics, step):
+        self.rows.append((step, dict(metrics)))
 
 
 def _cfg(get, **changes):
@@ -112,6 +124,7 @@ def jax_side():
         value, grads = vg(params, jnp.asarray(_batch(k)), jnp.asarray(_tube_masks(k, 2, 20)))
         if k == 1:
             out["loss"], out["grads"] = float(value), _leaves(grads)
+            out["grad_norm"] = float(optax.global_norm(grads))
         updates, opt_state = tx.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         out[f"params{k}"] = _leaves(params)
@@ -128,6 +141,7 @@ def test_pretrain_step_matches_jax(jax_side):
     trainer = _port_trainer(jax_side["params0"])
     lr = trainer.config.lr
     m = trainer.train_step(_batch(1), bool_mask=torch.from_numpy(_tube_masks(1, 2, 20)))
+    assert set(m) == {"loss"}  # no gradient norm without log_grad_norm
     assert abs(float(m["loss"]) - jax_side["loss"]) <= 2e-5 * abs(jax_side["loss"])
     got = _leaves(grads_to_flax(trainer.model))  # clamped in place: the loss's own are < 1
     assert got.keys() == jax_side["grads"].keys()
@@ -142,6 +156,16 @@ def test_pretrain_step_matches_jax(jax_side):
         for name, want in jax_side[f"params{k}"].items():
             err = np.abs(have[name] - want).max()
             assert err <= 1e-2 * lr, f"step {k} {name}: {err / lr:.3e} lr"
+
+
+def test_grad_norm_matches_optax_global_norm(jax_side):
+    """log_grad_norm: the global norm of step 1's raw gradients (before the
+    clamp) against optax.global_norm of the JAX gradients; without the flag
+    no norm is taken (test_pretrain_step_matches_jax)."""
+    trainer = _port_trainer(jax_side["params0"], log_grad_norm=True)
+    m = trainer.train_step(_batch(1), bool_mask=torch.from_numpy(_tube_masks(1, 2, 20)))
+    assert m["grad_norm"].dtype == torch.float32 and m["grad_norm"].dim() == 0
+    np.testing.assert_allclose(float(m["grad_norm"]), jax_side["grad_norm"], rtol=1e-4)
 
 
 def test_clamp_and_adamw_match_optax():
@@ -255,9 +279,10 @@ def test_fit_runs_budgets_and_validation():
     on completed epochs only, and the small-val-split warning."""
     cfg = _cfg(get_pretrain_config, **NARROW, batch_size=4, logging_freq=2)
     data = SyntheticCubeDataset(num_tiles=40, n_bands=20, labeled=False, seed=0)
-    rows = []
+    tracker = _Capture()
     trainer = Pretrainer(cfg, device="cpu")
-    history = trainer.fit(data, max_steps=12, log=rows.append, save_checkpoints=False)
+    history = trainer.fit(data, max_steps=12, tracker=tracker, save_checkpoints=False)
+    rows = [{"step": step, **row} for step, row in tracker.rows]
     # 36 train tiles -> 9 steps per epoch; val split 4 tiles = one batch
     assert trainer.state.step == 12
     assert len(history["train_loss"]) == 1 and len(history["val_loss"]) == 1
@@ -269,7 +294,7 @@ def test_fit_runs_budgets_and_validation():
 def test_fit_warns_when_val_split_is_smaller_than_a_batch(capsys):
     cfg = _cfg(get_pretrain_config, **NARROW, batch_size=8)
     data = SyntheticCubeDataset(num_tiles=20, n_bands=20, labeled=False, seed=0)
-    history = Pretrainer(cfg, device="cpu").fit(data, epochs=1, log=lambda row: None,
+    history = Pretrainer(cfg, device="cpu").fit(data, epochs=1, tracker=_Capture(),
                                                 save_checkpoints=False)
     assert "smaller than batch_size" in capsys.readouterr().out
     assert history["val_loss"] == [] and len(history["train_loss"]) == 1
@@ -305,7 +330,7 @@ def test_fit_store_path_drops_the_ragged_tail_as_jax():
     step = trainer.train_step_idx
     trainer.train_step_idx = lambda store, idx, **kw: seen.append(np.asarray(idx)) or step(
         store, idx, **kw)
-    trainer.fit(data, epochs=2, log=lambda row: None, save_checkpoints=False)
+    trainer.fit(data, epochs=2, tracker=_Capture(), save_checkpoints=False)
     want = JaxIndexBatcher(18, 4, shuffle=True, drop_last=True, seed=cfg.seed)
     want = [b for _ in range(2) for b in want]
     assert len(seen) == len(want) == 8 and trainer.state.step == 8

@@ -150,6 +150,44 @@ def test_store_plugs_into_the_pipeline(packed):
     np.testing.assert_array_equal(dev.arrays["label"][2].numpy(), data[train.indices[2]]["label"])
 
 
+class PerSample:
+    """The store without its batch read: the loader reads sample by sample."""
+
+    def __init__(self, store):
+        self.store = store
+
+    def __len__(self):
+        return len(self.store)
+
+    def __getitem__(self, i):
+        return self.store[i]
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("standardize", [None, STANDARDIZE], ids=["raw", "standardized"])
+@pytest.mark.parametrize("labeled", [True, False], ids=["labeled", "unlabeled"])
+def test_batch_reads_equal_per_sample_reads(packed, native, standardize, labeled):
+    """DataLoader batches through read_batch (the store, and a Subset of
+    it) equal the collated per-sample reads bit for bit, padding and the
+    dropped tail included."""
+    _, _, d = packed
+    store = PackedTileStore(str(d / ("lab.msts" if labeled else "unlab.msts")),
+                            standardize=standardize, native=native)
+    val, train = split_dataset(store, 0.75, seed=5)
+    pval, ptrain = split_dataset(PerSample(store), 0.75, seed=5)
+    assert train.read_batch is not None and ptrain.read_batch is None
+    for kw in (dict(pad_to_multiple=5), dict(drop_last=True)):
+        for ds, ref in ((store, PerSample(store)), (train, ptrain), (val, pval)):
+            got = list(DataLoader(ds, 2, seed=2, prefetch=0, **kw))
+            want = list(DataLoader(ref, 2, seed=2, prefetch=0, **kw))
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                assert g.keys() == w.keys() == ({"img", "label"} if labeled else {"img"})
+                for key in g:
+                    assert g[key].dtype == w[key].dtype
+                    np.testing.assert_array_equal(_bits(g[key]), _bits(w[key]))
+
+
 def test_packer_cli(tmp_path):
     from maskedsst_tpu_torch.etl import pack_tiles as cli
 
