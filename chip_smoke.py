@@ -109,7 +109,7 @@ Phases:
      EnMAP-DFC tiles [200, 64, 64] (labels -1..7, 1.68 GB) and 256
      unlabeled ones to .msts files; the native reader's gather, crops and
      labels, raw and standardized, equal the numpy reader bit for bit, and
-     its tiles/s and MB/s; (b) get_dataset -> split_dataset ->
+     its tiles/s and MB/s beside the host's CPUs and load; (b) get_dataset -> split_dataset ->
      Finetuner.fit from the labeled store at batch 64 (embedding dropout
      0, 2 epochs) and at the recipe's batch 2 (1 epoch), each on the
      device store and streamed from the host from the same weights and
@@ -134,8 +134,9 @@ Phases:
      losses, parameters, Adam moments and the generator equal bit for bit,
      phase 3's launches a step, the threads back to their count after
      fit, steps/s of each path; (b) Houston2018's random patches streamed
-     with prefetch 2 and 0 from the same seeds, 30 steps: bit for bit, and
-     no producer thread left 1 s after the max_steps break mid-epoch; (c)
+     with prefetch 2, 0, 0, 2 from the same seeds, 100 steps each: bit for
+     bit, no producer thread left 1 s after each max_steps break
+     mid-epoch, steps/s of each run; (c)
      the pretraining driver with --log-grad-norm and --jsonl (bf16 20
      steps, fp32 10): the boundary rows' keys, grad_norm finite and > 0
      and each the mean of its window, every step's norm within 1e-6 of the
@@ -187,6 +188,7 @@ from maskedsst_tpu_torch.utils.profiling import (  # noqa: E402
     device_ms,
     profile_step,
 )
+from tests.quiet_tracker import QuietTracker  # noqa: E402
 
 BATCH = 256
 TRAIN_BATCH = 64
@@ -1203,10 +1205,10 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
             return Pretrainer(cfg.copy(), dtype=torch.bfloat16, device="cuda")
 
         control = pretrainer()
-        hist_c = control.fit(data, epochs=3, max_steps=budget, tracker=quiet_tracker(),
+        hist_c = control.fit(data, epochs=3, max_steps=budget, tracker=QuietTracker(),
                              save_checkpoints=False)
         interrupted = pretrainer()
-        interrupted.fit(data, epochs=3, max_steps=stop, tracker=quiet_tracker("pre"),
+        interrupted.fit(data, epochs=3, max_steps=stop, tracker=QuietTracker("pre"),
                         models_dir=tmp)
         path = os.path.join(tmp, "pre", f"model_{cfg.encoder_name}_at_step{stop}.pt")
         check(os.path.exists(path) and os.path.exists(
@@ -1246,7 +1248,7 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
         seen: list = []
         counting_steps(resumed, "train_step_idx", seen)
         reset_counts()
-        hist_r = resumed.fit(data, epochs=3, max_steps=budget, tracker=quiet_tracker(),
+        hist_r = resumed.fit(data, epochs=3, max_steps=budget, tracker=QuietTracker(),
                              save_checkpoints=False)
         torch.cuda.synchronize()
         out["pretrain_resume"] = launch_counts()
@@ -1327,16 +1329,16 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
         fspe = -(-len(train_ds) // TRAIN_BATCH)
         fbudget, fstop = 2 * fspe + 1, fspe + 1
         control, _ = finetuner(True)
-        control.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, tracker=quiet_tracker(),
+        control.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, tracker=QuietTracker(),
                     save_checkpoints=False)
         interrupted, _ = finetuner(True)
         hist_i = interrupted.fit(train_ds, val_ds, epochs=3, max_steps=fstop,
-                                 tracker=quiet_tracker("ft"), models_dir=tmp)
+                                 tracker=QuietTracker("ft"), models_dir=tmp)
         fpath = os.path.join(tmp, "ft", f"{ft.method_name}_at_step{fstop}.pt")
         resumed, _ = finetuner(False)
         at = resumed.resume(fpath)
         best = resumed._resume_extra.get("best_val_acc")
-        resumed.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, tracker=quiet_tracker(),
+        resumed.fit(train_ds, val_ds, epochs=3, max_steps=fbudget, tracker=QuietTracker(),
                     save_checkpoints=False)
         diff = states_equal(control.state, resumed.state)
         same_sched = control.scheduler.state_dict() == resumed.scheduler.state_dict()
@@ -1368,16 +1370,6 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
-
-
-def quiet_tracker(run_id=None):
-    """A Tracker that prints and writes nothing; ``run_id`` names the
-    directory of the checkpoints that fit writes."""
-    from maskedsst_tpu_torch.utils.tracking import Tracker
-
-    tracker = Tracker("chip_smoke", use_wandb=False, quiet=True)
-    tracker.run_id = run_id or tracker.run_id
-    return tracker
 
 
 def recording_steps(trainer, name: str, seen: list, metrics: list):
@@ -1476,8 +1468,9 @@ def phase_real_data(card: str, per_step: dict, store_dir: str):
                 st.gather(order[lo : lo + 64])
             dt = time.perf_counter() - t
             print(f"     {name}: {512 / dt:.1f} tiles/s, {512 * tile_mb / dt:.1f} MB/s (gather "
-                  f"of 8 shuffled batches of 64 whole tiles, host clock) on the host of {card}",
-                  flush=True)
+                  f"of 8 shuffled batches of 64 whole tiles, host clock) on the host of {card}: "
+                  f"{os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} for this process, "
+                  f"load averages {os.getloadavg()}", flush=True)
         del native, plain, nstd, pstd
 
         # --- (b) finetuning from the .msts through get_dataset ---------------
@@ -1508,7 +1501,7 @@ def phase_real_data(card: str, per_step: dict, store_dir: str):
                 recording_steps(trainer, "train_step_idx" if device_data else "train_step",
                                 seen, metrics)
                 hist = trainer.fit(train_ds, val_ds, epochs=epochs, max_steps=10**9,
-                                   tracker=quiet_tracker(), save_checkpoints=False)
+                                   tracker=QuietTracker(), save_checkpoints=False)
                 runs[device_data] = trainer, hist, seen, [float(m["loss"]) for m in metrics]
             store, h_store, seen, losses = runs[True]
             stream, h_stream, _, s_losses = runs[False]
@@ -1555,14 +1548,14 @@ def phase_real_data(card: str, per_step: dict, store_dir: str):
         spe = -(-len(train_ds) // TRAIN_BATCH)
         budget, stop = 2 * spe + 3, spe + 3
         control = finetuner(TRAIN_BATCH, 0.0, True)
-        control.fit(train_ds, val_ds, epochs=3, max_steps=budget, tracker=quiet_tracker(),
+        control.fit(train_ds, val_ds, epochs=3, max_steps=budget, tracker=QuietTracker(),
                     save_checkpoints=False)
         interrupted = finetuner(TRAIN_BATCH, 0.0, True)
-        interrupted.fit(train_ds, val_ds, epochs=3, max_steps=stop, tracker=quiet_tracker("ft"),
+        interrupted.fit(train_ds, val_ds, epochs=3, max_steps=stop, tracker=QuietTracker("ft"),
                         models_dir=tmp)
         resumed = finetuner(TRAIN_BATCH, 0.0, True)
         at = resumed.resume(os.path.join(tmp, "ft", f"{ft.method_name}_at_step{stop}.pt"))
-        hist = resumed.fit(train_ds, val_ds, epochs=3, max_steps=budget, tracker=quiet_tracker(),
+        hist = resumed.fit(train_ds, val_ds, epochs=3, max_steps=budget, tracker=QuietTracker(),
                            save_checkpoints=False)
         diff = states_equal(control.state, resumed.state)
         same_sched = control.scheduler.state_dict() == resumed.scheduler.state_dict()
@@ -1591,7 +1584,7 @@ def phase_real_data(card: str, per_step: dict, store_dir: str):
         trainer = Pretrainer(pc, dtype=torch.bfloat16, tile_size=tile_size(pdata), device="cuda")
         seen, metrics = [], []
         recording_steps(trainer, "train_step_idx", seen, metrics)
-        trainer.fit(pdata, max_steps=10, tracker=quiet_tracker(), save_checkpoints=False)
+        trainer.fit(pdata, max_steps=10, tracker=QuietTracker(), save_checkpoints=False)
         losses = [float(m["loss"]) for m in metrics]
         check(len(seen) == 10 and all(c == per_step["pretrain"] for c in seen)
               and all(math.isfinite(v) for v in losses),
@@ -1628,7 +1621,7 @@ def phase_real_data(card: str, per_step: dict, store_dir: str):
             recording_steps(trainer, "train_step_idx" if want_store else "train_step",
                             seen, metrics)
             t0 = time.perf_counter()
-            hist = trainer.fit(train, val, epochs=1, max_steps=10, tracker=quiet_tracker(),
+            hist = trainer.fit(train, val, epochs=1, max_steps=10, tracker=QuietTracker(),
                                save_checkpoints=False)
             losses = [float(m["loss"]) for m in metrics]
             where = (f"the device store ({len(train)} patches, "
@@ -1950,6 +1943,20 @@ def threads_back(before: int, limit_s: float = 1.0) -> float:
     return -1.0
 
 
+@contextlib.contextmanager
+def loader_prefetch(prefetch: int):
+    """Finetune.fit's host loaders built with ``prefetch`` batches read
+    ahead in place of the loader's default."""
+    from maskedsst_tpu_torch.train import finetuner as finetuner_mod
+
+    loader = finetuner_mod.DataLoader
+    finetuner_mod.DataLoader = functools.partial(loader, prefetch=prefetch)
+    try:
+        yield
+    finally:
+        finetuner_mod.DataLoader = loader
+
+
 def run_quietly(log_path: str, main, argv):
     """A driver's main(argv) with its standard output sent to log_path;
     returns its result and its output's lines."""
@@ -2010,7 +2017,7 @@ def phase_drivers(card: str, per_step: dict, labeled: str):
                 cfg = ft.copy()
                 cfg.batch_size = batch
                 cfg.transformer_emb_dropout = 0.0 if route == "emb_dropout_0" else 0.1
-                cfg.device_data, cfg.prefetch = device_data, prefetch
+                cfg.device_data = device_data
                 cfg.max_steps = 0  # the config's budget: a validation at every epoch end
                 model, kw = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
                 trainer = Finetuner(cfg, model, tile_size=64, **kw)
@@ -2018,9 +2025,10 @@ def phase_drivers(card: str, per_step: dict, labeled: str):
                 recording_steps(trainer, "train_step_idx" if device_data else "train_step",
                                 seen, metrics)
                 threads = threading.active_count()
-                hist = trainer.fit(PerSampleReads(train_ds) if per_sample else train_ds, val_ds,
-                                   epochs=epochs, max_steps=10**9, tracker=quiet_tracker(),
-                                   save_checkpoints=False)
+                with loader_prefetch(prefetch):
+                    hist = trainer.fit(PerSampleReads(train_ds) if per_sample else train_ds,
+                                       val_ds, epochs=epochs, max_steps=10**9,
+                                       tracker=QuietTracker(), save_checkpoints=False)
                 runs[name] = (trainer, hist, seen, [float(m["loss"]) for m in metrics],
                               threads_back(threads))
             tag = f"drivers: .msts finetune batch {batch} ({route}, bf16, {epochs} epochs)"
@@ -2061,44 +2069,51 @@ def phase_drivers(card: str, per_step: dict, labeled: str):
                                  "configs/config.yaml", seed=SEED)
         print(f"     Houston2018 scene [50, 1202, 4768] made in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        hsteps = 30
-        runs = {}
-        for prefetch in (2, 0):
+        # prefetch 2 and 0 alternating, so that a drift of the host's clock
+        # over the phase falls on both
+        hsteps, order = 100, (2, 0, 0, 2)
+        runs = []
+        for prefetch in order:
             drawn = Houston2018Dataset("", "", patch_size=8, fix_train_patches=False,
                                        drop_unlabeled=True, img=scene, label=gt, seed=SEED)
             val, train = split_dataset(drawn, hc.train_fraction, hc.data_fraction, SEED)
             cfg = hc.copy()
-            cfg.prefetch = prefetch
             model, kw = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
             trainer = Finetuner(cfg, model, tile_size=tile_size(drawn), **kw)
             seen, metrics = [], []
             recording_steps(trainer, "train_step", seen, metrics)
             threads = threading.active_count()
-            hist = trainer.fit(train, val, epochs=1, max_steps=hsteps, tracker=quiet_tracker(),
-                               save_checkpoints=False)
-            back = threads_back(threads)
-            runs[prefetch] = (trainer, hist, seen, [float(m["loss"]) for m in metrics], back,
-                              len(train))
-        (t2, h2, seen2, l2, back2, n_train), (t0_, h0, seen0, l0, _, _) = runs[2], runs[0]
-        diff = states_equal(t2.state, t0_.state)
-        check(not h2["device_store"] and not h0["device_store"] and len(l2) == len(l0) == hsteps
-              and l2 == l0 and all(math.isfinite(v) for v in l2) and not diff
-              and all(c == per_step["recipe"] for c in seen2 + seen0),
-              f"drivers: houston2018 random patches streamed (batch {hc.batch_size}, bf16, "
-              f"{hsteps} of the epoch's {-(-n_train // hc.batch_size)} steps): prefetch 2 == "
-              f"prefetch 0 bit for bit: per-step losses (last {l2[-1]:.4f}), parameters, Adam "
-              f"moments, the generator (differ: {diff[:6] or 'none'}); each step launching "
-              f"{per_step['recipe']}")
-        check(0 <= back2 <= 1.0,
+            with loader_prefetch(prefetch):
+                hist = trainer.fit(train, val, epochs=1, max_steps=hsteps,
+                                   tracker=QuietTracker(), save_checkpoints=False)
+            runs.append((prefetch, trainer, hist, seen, [float(m["loss"]) for m in metrics],
+                         threads_back(threads)))
+        n_train = len(train)
+        _, first, h_first, _, losses, _ = runs[0]
+        for prefetch, trainer, hist, seen, o_losses, back in runs[1:]:
+            diff = states_equal(first.state, trainer.state)
+            check(not h_first["device_store"] and not hist["device_store"]
+                  and len(losses) == len(o_losses) == hsteps and losses == o_losses
+                  and all(math.isfinite(v) for v in losses) and not diff
+                  and all(c == per_step["recipe"] for c in seen),
+                  f"drivers: houston2018 random patches streamed (batch {hc.batch_size}, bf16, "
+                  f"{hsteps} of the epoch's {-(-n_train // hc.batch_size)} steps): prefetch "
+                  f"{prefetch} == the first run's prefetch {order[0]} bit for bit: per-step "
+                  f"losses (last {losses[-1]:.4f}), parameters, Adam moments, the generator "
+                  f"(differ: {diff[:6] or 'none'}); each step launching {per_step['recipe']}")
+        backs = [back for prefetch, *_, back in runs if prefetch]
+        check(all(0 <= back <= 1.0 for back in backs),
               f"drivers: the max_steps break at step {hsteps} mid-epoch with prefetch 2 left no "
               f"producer: threading.active_count() back to its count before fit in "
-              f"{back2:.3f} s (limit 1 s)")
-        rate = {k: runs[k][1]["throughput"]["steps_per_s"] for k in (2, 0)}
-        out["steps_per_s"]["houston_random"] = rate
-        print(f"     houston2018 random patches streamed: prefetch 2 {rate[2]:.2f} steps/s, "
-              f"prefetch 0 {rate[0]:.2f} ({hsteps} steps each, one synchronize at the end, "
+              f"{', '.join(f'{back:.3f}' for back in backs)} s (limit 1 s)")
+        rates = [(prefetch, hist["throughput"]["steps_per_s"]) for prefetch, _, hist, *_ in runs]
+        out["steps_per_s"]["houston_random"] = {
+            k: [r for p, r in rates if p == k] for k in (2, 0)}
+        print(f"     houston2018 random patches streamed: "
+              + ", ".join(f"prefetch {p} {r:.2f}" for p, r in rates)
+              + f" steps/s in that order ({hsteps} steps each, one synchronize at the end, "
               f"batch {hc.batch_size}) on {card}", flush=True)
-        del runs, t2, t0_, trainer, model, scene, gt, drawn
+        del runs, first, trainer, model, scene, gt, drawn
         torch.cuda.empty_cache()
 
         # --- (c) the pretraining driver: a JSONL Tracker and log_grad_norm ---

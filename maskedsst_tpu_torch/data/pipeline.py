@@ -11,24 +11,28 @@ the next epoch, where a resumed run starts mid-epoch. A dataset with a
 ``read_batch(indices)`` (the ``.msts`` store, also through ``Subset``) is
 read a batch at a time, which equals the per-sample reads collated.
 
-With ``prefetch`` > 0 (2 by default) a producer thread reads and collates
-up to that many batches ahead into a bounded queue: numpy reads only (the
-``.msts`` reader releases the GIL in its ctypes calls), never CUDA, torch
-tensors or a trainer's generator, so the batches and every draw of the
-trainer are those of ``prefetch=0``. A consumer that leaves an epoch early
-(a step budget's break) stops the producer, which drops its batches and
-ends within one read; a dataset error is raised in the consumer, never
-taken for the epoch's end. A dataset that draws anew on every read
-(``stochastic``) is read in order by the one producer, so it draws as the
-synchronous loader does; after an early exit its generator has advanced by
-the batches read ahead (the JAX loader does the same).
+With ``prefetch`` > 0 a producer thread reads and collates up to that
+many batches ahead into a bounded queue: numpy reads only (the ``.msts``
+reader releases the GIL in its ctypes calls), never CUDA, torch tensors or
+a trainer's generator, so the batches and every draw of the trainer are
+those of ``prefetch=0``. By default it is 2, as in the JAX loader, and 0
+for a dataset that draws anew on every read (``stochastic``, Houston2018's
+random patches): its reads are Python work under the GIL, which a producer
+only takes from the thread that launches the steps (fewer steps/s with the
+thread on an H100 host: ``tools/loader_ab.py``). A consumer that leaves an
+epoch early (a step budget's break) stops the producer, which drops its
+batches and ends within one read; a dataset error is raised in the
+consumer, never taken for the epoch's end. A stochastic dataset given
+``prefetch`` > 0 is read in order by the one producer, so it draws as the
+synchronous loader does; after an early exit its generator has advanced
+by the batches read ahead (the JAX loader does the same).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -99,15 +103,18 @@ _END = object()
 
 class DataLoader:
     """Epoch iterator over numpy batches ``{"img": ..., "label": ...}``,
-    ``prefetch`` batches read ahead on a thread (0: on the caller's)."""
+    ``prefetch`` batches read ahead on a thread (0: on the caller's; None:
+    2, or 0 for a stochastic dataset)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  pad_to_multiple: int = 1, pad_label_value: int = -1, drop_last: bool = False,
-                 prefetch: int = 2):
+                 prefetch: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        if prefetch is None:
+            prefetch = 0 if getattr(dataset, "stochastic", False) else 2
         self.prefetch = prefetch
         self.pad_to_multiple = max(1, pad_to_multiple)
         self.pad_label_value = pad_label_value

@@ -16,9 +16,9 @@ moves only its index vector and gathers just its crop windows there
 (``_eval_sums_idx``). A set larger than the store's budget streams host
 batches (``DataLoader``) instead, as does a stochastic one; the two paths
 take the same samples and draws, so they give the same bits (the host
-batches are read ahead on the loader's thread, ``config.prefetch``, 2 by
-default). The loop has the JAX loop's budgets: strict epoch/step
-overrides, validation on ``get_val_epochs``, the plateau scheduler stepped
+batches read ahead on the loader's thread, a stochastic set's on this
+one). The loop has the JAX loop's budgets: strict epoch/step overrides,
+validation on ``get_val_epochs``, the plateau scheduler stepped
 at the end of every completed epoch with the last mean validation loss,
 and a raise when the logged loss is NaN. It logs the JAX loop's rows
 through a ``Tracker`` (``utils/tracking.py``): every ``logging_freq``
@@ -339,12 +339,11 @@ class Finetuner:
                                   drop_last=False, seed=seed)
             val_loader = IndexBatcher(len(val_store), val_bs, shuffle=False, drop_last=False)
         else:
-            prefetch = int(cfg.get("prefetch", 2))
             loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True, seed=seed,
                                 pad_to_multiple=cfg.batch_size,
-                                pad_label_value=cfg.ignored_label, prefetch=prefetch)
+                                pad_label_value=cfg.ignored_label)
             val_loader = DataLoader(val_dataset, val_bs, shuffle=False, pad_to_multiple=val_bs,
-                                    pad_label_value=cfg.ignored_label, prefetch=prefetch)
+                                    pad_label_value=cfg.ignored_label)
         # config budgets run until BOTH are exhausted; explicit overrides stop
         # at whichever is hit first
         strict = epochs is not None or max_steps is not None

@@ -244,8 +244,7 @@ class Pretrainer:
         """Train from the state's step to the budgets (``max_steps`` counts
         from step 0, a resumed run's steps included), logging to ``tracker``
         (default: a ``Tracker`` of the JAX project name); checkpoints go to
-        ``models_dir/<tracker.run_id>/``. A streamed set is read ahead by
-        ``config.prefetch`` batches (default 2; 0 reads on this thread)."""
+        ``models_dir/<tracker.run_id>/``."""
         cfg = self.config
         tracker = tracker or Tracker("enmap-mim-spatial-spectral", cfg)
         seed = int(cfg.get("seed", 5))
@@ -277,10 +276,8 @@ class Pretrainer:
                       "never step (the reference's drop_last=True val loader is empty in this "
                       "regime too)")
         else:
-            prefetch = int(cfg.get("prefetch", 2))
-            loader = DataLoader(train_ds, bs, shuffle=True, seed=seed, drop_last=True,
-                                prefetch=prefetch)
-            val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=True, prefetch=prefetch)
+            loader = DataLoader(train_ds, bs, shuffle=True, seed=seed, drop_last=True)
+            val_loader = DataLoader(val_ds, bs, shuffle=False, drop_last=True)
 
         epochs = epochs if epochs is not None else cfg.epoch
         steps_per_epoch = max(1, len(loader))

@@ -31,7 +31,7 @@ from maskedsst_tpu_torch.train.factory import build_finetune_model
 from maskedsst_tpu_torch.train.finetuner import Finetuner
 from maskedsst_tpu_torch.train.optim import CosineAnnealingLR
 from maskedsst_tpu_torch.train.pretrainer import Pretrainer
-from maskedsst_tpu_torch.utils.tracking import Tracker
+from tests.quiet_tracker import QuietTracker
 
 NARROW = dict(n_bands=40, transformer_dim=24, transformer_depth=1, transformer_n_heads=2,
               transformer_mlp_dim=32, logging_freq=1000)
@@ -65,14 +65,6 @@ def _finetune_cfg(**changes):
 
 
 TILE = 32  # 16 validation windows a tile
-
-
-def _quiet(run_id=None):
-    """A tracker that prints and writes nothing; ``run_id`` names the
-    checkpoints' directory."""
-    tracker = Tracker("test", use_wandb=False, quiet=True)
-    tracker.run_id = run_id or tracker.run_id
-    return tracker
 
 
 def _finetuner(cfg):
@@ -214,14 +206,14 @@ def test_pretrainer_exact_resume(tmp_path, pretrain_data, scheduler, cut, device
     budget = 2 * spe + 3
 
     control = _pretrainer(cfg)
-    hist_c = control.fit(pretrain_data, epochs=3, max_steps=budget, tracker=_quiet(),
+    hist_c = control.fit(pretrain_data, epochs=3, max_steps=budget, tracker=QuietTracker(),
                          save_checkpoints=False)
     assert control.state.step == budget and len(hist_c["val_loss"]) == 2
 
     interrupted = _pretrainer(cfg)
     stop = spe + 3 if cut == "mid" else spe
     hist_i = interrupted.fit(pretrain_data, epochs=3 if cut == "mid" else 1, max_steps=stop,
-                             tracker=_quiet("a"), models_dir=str(tmp_path))
+                             tracker=QuietTracker("a"), models_dir=str(tmp_path))
     assert len(hist_i["val_loss"]) == 1  # epoch 1's end hooks wait for its completion
     saved = sorted(os.listdir(tmp_path / "a"))
     if cut == "mid":
@@ -237,7 +229,7 @@ def test_pretrainer_exact_resume(tmp_path, pretrain_data, scheduler, cut, device
     resumed = _pretrainer(cfg)
     assert resumed.resume(path) == stop
     assert resumed.scheduler.state_dict() == interrupted.scheduler.state_dict()
-    hist_r = resumed.fit(pretrain_data, epochs=3, max_steps=budget, tracker=_quiet(),
+    hist_r = resumed.fit(pretrain_data, epochs=3, max_steps=budget, tracker=QuietTracker(),
                          save_checkpoints=False)
     assert len(hist_r["val_loss"]) == 2 - len(hist_i["val_loss"])
     assert hist_r["val_loss"] == hist_c["val_loss"][len(hist_i["val_loss"]):]
@@ -247,11 +239,11 @@ def test_pretrainer_exact_resume(tmp_path, pretrain_data, scheduler, cut, device
 def test_pretrainer_resume_past_the_budget_trains_nothing(tmp_path, pretrain_data):
     cfg = _pretrain_cfg()
     first = _pretrainer(cfg)
-    first.fit(pretrain_data, max_steps=3, tracker=_quiet("p"), models_dir=str(tmp_path))
+    first.fit(pretrain_data, max_steps=3, tracker=QuietTracker("p"), models_dir=str(tmp_path))
     path = str(tmp_path / "p" / "model_ViTSpatialSpectral_at_step3.pt")
     again = _pretrainer(cfg)
     again.resume(path)
-    hist = again.fit(pretrain_data, max_steps=2, tracker=_quiet("q"), models_dir=str(tmp_path))
+    hist = again.fit(pretrain_data, max_steps=2, tracker=QuietTracker("q"), models_dir=str(tmp_path))
     assert again.state.step == 3 and hist["throughput"] == {} and hist["train_loss"] == []
     assert not os.path.exists(tmp_path / "q" / "model_ViTSpatialSpectral_at_step3.pt")
     assert_states_equal(first.state, again.state, first.scheduler, again.scheduler)
@@ -268,11 +260,11 @@ def test_finetuner_exact_resume_epoch_boundary(tmp_path, finetune_data):
     spe = -(-len(train_ds) // cfg.batch_size)  # 38 tiles: 5 steps an epoch
 
     control = _finetuner(cfg)
-    hist_c = control.fit(train_ds, val_ds, epochs=4, max_steps=10**6, tracker=_quiet(),
+    hist_c = control.fit(train_ds, val_ds, epochs=4, max_steps=10**6, tracker=QuietTracker(),
                          save_checkpoints=False)
 
     interrupted = _finetuner(cfg)
-    hist_i = interrupted.fit(train_ds, val_ds, epochs=2, max_steps=10**6, tracker=_quiet("a"),
+    hist_i = interrupted.fit(train_ds, val_ds, epochs=2, max_steps=10**6, tracker=QuietTracker("a"),
                              models_dir=str(tmp_path))
     path = _only(str(tmp_path / "a" / "ViTSpatialSpectral_at_ep1.pt"))
     assert os.path.exists(tmp_path / "a" / "best_ViTSpatialSpectral.pt")
@@ -282,7 +274,7 @@ def test_finetuner_exact_resume_epoch_boundary(tmp_path, finetune_data):
     assert resumed.scheduler.state_dict() == interrupted.scheduler.state_dict()
     assert resumed._resume_extra["best_val_acc"] == hist_i["best_val_acc"] > 0.0
     assert resumed._resume_extra["last_val_loss"] == hist_i["val"][-1]["loss"]
-    hist_r = resumed.fit(train_ds, val_ds, epochs=4, max_steps=10**6, tracker=_quiet(),
+    hist_r = resumed.fit(train_ds, val_ds, epochs=4, max_steps=10**6, tracker=QuietTracker(),
                          save_checkpoints=False)
     assert hist_r["best_val_acc"] == hist_c["best_val_acc"]
     assert hist_r["val"] == hist_c["val"][2:]
@@ -298,19 +290,19 @@ def test_finetuner_exact_resume_mid_epoch(tmp_path, finetune_data):
     spe = -(-len(train_ds) // cfg.batch_size)
 
     control = _finetuner(cfg)
-    hist_c = control.fit(train_ds, val_ds, epochs=4, max_steps=2 * spe + 2, tracker=_quiet(),
+    hist_c = control.fit(train_ds, val_ds, epochs=4, max_steps=2 * spe + 2, tracker=QuietTracker(),
                          save_checkpoints=False)
     assert len(hist_c["val"]) == 2
 
     interrupted = _finetuner(cfg)
-    hist_i = interrupted.fit(train_ds, val_ds, epochs=4, max_steps=spe + 3, tracker=_quiet("b"),
+    hist_i = interrupted.fit(train_ds, val_ds, epochs=4, max_steps=spe + 3, tracker=QuietTracker("b"),
                              models_dir=str(tmp_path))
     assert len(hist_i["val"]) == 1
     path = _only(str(tmp_path / "b" / f"ViTSpatialSpectral_at_step{spe + 3}.pt"))
 
     resumed = _finetuner(cfg)
     assert resumed.resume(path) == spe + 3
-    hist_r = resumed.fit(train_ds, val_ds, epochs=4, max_steps=2 * spe + 2, tracker=_quiet(),
+    hist_r = resumed.fit(train_ds, val_ds, epochs=4, max_steps=2 * spe + 2, tracker=QuietTracker(),
                          save_checkpoints=False)
     assert len(hist_r["val"]) == 1 and hist_r["val"] == hist_c["val"][1:]
     assert_states_equal(control.state, resumed.state, control.scheduler, resumed.scheduler)
@@ -325,17 +317,17 @@ def test_finetuner_budget_on_epoch_boundary_saves_resumable(tmp_path, finetune_d
     spe = -(-len(train_ds) // cfg.batch_size)
 
     interrupted = _finetuner(cfg)
-    hist = interrupted.fit(train_ds, val_ds, epochs=10, max_steps=2 * spe, tracker=_quiet("c"),
+    hist = interrupted.fit(train_ds, val_ds, epochs=10, max_steps=2 * spe, tracker=QuietTracker("c"),
                            models_dir=str(tmp_path))
     assert len(hist["val"]) == 1
     path = _only(str(tmp_path / "c" / f"ViTSpatialSpectral_at_step{2 * spe}.pt"))
 
     control = _finetuner(cfg)
-    control.fit(train_ds, val_ds, epochs=10, max_steps=2 * spe + 2, tracker=_quiet(),
+    control.fit(train_ds, val_ds, epochs=10, max_steps=2 * spe + 2, tracker=QuietTracker(),
                 save_checkpoints=False)
     resumed = _finetuner(cfg)
     assert resumed.resume(path) == 2 * spe
-    resumed.fit(train_ds, val_ds, epochs=10, max_steps=2 * spe + 2, tracker=_quiet(),
+    resumed.fit(train_ds, val_ds, epochs=10, max_steps=2 * spe + 2, tracker=QuietTracker(),
                 save_checkpoints=False)
     assert_states_equal(control.state, resumed.state, control.scheduler, resumed.scheduler)
 

@@ -47,7 +47,7 @@ from maskedsst_tpu_torch.train import factory
 from maskedsst_tpu_torch.train.checkpoint import save_checkpoint
 from maskedsst_tpu_torch.train.finetuner import Finetuner
 from maskedsst_tpu_torch.train.pretrainer import Pretrainer
-from maskedsst_tpu_torch.utils.tracking import Tracker
+from tests.quiet_tracker import QuietTracker
 
 FINETUNE = ("configs/finetune_config_enmap.yaml", "configs/config.yaml")
 HOUSTON = ("configs/finetune_config_houston2018.yaml", "configs/config.yaml")
@@ -131,15 +131,6 @@ def test_rederive_keeps_the_li_assert():
 
 # --- the trainers' rows ------------------------------------------------------------
 
-class Capture(Tracker):
-    def __init__(self):
-        super().__init__("test", use_wandb=False, quiet=True)
-        self.rows = []
-
-    def log(self, metrics, step):
-        self.rows.append((step, dict(metrics)))
-
-
 RATES = {"steps_per_sec", "items_per_sec", "items_per_sec_per_chip"}
 
 
@@ -154,7 +145,7 @@ def test_pretrainer_rows_follow_the_jax_loop(grad_norm):
                        "log_grad_norm": grad_norm}.items():
         setattr(cfg, key, value)
     data = SyntheticCubeDataset(num_tiles=40, n_bands=20, tile_size=8, labeled=False, seed=0)
-    tracker = Capture()
+    tracker = QuietTracker()
     Pretrainer(cfg, tile_size=8, device="cpu").fit(data, max_steps=12, tracker=tracker,
                                                    save_checkpoints=False)
     boundary = {"epoch", "loss", "lr"} | RATES | ({"grad_norm"} if grad_norm else set())
@@ -184,7 +175,7 @@ def test_finetuner_rows_follow_the_jax_loop(device_data):
     train = [data[i] for i in range(12)]
     val = [data[i] for i in range(12, 15)]
     model, kw = factory.build_finetune_model(cfg, device="cpu")
-    tracker = Capture()
+    tracker = QuietTracker()
     hist = Finetuner(cfg, model, tile_size=16, **kw).fit(
         train, val, tracker=tracker, epochs=2, max_steps=10**6, save_checkpoints=False)
     step_row = {"epoch", "loss", "acc", "macro_acc", "lr"} | RATES

@@ -33,21 +33,13 @@ from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
 from maskedsst_tpu_torch.io.flax_params import grads_to_flax, params_from_flax
 from maskedsst_tpu_torch.train.factory import build_finetune_model
 from maskedsst_tpu_torch.train.finetuner import Finetuner
-from maskedsst_tpu_torch.utils.tracking import Tracker
+from tests.quiet_tracker import QuietTracker
 
 CONFIGS = ("configs/finetune_config_enmap.yaml", "configs/config.yaml")
 NARROW = dict(n_bands=20, spectral_pos=[0, 1], transformer_dim=18, transformer_depth=1,
               transformer_n_heads=2, batch_size=4, val_batch_size=2, logging_freq=1000,
               max_steps=0)  # validation every epoch
 TILE = 16
-
-
-def _quiet(run_id=None):
-    """A tracker that prints and writes nothing; ``run_id`` names the
-    checkpoints' directory."""
-    tracker = Tracker("test", use_wandb=False, quiet=True)
-    tracker.run_id = run_id or tracker.run_id
-    return tracker
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -140,7 +132,7 @@ def test_store_fit_equals_streaming_fit(data, dropout):
             step = getattr(trainer, name)
             setattr(trainer, name,
                     lambda *a, _s=step, _n=name, **k: seen.append(_n) or _s(*a, **k))
-        hist = trainer.fit(train_ds, val_ds, epochs=2, max_steps=100, tracker=_quiet(),
+        hist = trainer.fit(train_ds, val_ds, epochs=2, max_steps=100, tracker=QuietTracker(),
                            save_checkpoints=False)
         assert hist["device_store"] is device_data
         assert seen == ["train_step_idx" if device_data else "train_step"] * 6
@@ -166,7 +158,7 @@ def test_stochastic_dataset_streams(data):
             return data[i]
 
     val_ds, train_ds = split_dataset(Drawn(), 0.8, seed=5)
-    hist = _trainer(_cfg()).fit(train_ds, val_ds, epochs=1, max_steps=100, tracker=_quiet(),
+    hist = _trainer(_cfg()).fit(train_ds, val_ds, epochs=1, max_steps=100, tracker=QuietTracker(),
                                 save_checkpoints=False)
     assert hist["device_store"] is False and len(hist["train"]) == 1
 
@@ -178,7 +170,7 @@ def test_memory_error_streams(data, monkeypatch, capsys):
         raise MemoryError("dataset needs 9.9 GB > budget 8.6 GB; stream from host instead")
 
     monkeypatch.setattr("maskedsst_tpu_torch.train.finetuner.DeviceTileStore", too_big)
-    hist = _trainer(_cfg()).fit(train_ds, val_ds, epochs=1, max_steps=100, tracker=_quiet(),
+    hist = _trainer(_cfg()).fit(train_ds, val_ds, epochs=1, max_steps=100, tracker=QuietTracker(),
                                 save_checkpoints=False)
     assert hist["device_store"] is False
     assert "[finetune] streaming from host: dataset needs 9.9 GB" in capsys.readouterr().out
@@ -215,14 +207,14 @@ def test_mid_epoch_resume_is_exact(tmp_path, data, device_data):
     val_ds, train_ds = split_dataset(data, 0.8, seed=5)
     cfg = _cfg(dropout=0.1, device_data=device_data)
     control = _trainer(cfg)
-    hist_c = control.fit(train_ds, val_ds, epochs=3, max_steps=7, tracker=_quiet(),
+    hist_c = control.fit(train_ds, val_ds, epochs=3, max_steps=7, tracker=QuietTracker(),
                          save_checkpoints=False)
     interrupted = _trainer(cfg)
-    interrupted.fit(train_ds, val_ds, epochs=3, max_steps=4, tracker=_quiet("r"),
+    interrupted.fit(train_ds, val_ds, epochs=3, max_steps=4, tracker=QuietTracker("r"),
                     models_dir=str(tmp_path))
     resumed = _trainer(cfg)
     assert resumed.resume(str(tmp_path / "r" / "ViTSpatialSpectral_at_step4.pt")) == 4
-    hist_r = resumed.fit(train_ds, val_ds, epochs=3, max_steps=7, tracker=_quiet(),
+    hist_r = resumed.fit(train_ds, val_ds, epochs=3, max_steps=7, tracker=QuietTracker(),
                          save_checkpoints=False)
     assert hist_r["device_store"] is device_data and hist_r["val"] == hist_c["val"][1:]
     assert_states_equal(control.state, resumed.state)

@@ -46,7 +46,7 @@ from maskedsst_tpu_torch.train.optim import (
     clamp_gradients_,
 )
 from maskedsst_tpu_torch.train.pretrainer import Pretrainer, fold_seed
-from maskedsst_tpu_torch.utils.tracking import Tracker
+from tests.quiet_tracker import QuietTracker
 
 CONFIGS = ("configs/pretrain_config.yaml", "configs/config.yaml")
 NARROW = dict(n_bands=20, transformer_dim=16, transformer_depth=1, transformer_n_heads=2,
@@ -63,17 +63,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-class _Capture(Tracker):
-    """A quiet tracker that keeps its (step, row) pairs."""
-
-    def __init__(self):
-        super().__init__("test", use_wandb=False, quiet=True)
-        self.rows = []
-
-    def log(self, metrics, step):
-        self.rows.append((step, dict(metrics)))
 
 
 def _cfg(get, **changes):
@@ -279,7 +268,7 @@ def test_fit_runs_budgets_and_validation():
     on completed epochs only, and the small-val-split warning."""
     cfg = _cfg(get_pretrain_config, **NARROW, batch_size=4, logging_freq=2)
     data = SyntheticCubeDataset(num_tiles=40, n_bands=20, labeled=False, seed=0)
-    tracker = _Capture()
+    tracker = QuietTracker()
     trainer = Pretrainer(cfg, device="cpu")
     history = trainer.fit(data, max_steps=12, tracker=tracker, save_checkpoints=False)
     rows = [{"step": step, **row} for step, row in tracker.rows]
@@ -294,7 +283,7 @@ def test_fit_runs_budgets_and_validation():
 def test_fit_warns_when_val_split_is_smaller_than_a_batch(capsys):
     cfg = _cfg(get_pretrain_config, **NARROW, batch_size=8)
     data = SyntheticCubeDataset(num_tiles=20, n_bands=20, labeled=False, seed=0)
-    history = Pretrainer(cfg, device="cpu").fit(data, epochs=1, tracker=_Capture(),
+    history = Pretrainer(cfg, device="cpu").fit(data, epochs=1, tracker=QuietTracker(),
                                                 save_checkpoints=False)
     assert "smaller than batch_size" in capsys.readouterr().out
     assert history["val_loss"] == [] and len(history["train_loss"]) == 1
@@ -330,7 +319,7 @@ def test_fit_store_path_drops_the_ragged_tail_as_jax():
     step = trainer.train_step_idx
     trainer.train_step_idx = lambda store, idx, **kw: seen.append(np.asarray(idx)) or step(
         store, idx, **kw)
-    trainer.fit(data, epochs=2, tracker=_Capture(), save_checkpoints=False)
+    trainer.fit(data, epochs=2, tracker=QuietTracker(), save_checkpoints=False)
     want = JaxIndexBatcher(18, 4, shuffle=True, drop_last=True, seed=cfg.seed)
     want = [b for _ in range(2) for b in want]
     assert len(seen) == len(want) == 8 and trainer.state.step == 8

@@ -17,7 +17,7 @@ import torch
 
 from maskedsst_tpu.data.pipeline import DataLoader as JaxDataLoader
 from maskedsst_tpu.utils import tracking as jax_tracking
-from maskedsst_tpu_torch.data.pipeline import DataLoader
+from maskedsst_tpu_torch.data.pipeline import DataLoader, Subset
 from maskedsst_tpu_torch.utils import tracking
 
 ROWS = [
@@ -266,6 +266,14 @@ class Drawn(Tiles):
 def test_a_stochastic_dataset_draws_as_without_prefetch():
     _same(_epochs(DataLoader(Drawn(), 4, seed=1, prefetch=2)),
           _epochs(DataLoader(Drawn(), 4, seed=1, prefetch=0)))
+
+
+def test_a_stochastic_dataset_reads_on_the_callers_thread_by_default():
+    """Its reads hold the GIL: by default no producer takes it from the
+    thread that launches the steps, also through a Subset."""
+    assert DataLoader(Drawn(), 4).prefetch == 0
+    assert DataLoader(Subset(Drawn(), range(8)), 4).prefetch == 0
+    assert DataLoader(Drawn(), 4, prefetch=2).prefetch == 2
 
 
 class Broken(Tiles):
