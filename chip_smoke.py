@@ -147,7 +147,30 @@ Phases:
      --tiles 8 from (d)'s checkpoint in fp32: #1 and #3 launched once per
      window batch of a tile, the logits within 1e-3 of the same model's
      plain versions on the CPU, the argmax equal wherever the top-2 margin
-     exceeds 1e-3.
+     exceeds 1e-3;
+  9. data-parallel training (parallel/mesh.py, through the cases of
+     tools/dist_worker.py; each held against its one-process run in this
+     process): (a) two ranks sharing the card over Gloo pretrain the EnMAP
+     recipe at dropout 0 from a store of 64 seeded tiles, global batch 64
+     (32 rows a rank), 3 steps in bf16 and in fp32: the ranks' parameters,
+     gradients and train states equal bit for bit after every step, every
+     rank launching phase 4's counts at every step, the loss of every step
+     and the gradients and parameters of the first (every step in fp32)
+     within the limits of ``dp_hold_steps``, steps/s of a rank beside one
+     process's; (b) the recipe's dropout 0.1: rank 0's layer seeds the one
+     process's, rank 1's folded by + 668265261 (int32 wrap), and a finetune
+     step at embedding dropout 0.1 whose rank-0 keep mask is the first half
+     of the one-process draw; (c) EnMAP-DFC finetuning from the store in
+     bf16 on index batches of 63 (padded), 64 and 61 rows, loss, metrics
+     and gradients against one process, validation at batches of 31; (d)
+     checkpoints: rank 0 writes them and the tracker's JSONL, rank 1 writes
+     nothing, a two-rank resume equals its control bit for bit, a
+     one-process checkpoint resumes in two ranks and the two-rank one in
+     one process; (e) NCCL at world size min(device_count, 2): on one card
+     its step bit-equal to the step without a process group, steps/s of
+     both; (f) the pretraining driver under ``torch.distributed.run
+     --nproc_per_node 2`` (Gloo), 3 synthetic steps, both ranks' lines and
+     rank 0's two checkpoints.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -175,6 +198,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # the timing policy and the kernels' costs live in the package; these
 # imports fail when the repo (the maskedsst_tpu_torch package) is not
 # beside this file
+from maskedsst_tpu_torch.ops import launch_counts  # noqa: E402
+from maskedsst_tpu_torch.ops import reset_launch_counts as reset_counts  # noqa: E402
 from maskedsst_tpu_torch.tools.kernel_check import (  # noqa: E402
     SPLIT_NAMES,
     decode_cost,
@@ -230,6 +255,11 @@ LIBRARY_NONE = {
 # fp32 differs in summation order only, bf16 in one-ulp flips of a few
 # products' operands.
 TOL_LOSS = {"float32": 1e-5, "bfloat16": 1e-3}
+# Accuracies of the same rows computed in batches of other sizes: in bf16 a
+# one-ulp flip of a logit can flip a near-tied pixel's argmax (CPU rehearsal
+# of phase 9: 4 pixels of 262,144 validation pixels), one pixel of a
+# 4,096-pixel training batch reads 2.4e-4.
+TOL_METRIC = {"float32": 2e-5, "bfloat16": 1e-3}
 
 failures: list = []
 
@@ -763,24 +793,6 @@ def phase_main(card: str):
         del model, pred
         torch.cuda.empty_cache()
     return launches
-
-
-def launch_counts() -> dict:
-    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim, layer_wgrad
-
-    return {"fused_layer_fwd": fused_layer.launches, "fused_layer_bwd": fused_layer.bwd_launches,
-            "layer_wgrad": layer_wgrad.launches,
-            "fused_embed_fwd": fused_embed.launches, "fused_embed_bwd": fused_embed.bwd_launches,
-            "fused_simmim_fwd": fused_simmim.launches,
-            "fused_simmim_bwd": fused_simmim.bwd_launches}
-
-
-def reset_counts() -> None:
-    from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim, layer_wgrad
-
-    fused_layer.launches = fused_layer.bwd_launches = layer_wgrad.launches = 0
-    fused_embed.launches = fused_embed.bwd_launches = 0
-    fused_simmim.launches = fused_simmim.bwd_launches = 0
 
 
 def step_grads(trainer, img, label, seed):
@@ -2283,6 +2295,260 @@ def phase_drivers(card: str, per_step: dict, labeled: str):
     return out
 
 
+PRE_CONFIGS = ["configs/pretrain_config.yaml", "configs/config.yaml"]
+FINE_CONFIGS = ["configs/finetune_config_enmap.yaml", "configs/config.yaml"]
+
+
+def ranks_equal(ranks: list, name: str) -> bool:
+    """The ranks' parameters, gradients and full train states equal bit for
+    bit after every step of case ``name`` (their digests)."""
+    keys = ("params_digest", "grads_digest", "state_digest")
+    got = [[tuple(s[k] for k in keys) for s in r[name]["steps"]] for r in ranks]
+    return all(g == got[0] for g in got)
+
+
+def dp_hold_steps(label: str, name: str, ranks: list, arrays: dict, one: tuple, dtype: str,
+                  lr_of) -> None:
+    """Case ``name`` of the ranks against its one-process run: each step's
+    loss relative to |one| within TOL_LOSS, its metrics within TOL_METRIC
+    and its launches equal; each gradient relative to its max |one| within
+    TOL_STEP and the parameters within 1e-2 x lr but for at most 0.5 % of
+    the elements (a weight whose gradient is near zero takes Adam's full
+    step either way: at most 2 x lr), at every step in fp32 and at the
+    first in bf16. Later bf16 steps start from parameters that differ by
+    that first step's roundings, which TOL_STEP was not set for: their
+    distances are printed."""
+    scalars, ref = one
+    for r, rank in enumerate(ranks):
+        for k, (got, want) in enumerate(zip(rank[name]["steps"], scalars["steps"]), 1):
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            metrics = {m: abs(got[m] - want[m]) for m in ("acc", "macro_acc") if m in want}
+            check(rel <= TOL_LOSS[dtype] and all(v <= TOL_METRIC[dtype] for v in metrics.values())
+                  and got["launches"] == want["launches"],
+                  f"{label} rank {r} step {k}: loss {got['loss']:.8e} vs one process "
+                  f"{want['loss']:.8e} (rel {rel:.3e} <= {TOL_LOSS[dtype]:.0e}), metrics "
+                  f"|d| {metrics} <= {TOL_METRIC[dtype]:.0e}, launches {got['launches']} == "
+                  "one process's")
+    steps = len(scalars["steps"])
+    held = steps if dtype == "float32" else 1
+    for k in range(1, steps + 1):
+        grads = {n[len(f"{name}/grads{k}/"):]: v for n, v in ref.items()
+                 if n.startswith(f"{name}/grads{k}/")}
+        errs = {n: float(np.abs(arrays[f"{name}/grads{k}/{n}"] - v).max()
+                         / max(float(np.abs(v).max()), 1e-30)) for n, v in grads.items()}
+        worst = max(errs, key=errs.get)
+        far, total, worst_lr = 0, 0, 0.0
+        for n, v in ref.items():
+            if not n.startswith(f"{name}/params{k}/"):
+                continue
+            lr = lr_of(n.split("/", 2)[2])
+            d = np.abs(arrays[n] - v) / lr
+            far += int((d > 1e-2).sum())
+            total += d.size
+            worst_lr = max(worst_lr, float(d.max()))
+        msg = (f"{label} step {k}: each of {len(errs)} gradients vs one process, worst {worst} "
+               f"max|d|/max|ref| {errs[worst]:.3e}; parameters: {far} of {total} elements "
+               f"beyond 1e-2 x lr, worst {worst_lr:.3e} x lr")
+        if k <= held:
+            check(errs[worst] <= TOL_STEP[dtype] and far <= 5e-3 * total and worst_lr <= 2.0,
+                  f"{msg} (<= {TOL_STEP[dtype]:.1e}, 0.5 %, 2)")
+        else:
+            print(f"     {msg} (printed: a later bf16 step)", flush=True)
+
+
+def phase_data_parallel(card: str, per_step: dict):
+    """Phase 9, data-parallel training (parallel/mesh.py) through
+    tools/dist_worker.py: two ranks on the one card over Gloo against the
+    one-process runs of the same cases in this process, NCCL at
+    min(device_count, 2), and the pretraining driver under torchrun."""
+    import subprocess
+
+    import torch
+
+    from maskedsst_tpu_torch.config import get_finetune_config, get_pretrain_config
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+    from maskedsst_tpu_torch.models.layers import fold_rank_seed
+    from maskedsst_tpu_torch.parallel.mesh import DataWorld
+    from maskedsst_tpu_torch.tools import dist_worker
+    from maskedsst_tpu_torch.train.checkpoint import restore_params
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    out: dict = {}
+    pcfg = get_pretrain_config(*PRE_CONFIGS, seed=SEED)
+    fcfg = get_finetune_config(*FINE_CONFIGS, seed=SEED)
+    try:
+        # one batch of seeded tiles on each store, shuffled anew at every step
+        store = dict(tiles=TRAIN_BATCH, seed=SEED)
+        no_dropout = dict(seed=SEED, transformer_dropout=0.0)
+        pre = dict(kind="pretrain", configs=PRE_CONFIGS, store=store, steps=3, arrays=True,
+                   timed=10)
+        fine = dict(kind="finetune", configs=FINE_CONFIGS, dtype="bfloat16")
+        cases = [
+            # (a) the recipe at dropout 0, bf16 and fp32 (TF32 off)
+            dict(pre, name="pre_bf16", dtype="bfloat16", set=no_dropout),
+            dict(pre, name="pre_fp32", dtype="float32", set=no_dropout, timed=0),
+            # (b) the recipe's dropout 0.1; the finetune recipe's embedding dropout
+            dict(pre, name="pre_dropout", dtype="bfloat16", set=dict(seed=SEED), arrays=False,
+                 record_seeds=True, timed=0),
+            dict(fine, name="fine_emb_dropout", set=dict(seed=SEED, batch_size=TRAIN_BATCH),
+                 store=dict(store, batches=[TRAIN_BATCH]), steps=1, record_emb_keep=True,
+                 all_ranks_arrays=True),
+            # (c) index batches of 63 (a pad index), 64 and 61 rows; validation at 31
+            dict(fine, name="fine_pad", arrays=True, steps=3, val_batch=31,
+                 set=dict(seed=SEED, batch_size=TRAIN_BATCH, transformer_dropout=0.0,
+                          transformer_emb_dropout=0.0),
+                 store=dict(store, batches=[63, 64, 61])),
+        ]
+        world1 = DataWorld(device=torch.device("cuda", 0))
+        one = {c["name"]: dist_worker.run_case(dict(c, out=tmp), world1, {}) for c in cases}
+        # (d) a one-process checkpoint for the ranks to resume; 160 tiles: 144
+        # train tiles, 2 steps an epoch
+        resume_tiles = 160
+        data = SyntheticCubeDataset(num_tiles=resume_tiles, n_bands=pcfg.n_bands, labeled=False,
+                                    seed=SEED)
+        Pretrainer(pcfg.copy(), dtype=torch.bfloat16, device="cuda").fit(
+            data, max_steps=3, tracker=QuietTracker("w1"), models_dir=os.path.join(tmp, "w1"))
+        from_path = os.path.join(tmp, "w1", "w1", f"model_{pcfg.encoder_name}_at_step3.pt")
+        cases.append(dict(kind="pretrain_resume", name="resume", configs=PRE_CONFIGS,
+                          dtype="bfloat16", set=dict(seed=SEED), tiles=resume_tiles,
+                          data_seed=SEED, steps=5, stop=3, **{"from": from_path}))
+        torch.cuda.empty_cache()
+
+        # --- the main path: two ranks on the one card over gloo, counted ---------
+        spec = dict(out=os.path.join(tmp, "gloo"), device="cuda", backend="gloo", cases=cases)
+        t0 = time.perf_counter()
+        results = dist_worker.launch(spec, 2, timeout_s=600)
+        ranks = [r["cases"] for r in results]
+        arrays = dist_worker.load_arrays(spec["out"])
+        print(f"     data-parallel: 2 ranks over gloo on {[r['device'] for r in results]} ran "
+              f"{len(cases)} cases in {time.perf_counter() - t0:.1f} s (both processes' "
+              "start-up and CUDA set-up included)", flush=True)
+
+        # (a) bf16 and fp32 against one process; every rank's launches
+        for name, dtype in (("pre_bf16", "bfloat16"), ("pre_fp32", "float32")):
+            check(ranks_equal(ranks, name),
+                  f"data-parallel {name}: the 2 ranks' parameters, gradients and train "
+                  "states equal bit for bit after each of 3 steps")
+            dp_hold_steps(f"data-parallel {name}", name, ranks, arrays, one[name], dtype,
+                          lambda n: pcfg.lr)
+        out["launches"] = [{n: sum(s["launches"][n] for s in r["pre_bf16"]["steps"])
+                            for n in per_step["pretrain"]} for r in ranks]
+        check(all(s["launches"] == per_step["pretrain"] for r in ranks
+                  for s in r["pre_bf16"]["steps"]),
+              f"data-parallel pre_bf16: each rank launched phase 4's {per_step['pretrain']} at "
+              f"every step (ranks' totals {out['launches']})")
+        for r, got in enumerate(out["launches"]):
+            for n, v in got.items():
+                check(v > 0, f"data-parallel path rank {r}: {n} launched {v} times")
+        one_rate = one["pre_bf16"][0]["steps_per_s"]
+        for r, rank in enumerate(ranks):
+            print(f"     data-parallel pretraining bf16, rank {r} of 2 sharing the card over "
+                  f"gloo: {rank['pre_bf16']['steps_per_s']:.3f} steps/s of the global batch "
+                  f"{TRAIN_BATCH} (32 rows a rank; one process: {one_rate:.3f} steps/s; 10 "
+                  f"steps, host clock, synchronized; not a scaling figure) on {card}",
+                  flush=True)
+
+        # (b) dropout 0.1: seeds folded as in JAX, rank 0's embedding dropout
+        seeds = [r["pre_dropout"]["seeds"] for r in ranks]
+        check(ranks_equal(ranks, "pre_dropout") and seeds[0] == one["pre_dropout"][0]["seeds"]
+              and seeds[1] == [fold_rank_seed(v, 1) for v in seeds[0]] != seeds[0]
+              and all(math.isfinite(s["loss"]) for r in ranks for s in r["pre_dropout"]["steps"]),
+              f"data-parallel dropout 0.1: ranks equal bit for bit, {len(seeds[0])} layer seeds "
+              "of rank 0 the one process's, rank 1's folded by + 668265261 (int32 wrap), "
+              "losses finite")
+        want = one["fine_emb_dropout"][1]["fine_emb_dropout/emb_keep1"]
+        keeps = [dist_worker.load_arrays(spec["out"], r)["fine_emb_dropout/emb_keep1"]
+                 for r in range(2)]
+        check(all(np.array_equal(got, want[r * len(got) : (r + 1) * len(got)])
+                  and 2 * len(got) == len(want) for r, got in enumerate(keeps))
+              and ranks_equal(ranks, "fine_emb_dropout"),
+              f"data-parallel embedding dropout 0.1: rank 0's keep mask {keeps[0].shape} equals "
+              f"the first half of the one-process draw {want.shape}, rank 1's the second "
+              f"({keeps[0].mean():.4f} kept)")
+
+        # (c) finetuning from the store with padded batches
+        check(ranks_equal(ranks, "fine_pad"),
+              "data-parallel fine_pad: ranks equal bit for bit after each of 3 steps")
+        dp_hold_steps("data-parallel fine_pad", "fine_pad", ranks, arrays, one["fine_pad"],
+                      "bfloat16", lambda n: fcfg.mlp_head_lr if n.startswith("head_")
+                      else fcfg.lr)
+        vals = [r["fine_pad"]["val"] for r in ranks]
+        want = one["fine_pad"][0]["val"]
+        check(all(abs(v[m] - want[m]) <= TOL_METRIC["bfloat16"] for v in vals
+                  for m in ("acc", "macro_acc"))
+              and all(abs(v["loss"] - want["loss"]) <= TOL_LOSS["bfloat16"] * abs(want["loss"])
+                      for v in vals) and vals[0] == vals[1],
+              f"data-parallel fine_pad validation (batches of 31, padded to 32): {vals} vs one "
+              f"process {want}")
+
+        # (d) checkpoints: rank 0 writes; resumes bit for bit; across world sizes
+        r0, r1 = ranks[0]["resume"], ranks[1]["resume"]
+        check(r1["files"] == [] and any(f.endswith("_at_step3.pt") for f in r0["files"])
+              and not r1["jsonl"] and r0["jsonl"],
+              f"data-parallel checkpoints: rank 0 wrote {len(r0['files'])} files, rank 1 "
+              f"{len(r1['files'])}; tracker JSONL on rank 0 {r0['jsonl']}, rank 1 {r1['jsonl']}")
+        check(r0["resumed"] == r0["control"] and r1["resumed"] == r1["control"]
+              and r0["control"] == r1["control"] and r0["from"] == r1["from"]
+              and r0["from_step"] == 5,
+              "data-parallel resume: 2 ranks resumed at step 3 == their uninterrupted control "
+              "at step 5, bit for bit; a one-process checkpoint resumed by 2 ranks to step 5")
+        single = Pretrainer(pcfg.copy(), dtype=torch.bfloat16, device="cuda")
+        at = single.resume(r0["checkpoint"])
+        same = all(torch.equal(single.model.state_dict()[n], v)
+                   for n, v in restore_params(r0["checkpoint"], "cuda").items())
+        loss = float(single.train_step(np.stack([data[i]["img"] for i in range(TRAIN_BATCH)]))
+                     ["loss"])
+        check(at == 3 and same and math.isfinite(loss),
+              f"data-parallel checkpoint in one process: resumed at step {at}, parameters equal "
+              f"to the file's, a step's loss {loss:.6e} finite")
+        del single
+        torch.cuda.empty_cache()
+
+        # --- (e) NCCL at world size min(device_count, 2) -------------------------
+        size = min(torch.cuda.device_count(), 2)
+        nccl = dict(pre, name="nccl", dtype="bfloat16", set=no_dropout, arrays=False, timed=20)
+        spec = dict(out=os.path.join(tmp, "nccl"), device="cuda", backend="nccl",
+                    cases=[nccl, dict(nccl, name="no_group", no_group=True)])
+        results = dist_worker.launch(spec, size, timeout_s=300)
+        for r, res in enumerate(results):
+            a, b = res["cases"]["nccl"], res["cases"]["no_group"]
+            same = [s["state_digest"] for s in a["steps"]] == [s["state_digest"]
+                                                             for s in b["steps"]]
+            check(same if size == 1 else ranks_equal([x["cases"] for x in results], "nccl"),
+                  f"data-parallel nccl at world size {size}, rank {r}: the step "
+                  + ("bit-equal to the step without a process group" if size == 1
+                     else "bit-equal across ranks"))
+            print(f"     data-parallel nccl, world size {size}, rank {r}: {a['steps_per_s']:.3f} "
+                  f"steps/s vs {b['steps_per_s']:.3f} without a process group (bf16, batch "
+                  f"{TRAIN_BATCH}, 20 steps, host clock, synchronized) on {card}", flush=True)
+        out["nccl_size"] = size
+
+        # --- (f) the pretraining driver under torchrun ---------------------------
+        models = os.path.join(tmp, "driver")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", "-m", "maskedsst_tpu_torch.pretrain", "--synthetic",
+               "--synthetic-tiles", "160", "--steps", "3", "--dist-backend", "gloo",
+               "--models-dir", models]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        log = res.stdout + res.stderr
+        # 144 train tiles: 2 steps an epoch, so the epoch-0 save and the break's
+        pts = sorted(os.path.relpath(os.path.join(d, f), models) for d, _, fs in os.walk(models)
+                     for f in fs if f.endswith(".pt"))
+        want = [f"model_{pcfg.encoder_name}_at_step3.pt", f"model_{pcfg.encoder_name}_ep0.pt"]
+        check(res.returncode == 0 and "multihost: process 0/2" in log
+              and "multihost: process 1/2" in log and len({os.path.dirname(p) for p in pts}) == 1
+              and [os.path.basename(p) for p in pts] == want,
+              f"data-parallel driver under torchrun --nproc_per_node 2 (gloo, 3 synthetic "
+              f"steps): exit {res.returncode} in {time.perf_counter() - t0:.1f} s, both ranks' "
+              f"lines, checkpoints written {pts}" + ("" if res.returncode == 0 else
+                                                     "\n" + log[-3000:]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
@@ -2365,6 +2631,8 @@ def main() -> int:
                         real["labeled"])
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+    dp = timed("phase 9 data-parallel training: 2 ranks on the card over gloo, nccl, the "
+               "driver under torchrun", phase_data_parallel, card, per_step)
 
     batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
 
@@ -2408,6 +2676,7 @@ def main() -> int:
         entry["launches_checkpoint_finetune"] = ckpt["finetune"][entry["name"]]
         entry["launches_real_data"] = real["counts"][entry["name"]]
         entry["launches_drivers"] = drivers["counts"][entry["name"]]
+        entry["launches_data_parallel"] = [got[entry["name"]] for got in dp["launches"]]
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",

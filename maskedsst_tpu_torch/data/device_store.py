@@ -1,9 +1,11 @@
 """Device-resident tile store and index batches, as the JAX package's
-``data/device_store.py`` on one card.
+``data/device_store.py``.
 
 The store uploads the whole tile set to the card once; each training step
 then moves only a [batch] index vector and gathers its batch there (both
-trainers read just the crop windows). A set larger than the byte budget
+trainers read just the crop windows). In a data-parallel run every process
+holds the full set on its own card (``cuda:{local_rank}``) and gathers its
+own rows of each index batch. A set larger than the byte budget
 raises ``MemoryError``, and the trainer streams batches from the host
 instead, as the JAX ``fit`` does.
 """
@@ -15,11 +17,13 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from maskedsst_tpu_torch.parallel.mesh import resolve_device
+
 
 class DeviceTileStore:
-    """Stacks a map-style dataset's samples into tensors on ``device``: every
-    key of sample 0 whose value is an array or a scalar (strings and bytes
-    are skipped)."""
+    """Stacks a map-style dataset's samples into tensors on ``device`` (a bare
+    ``"cuda"`` is the current card, ``cuda:{index}``): every key of sample 0
+    whose value is an array or a scalar (strings and bytes are skipped)."""
 
     def __init__(self, dataset, device="cuda", max_bytes: int = 8 * 1024**3):
         n = len(dataset)
@@ -44,6 +48,7 @@ class DeviceTileStore:
             sample = dataset[i]
             for k in fields:
                 host[k][i] = np.asarray(sample[k])
+        device = resolve_device(device)
         self.arrays: Dict[str, torch.Tensor] = {
             k: torch.from_numpy(v).to(device) for k, v in host.items()
         }

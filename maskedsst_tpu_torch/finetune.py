@@ -1,9 +1,17 @@
 """Supervised finetuning entry point of the PyTorch port (the repo's
-``finetune.py``, on one CUDA card).
+``finetune.py``).
 
     python -m maskedsst_tpu_torch.finetune {enmap|houston2018} [--config configs/config.yaml]
         [--synthetic] [--synthetic-tiles N] [--epochs N] [--steps N] [--fp32] [--cpu]
         [--checkpoint PATH|none] [--resume CKPT] [--models-dir models] [--jsonl PATH]
+        [--multihost [--coordinator HOST:PORT --num-processes N --process-id R]]
+        [--dist-backend nccl|gloo]
+
+Data-parallel over several processes, one card each: ``torchrun
+--nproc_per_node N -m maskedsst_tpu_torch.finetune ...`` (or
+``--multihost`` with the rendezvous flags in every process). The config's
+``batch_size`` is the global batch; only rank 0 writes checkpoints and
+tracker rows. Processes that share one card need ``--dist-backend gloo``.
 
 The model comes from ``method_name`` in the finetune config (only
 ViTSpatialSpectral is ported) with weights made from the seed. Its encoder
@@ -30,6 +38,12 @@ import random
 
 import numpy as np
 
+from maskedsst_tpu_torch.parallel.mesh import (
+    add_multihost_args,
+    shutdown_multihost,
+    world_from_args,
+)
+
 SEED = 5
 
 
@@ -54,11 +68,26 @@ def main(argv=None) -> dict:
     parser.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
     parser.add_argument("--jsonl", default=None, metavar="PATH",
                         help="also append the logged rows to PATH as JSON lines")
+    add_multihost_args(parser)
     args = parser.parse_args(argv)
     if args.resume and args.checkpoint not in (None, "none"):
         parser.error("--resume and --checkpoint are mutually exclusive: --resume restores the "
                      "full finetune state (parameters included); pretrained encoder weights "
                      "loaded on top would overwrite it")
+    import torch
+
+    device = "cpu" if args.cpu else "cuda"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --cpu to run on the CPU")
+    world = world_from_args(args, device)
+    try:
+        return _run(args, world)
+    finally:
+        if world.group is not None:
+            shutdown_multihost()
+
+
+def _run(args, world) -> dict:
     import torch
 
     from maskedsst_tpu_torch.config import get_finetune_config
@@ -68,9 +97,6 @@ def main(argv=None) -> dict:
     from maskedsst_tpu_torch.train.finetuner import Finetuner
     from maskedsst_tpu_torch.utils.tracking import Tracker
 
-    device = "cpu" if args.cpu else "cuda"
-    if device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --cpu to run on the CPU")
     random.seed(SEED)
     np.random.seed(SEED)
     config = get_finetune_config(
@@ -80,7 +106,7 @@ def main(argv=None) -> dict:
     if args.checkpoint is not None:
         config.checkpoint_path = None if args.checkpoint == "none" else args.checkpoint
     model, trainer_kwargs = build_finetune_model(
-        config, dtype=None if args.fp32 else torch.bfloat16, device=device
+        config, dtype=None if args.fp32 else torch.bfloat16, device=world.device
     )
     # a resume restores the parameters itself: the config's checkpoint_path
     # is superseded
@@ -94,10 +120,12 @@ def main(argv=None) -> dict:
             print(f"[finetune] pretrained encoder loaded from {ckpt_path}")
     dataset = get_dataset(config, supervised=True, synthetic=args.synthetic)
     val_ds, train_ds = split_dataset(dataset, config.train_fraction, config.data_fraction, SEED)
-    print(f"device: {torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}")
+    dev = world.device
+    print(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
     print(f"len(train_dataset)={len(train_ds)}")
     print(f"len(val_dataset)={len(val_ds)}")
-    trainer = Finetuner(config, model, tile_size=tile_size(dataset), **trainer_kwargs)
+    trainer = Finetuner(config, model, tile_size=tile_size(dataset), world=world,
+                        **trainer_kwargs)
     print(f"Model name: {config.method_name}")
     print(f"Model parameters: {trainer.num_params:,}")
     if args.resume:

@@ -14,12 +14,14 @@ forward and backward. ``BlockwisePatchEmbedding.embed_pn`` is the same
 embedding in plain ops, for the route where embedding dropout is active.
 
 Dropout seeds: a stack takes a per-call base seed and layer i uses
-base + i (mod 2**32), as the JAX ``FusedTransformer`` does.
+base + i (mod 2**32), as the JAX ``FusedTransformer`` does; in a
+data-parallel run rank r folds that into ``fold_rank_seed(base + i, r)``,
+as the JAX layer folds each device's index along the data axis.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -29,17 +31,32 @@ from maskedsst_tpu_torch.ops.fused_layer import LayerParams, fused_transformer_l
 
 # torch nn.LayerNorm epsilon
 LN_EPS = 1e-5
+# the JAX layer's per-device seed stride; it differs from the kernels' block
+# mixer (-1640531527), or rank r's block b would take rank r+1's block b-1
+# masks
+RANK_SEED_STRIDE = 668265261
 
 
-def token_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def fold_rank_seed(seed: int, rank: int) -> int:
+    """A layer's dropout seed on rank ``rank``: ``seed + rank * 668265261``
+    with int32 wrap (the JAX ``seed + axis_index("data") * 668265261``), as
+    the uint32 of the same bits."""
+    return (seed + rank * RANK_SEED_STRIDE) & 0xFFFFFFFF
+
+
+def token_dropout(x: torch.Tensor, rate: float, seed: int,
+                  shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Dropout on tokens, its keep mask drawn from a generator on x's device
     seeded with ``seed``: kept values divided by 1 - rate in x's dtype, as
-    flax ``nn.Dropout``."""
+    flax ``nn.Dropout``. ``shard`` (rank, world size): x holds rank's rows
+    of the global batch, and the mask is those rows of the global draw."""
     if rate == 0.0:
         return x
+    rank, size = shard
+    b = x.shape[0]
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    keep = torch.rand((b * size, *x.shape[1:]), generator=gen, device=x.device) >= rate
+    return torch.where(keep[rank * b : (rank + 1) * b], x / (1.0 - rate), torch.zeros_like(x))
 
 
 class FeedForward(nn.Module):
@@ -119,12 +136,13 @@ class Transformer(nn.Module):
             for _ in range(depth)
         )
 
-    def forward(self, x: torch.Tensor, seed: int = 0) -> torch.Tensor:
-        """``seed``: the stack's base dropout seed; layer i uses seed + i."""
+    def forward(self, x: torch.Tensor, seed: int = 0, rank: int = 0) -> torch.Tensor:
+        """``seed``: the stack's base dropout seed; layer i uses seed + i,
+        folded by the data-parallel ``rank``."""
         lead = x.shape[:-2]
         xb = x.reshape(-1, x.shape[-2], x.shape[-1])
         for i, layer in enumerate(self.layers):
-            xb = layer(xb, (seed + i) & 0xFFFFFFFF)
+            xb = layer(xb, fold_rank_seed(seed + i, rank))
         return xb.reshape(*lead, x.shape[-2], x.shape[-1])
 
 

@@ -20,12 +20,14 @@ JAX model, embedding dropout is never applied here.
 Randomness comes from an explicit ``torch.Generator`` passed to
 ``forward``: first a seed for the mask, which is then drawn on the input's
 device, then the two stacks' dropout seeds. ``bool_mask`` overrides the
-sampler.
+sampler. In a data-parallel run ``shard`` = (rank, world size) names the
+rows of the global batch that a call holds: the mask is those rows of the
+global draw and the layers fold their seeds by the rank.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -119,31 +121,40 @@ class SimMIMSpatialSpectral(nn.Module):
         self.to_pixels.init_weights(gen)
         return self
 
-    def sample_mask(self, batch_size: int, device, rng: torch.Generator) -> torch.Tensor:
+    def sample_mask(self, batch_size: int, device, rng: torch.Generator,
+                    shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """Bool [B, num_tokens] in block-major order, drawn on ``device`` from
-        a generator seeded by one draw of ``rng``."""
+        a generator seeded by one draw of ``rng``; under ``shard`` (rank,
+        world size), rank's B rows of the global [B · size] draw."""
+        rank, size = shard
         seed = int(torch.randint(0, 2**62, (1,), generator=rng))
         gen = torch.Generator(device=device).manual_seed(seed)
         if self.mask_generator is None:
-            return random_token_mask(gen, batch_size, self.num_tokens, self.num_masked)
-        return self.mask_generator.batch_masks(gen, batch_size, self.encoder.num_spectral_patches,
-                                               self.tube_masking)
+            masks = random_token_mask(gen, batch_size * size, self.num_tokens, self.num_masked)
+        else:
+            masks = self.mask_generator.batch_masks(gen, batch_size * size,
+                                                    self.encoder.num_spectral_patches,
+                                                    self.tube_masking)
+        return masks[rank * batch_size : (rank + 1) * batch_size]
 
     def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None,
-                bool_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Cubes [B, C, H, W] → the scalar reconstruction loss (fp32). The
-        mask is ``bool_mask`` [B, num_tokens] when given, else drawn with
-        ``rng``; in training, dropout seeds are drawn from ``rng`` after it."""
+                bool_mask: Optional[torch.Tensor] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+        """Cubes [B, C, H, W] → the scalar reconstruction loss (fp32) of these
+        rows. The mask is ``bool_mask`` [B, num_tokens] when given, else drawn
+        with ``rng``; in training, dropout seeds are drawn from ``rng`` after
+        it. ``shard``: (rank, world size) of a data-parallel step."""
         enc = self.encoder
         b = img.shape[0]
         g, n = enc.num_spectral_patches, enc.num_spatial_patches
         if bool_mask is None:
             if rng is None:
                 raise ValueError("drawing a mask needs an explicit torch.Generator (rng)")
-            bool_mask = self.sample_mask(b, img.device, rng)
+            bool_mask = self.sample_mask(b, img.device, rng, shard)
         tokens, patches = enc.tokenize_fused(img, mask=bool_mask.reshape(b, g, n).float(),
                                              mask_token=self.mask_token)
-        encoded = enc.transformer_forward(tokens, seeds=enc.dropout_seeds(rng)[:2])
+        encoded = enc.transformer_forward(tokens, seeds=enc.dropout_seeds(rng)[:2],
+                                          rank=shard[0])
         wsum = self.to_pixels.decode_l1(encoded.reshape(b, g, n, enc.dim), patches,
                                         loss_weights(bool_mask, self.num_masked))
         return wsum / (b * self.num_masked * self.pixels_per_patch) / self.num_masked

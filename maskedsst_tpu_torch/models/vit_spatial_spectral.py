@@ -16,7 +16,11 @@ op; the tensor's device picks kernel or plain version.
 
 Randomness in training comes from an explicit ``torch.Generator`` passed
 to ``forward`` (never torch's global RNG): three seeds per call, for the
-spatial stack, the spectral stack and the embedding dropout.
+spatial stack, the spectral stack and the embedding dropout. In a
+data-parallel run ``shard`` = (rank, world size) names the rows of the
+global batch that this call holds: the layers fold their seeds by the rank
+and the embedding dropout keeps those rows of the global draw, so every
+rank draws the same three seeds.
 """
 
 from __future__ import annotations
@@ -206,20 +210,21 @@ class ViTSpatialSpectral(nn.Module):
         return self.pos_embedding[:, :num_tokens]
 
     def transformer_forward(self, x: torch.Tensor, spectral_layout_out: bool = False,
-                            seeds: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+                            seeds: Tuple[int, int] = (0, 0), rank: int = 0) -> torch.Tensor:
         """Factorized transformer over block-major tokens [B, c*n, d]:
         spatial over n with (B, c) as batch, a swap, spectral over c with
         (B, n) as batch. ``spectral_layout_out=True`` returns the spectral
         stack's layout [B, n, c, d]; otherwise block-major [B, c*n, d].
-        ``seeds``: the two stacks' base dropout seeds."""
+        ``seeds``: the two stacks' base dropout seeds, folded by the
+        data-parallel ``rank``."""
         b, num_tokens, d = x.shape
         c, n = self.num_spectral_patches, self.num_spatial_patches
         assert num_tokens == c * n, f"{num_tokens=} != {c=}*{n=}"
         x = x.reshape(b, c, n, d)
         if not self.spectral_only:
-            x = self.spatial_transformer(x, seeds[0])
+            x = self.spatial_transformer(x, seeds[0], rank)
         x = x.transpose(1, 2).contiguous()  # [B, n, c, d]: the copy the TPU path did not pay
-        x = self.spectral_transformer(x, seeds[1])
+        x = self.spectral_transformer(x, seeds[1], rank)
         if spectral_layout_out:
             return x
         return x.transpose(1, 2).reshape(b, c * n, d)
@@ -254,7 +259,8 @@ class ViTSpatialSpectral(nn.Module):
         return tuple(torch.randint(0, 2**31 - 1, (3,), generator=rng).tolist())
 
     def forward_features(self, img: torch.Tensor, spectral_layout_out: bool = False,
-                         rng: Optional[torch.Generator] = None) -> torch.Tensor:
+                         rng: Optional[torch.Generator] = None,
+                         shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """Tokenize (with positions) and run the factorized transformer.
 
         The fused embed runs unless embedding dropout is active in
@@ -267,16 +273,18 @@ class ViTSpatialSpectral(nn.Module):
             emb = self.to_patch_embedding
             x = emb.embed_pn(emb.to_patch_pn(img))
             x = x + self.pos_embedding_for(x.shape[1]).to(x.dtype)
-            tokens = token_dropout(x, self.emb_dropout, seeds[2])
+            tokens = token_dropout(x, self.emb_dropout, seeds[2], shard)
         return self.transformer_forward(tokens, spectral_layout_out=spectral_layout_out,
-                                        seeds=seeds[:2])
+                                        seeds=seeds[:2], rank=shard[0])
 
-    def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """Cube [B, C, H, W] → logits: per patch pixel [B, num_classes, H, W]
         by default and with ``spectral_mlp_head``, or [B, num_classes] with
         ``pixelwise``. ``rng`` (a CPU generator) drives dropout in
-        training."""
-        x = self.forward_features(img, spectral_layout_out=True, rng=rng)  # [B, n, c, d]
+        training; ``shard``: (rank, world size) of a data-parallel step."""
+        x = self.forward_features(img, spectral_layout_out=True, rng=rng,
+                                  shard=shard)  # [B, n, c, d]
         b = x.shape[0]
         c = self.num_spectral_patches
         hh = ww = self.num_spatial_patches_sqrt

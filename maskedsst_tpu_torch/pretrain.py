@@ -1,11 +1,20 @@
 """SimMIM masked pretraining entry point of the PyTorch port (the repo's
-``pretrain.py``, on one CUDA card).
+``pretrain.py``).
 
     python -m maskedsst_tpu_torch.pretrain
         [--pretrain-config configs/pretrain_config.yaml] [--config configs/config.yaml]
         [--synthetic] [--synthetic-tiles N] [--epochs N] [--steps N] [--batch-size N]
         [--fp32] [--cpu] [--models-dir models] [--resume CKPT] [--jsonl PATH]
-        [--log-grad-norm]
+        [--log-grad-norm] [--multihost [--coordinator HOST:PORT --num-processes N
+        --process-id R]] [--dist-backend nccl|gloo]
+
+Data-parallel over several processes, one card each:
+
+    torchrun --nproc_per_node 8 -m maskedsst_tpu_torch.pretrain --synthetic
+
+(or ``--multihost`` with the three rendezvous flags in every process).
+``--batch-size`` is the global batch; only rank 0 writes checkpoints and
+tracker rows. Processes that share one card need ``--dist-backend gloo``.
 
 The model comes from the merged pretrain config with weights made from the
 seed. bf16 compute (fp32 parameters) is the default, as in the JAX
@@ -29,6 +38,12 @@ import argparse
 import random
 
 import numpy as np
+
+from maskedsst_tpu_torch.parallel.mesh import (
+    add_multihost_args,
+    shutdown_multihost,
+    world_from_args,
+)
 
 SEED = 5
 
@@ -54,7 +69,22 @@ def main(argv=None) -> dict:
                         help="also append the logged rows to PATH as JSON lines")
     parser.add_argument("--log-grad-norm", action="store_true",
                         help="log the window's mean global norm of the raw gradients")
+    add_multihost_args(parser)
     args = parser.parse_args(argv)
+    import torch
+
+    device = "cpu" if args.cpu else "cuda"
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --cpu to run on the CPU")
+    world = world_from_args(args, device)
+    try:
+        return _run(args, world)
+    finally:
+        if world.group is not None:
+            shutdown_multihost()
+
+
+def _run(args, world) -> dict:
     import torch
 
     from maskedsst_tpu_torch.config import get_pretrain_config
@@ -62,9 +92,6 @@ def main(argv=None) -> dict:
     from maskedsst_tpu_torch.train.pretrainer import Pretrainer
     from maskedsst_tpu_torch.utils.tracking import Tracker
 
-    device = "cpu" if args.cpu else "cuda"
-    if device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --cpu to run on the CPU")
     random.seed(SEED)
     np.random.seed(SEED)
     config = get_pretrain_config(args.pretrain_config, args.config, SEED)
@@ -75,8 +102,9 @@ def main(argv=None) -> dict:
         config.log_grad_norm = True
     dataset = get_dataset(config, supervised=False, synthetic=args.synthetic)
     trainer = Pretrainer(config, dtype=None if args.fp32 else torch.bfloat16,
-                         tile_size=tile_size(dataset), device=device)
-    print(f"device: {torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}")
+                         tile_size=tile_size(dataset), device=world.device, world=world)
+    dev = world.device
+    print(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
     print(f"model parameters: {trainer.num_params:,}")
     if args.resume:
         step = trainer.resume(args.resume)

@@ -1,5 +1,4 @@
-"""Full-state checkpoints, the JAX package's ``train/checkpoint.py`` on one
-card.
+"""Full-state checkpoints, the JAX package's ``train/checkpoint.py``.
 
 A checkpoint is one ``torch.save`` payload ``{"step", "model" (the
 model's ``state_dict``), "optimizer" (its ``state_dict``), "rng" (the
@@ -16,6 +15,12 @@ JAX package's, with ``.pt`` in place of ``.msgpack``:
   models/{run_id}/{method}_at_step{S}.pt                 (finetuning, budget end)
 
 ``.pth`` stays the reference format (``io/torch_import.py``).
+
+Under ``torch.distributed`` every process calls ``save_checkpoint`` at the
+same points; only rank 0 writes, and a barrier follows, so that no rank
+reads a file that is still being written. The state is replicated, so any
+rank loads it, and a checkpoint written by W processes resumes under any
+other number of them.
 """
 
 from __future__ import annotations
@@ -26,11 +31,21 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def save_checkpoint(path: str, state, config: Optional[Any] = None,
                     extra: Optional[Dict[str, Any]] = None) -> None:
-    """Write a ``TrainState`` (or a bare ``state_dict``) and its sidecar."""
+    """Write a ``TrainState`` (or a bare ``state_dict``) and its sidecar, from
+    rank 0 only; every rank waits at a barrier until the files are in place."""
+    distributed = dist.is_available() and dist.is_initialized()
+    if not distributed or dist.get_rank() == 0:
+        _write(path, state, config, extra)
+    if distributed:
+        dist.barrier()
+
+
+def _write(path: str, state, config, extra) -> None:
     payload = state.state_dict() if hasattr(state, "optimizer") else {"params": dict(state)}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     # atomic writes: best_*.pt is overwritten on every new best, and a crash

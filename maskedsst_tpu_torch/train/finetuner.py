@@ -1,4 +1,4 @@
-"""Supervised finetuning loop, the JAX package's ``Finetuner`` on one card.
+"""Supervised finetuning loop, the JAX package's ``Finetuner``.
 
 One training step: an optional random crop (or shifting-window tiling) of
 the 64x64 tiles with one origin per batch, center-pixel labels for
@@ -32,8 +32,19 @@ checkpoints (``train/checkpoint.py``) to ``models_dir/run_id/`` at
 ``best_{method}`` on a new best, and one at every budget end that saved
 nothing else; ``resume`` restores one with the loop state of its sidecar
 (scheduler, ``best_val_acc``, the last validation loss), and ``fit``
-continues it bit for bit. Not ported yet (ROADMAP.md): the superstep (CUDA
-graphs later) and multi-host.
+continues it bit for bit.
+
+Data parallelism (``world``, a ``parallel.mesh.DataWorld``): every process
+builds the same batches and draws the same crop origins and dropout seeds;
+it pads each prepared batch (the index vector on the store path) to a
+multiple of the world size with ignored labels, as the JAX ``_pad_batch``,
+and takes its rows. The cross-entropy of its rows is divided by the
+global batch's weight mass, summed over the processes before the
+backward, so the gradients summed by one all-reduce are the global
+batch's; the training loss and accuracies and every validation sum are
+summed over the processes as well, so the scheduler, ``best_val_acc`` and
+the saves see the same numbers on every process. Not ported yet
+(ROADMAP.md): the superstep (CUDA graphs later).
 """
 
 from __future__ import annotations
@@ -49,13 +60,20 @@ import torch
 from maskedsst_tpu_torch.config import Config
 from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
 from maskedsst_tpu_torch.data.pipeline import DataLoader
+from maskedsst_tpu_torch.parallel.mesh import (
+    DataWorld,
+    all_reduce_,
+    all_reduce_grads_,
+    global_streamed_batch,
+    sum_across,
+)
 from maskedsst_tpu_torch.train.checkpoint import (
     load_metadata,
     restore_checkpoint,
     save_checkpoint,
 )
-from maskedsst_tpu_torch.train.losses import cross_entropy, cross_entropy_sums
-from maskedsst_tpu_torch.train.metrics import confusion_matrix, macro_accuracy, micro_accuracy
+from maskedsst_tpu_torch.train.losses import cross_entropy_sums
+from maskedsst_tpu_torch.train.metrics import confusion_matrix, macro_from_cm, micro_from_counts
 from maskedsst_tpu_torch.train.optim import (
     build_optimizer,
     get_learning_rates,
@@ -84,7 +102,9 @@ class Finetuner:
     ``tile_size``: the side of the dataset's tiles (64 for EnMAP; crops of
     ``image_size`` are drawn from them). Every random choice of a step (the
     crop origin, then the model's dropout seeds) comes from
-    ``self.state.rng``, a CPU generator seeded by ``config.seed``."""
+    ``self.state.rng``, a CPU generator seeded by ``config.seed``.
+    ``world``: this process's place in a data-parallel run (default: one
+    process); ``config.batch_size`` is the global batch."""
 
     def __init__(
         self,
@@ -92,9 +112,11 @@ class Finetuner:
         model: torch.nn.Module,
         center_pixel: bool = False,
         tile_size: int = 64,
+        world: Optional[DataWorld] = None,
     ):
         self.config = config
         self.model = model
+        self.world = world or DataWorld()
         self.device = next(model.parameters()).device
         self.center_pixel = center_pixel
         self.tile_size = tile_size
@@ -145,18 +167,39 @@ class Finetuner:
             label = label[:, s // 2, s // 2]
         return img, label
 
+    def _shard(self, img, label):
+        """This process's rows of a global batch (tensors), padded first to a
+        multiple of the world size with zero images under the ignored label
+        (JAX ``_pad_batch``): pad rows add nothing to the loss, its
+        gradients or the metrics."""
+        pad = (-img.shape[0]) % self.world.size
+        if pad:
+            img = torch.cat([img, img.new_zeros((pad, *img.shape[1:]))])
+            label = torch.cat([label, label.new_full((pad, *label.shape[1:]),
+                                                     self.config.ignored_label)])
+        return global_streamed_batch(self.world, img), global_streamed_batch(self.world, label)
+
+    def _shard_idx(self, idx) -> torch.Tensor:
+        """This process's rows of a global index batch, padded first to a
+        multiple of the world size with -1 (ignored labels)."""
+        idx = torch.as_tensor(idx, dtype=torch.int64)
+        pad = (-idx.shape[0]) % self.world.size
+        if pad:
+            idx = torch.cat([idx, idx.new_full((pad,), -1)])
+        return global_streamed_batch(self.world, idx)
+
     def _to_device(self, img, label):
         img = torch.as_tensor(img).to(self.device, torch.float32)
         label = torch.as_tensor(label).to(self.device, torch.int64)
         return img, label
 
     def train_step(self, img, label, xy: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
-        """One update on a batch of tiles (numpy or tensors); returns loss,
-        acc and macro_acc as device scalars. The crop is taken where the
-        batch lies, before the copy to the card, so a host batch moves only
-        its crop windows."""
-        return self._update(*self._to_device(
-            *self._prep(torch.as_tensor(img), torch.as_tensor(label), xy)))
+        """One update on a batch of tiles (numpy or tensors, the global
+        batch); returns the global batch's loss, acc and macro_acc as device
+        scalars. The crop is taken where the batch lies, before the copy to
+        the card, so a host batch moves only this process's crop windows."""
+        return self._update(*self._to_device(*self._shard(
+            *self._prep(torch.as_tensor(img), torch.as_tensor(label), xy))))
 
     def _gather_batch(self, store_img: torch.Tensor, store_label: torch.Tensor,
                       idx: torch.Tensor):
@@ -181,10 +224,11 @@ class Finetuner:
 
     def train_step_idx(self, store_img: torch.Tensor, store_label: torch.Tensor, idx,
                        xy: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
-        """One update on the store's tiles at ``idx`` ([B] indices, -1 for
-        padding), as ``train_step`` on the same tiles: the crop origin is
-        drawn first (or given as ``xy``), then the dropout seeds."""
-        idx = torch.as_tensor(idx, dtype=torch.int64).to(store_img.device)
+        """One update on the store's tiles at ``idx`` ([B] indices of the
+        global batch, -1 for padding: this process gathers its rows), as
+        ``train_step`` on the same tiles: the crop origin is drawn first (or
+        given as ``xy``), then the dropout seeds."""
+        idx = self._shard_idx(idx).to(store_img.device)
         if self.crop and not self.shifting_window and store_label.dim() == 3:
             s, xy = (self.window, xy) if xy is not None else self._crop_draw()
             img, label = self._gather_crop_batch(store_img, store_label, idx, xy, s)
@@ -195,20 +239,32 @@ class Finetuner:
 
     def _update(self, img: torch.Tensor, label: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Forward in train mode, cross-entropy, backward and the Adam step
-        on a batch on the card; loss and accuracies as device scalars."""
-        cfg = self.config
+        on this process's rows of a batch, on the card; the global batch's
+        loss and accuracies as device scalars. The loss is normalized by the
+        global weight mass, so that the gradients summed over the processes
+        are the global batch's (the ranks' means averaged would weigh the
+        rows of a rank with few valid labels more)."""
+        cfg, world = self.config, self.world
         self.model.train()
         self.model.zero_grad(set_to_none=True)
-        logits = self.model(img, rng=self.state.rng)
-        loss = cross_entropy(logits, label, ignore_index=cfg.ignored_label)
+        logits = self.model(img, rng=self.state.rng, shard=world.shard)
+        num, wsum = cross_entropy_sums(logits, label, ignore_index=cfg.ignored_label)
+        loss = num / all_reduce_(wsum.detach(), world).clamp_min(1e-12)
         loss.backward()
+        all_reduce_grads_(self.model.parameters(), world)
         self.state.apply_gradients()
         with torch.no_grad():
             pred = logits.argmax(dim=1)
+            valid = label != cfg.ignored_label
+            sums = sum_across({
+                "loss": loss.detach(), "correct": ((pred == label) & valid).sum(),
+                "n_valid": valid.sum(),
+                "cm": confusion_matrix(pred, label, cfg.n_classes, cfg.ignored_label),
+            }, world)
             return {
-                "loss": loss.detach(),
-                "acc": micro_accuracy(pred, label, cfg.ignored_label),
-                "macro_acc": macro_accuracy(pred, label, cfg.n_classes, cfg.ignored_label),
+                "loss": sums["loss"],
+                "acc": micro_from_counts(sums["correct"], sums["n_valid"]),
+                "macro_acc": macro_from_cm(sums["cm"]),
             }
 
     @torch.no_grad()
@@ -237,7 +293,7 @@ class Finetuner:
         """``_eval_sums`` over every window of the store's tiles at ``idx``:
         gathered and windowed on the card, in chunks of
         ``largest_divisor(windows, 256)``, the sums added there."""
-        idx = torch.as_tensor(idx, dtype=torch.int64).to(store_img.device)
+        idx = self._shard_idx(idx).to(store_img.device)
         img, label = self._gather_batch(store_img, store_label, idx)
         if self.crop:
             img, label = window_tiles(img, self.window, label)
@@ -266,18 +322,23 @@ class Finetuner:
 
     def validate(self, val_loader, val_store: Optional[DeviceTileStore] = None) -> Optional[dict]:
         """Mean loss, acc and macro_acc over every window of the loader's
-        batches: host batches, or index batches into ``val_store``."""
+        batches: host batches, or index batches into ``val_store``. Each
+        process computes the sums of its rows, summed over the processes at
+        the end."""
         sums = None
         for batch in val_loader:
             if val_store is not None:
                 parts = [self._eval_sums_idx(val_store.arrays["img"], val_store.arrays["label"],
                                              batch)]
             else:
-                parts = (self._eval_sums(ci, cl)
+                parts = (self._eval_sums(*self._shard(torch.as_tensor(ci), torch.as_tensor(cl)))
                          for ci, cl in self._window_batch(batch["img"], batch["label"]))
             for part in parts:
                 out = {k: v.cpu().numpy() for k, v in part.items()}
                 sums = out if sums is None else {k: sums[k] + out[k] for k in sums}
+        if sums is not None:
+            sums = {k: v.numpy() for k, v in sum_across(
+                {k: torch.from_numpy(np.asarray(v)) for k, v in sums.items()}, self.world).items()}
         if sums is None or sums["n_valid"] <= 0:
             return None
         support = sums["cm"].sum(axis=1)
@@ -321,6 +382,9 @@ class Finetuner:
         run_dir = os.path.join(models_dir, str(cfg.run_id))
         val_bs = cfg.get("val_batch_size", cfg.batch_size)
         seed = int(cfg.get("seed", 5))
+        if cfg.batch_size % self.world.size and cfg.batch_size >= self.world.size:
+            raise ValueError(f"batch_size {cfg.batch_size} is not divisible by the world size "
+                             f"({self.world.size})")
         # the tiles on the card unless they exceed the store's budget; a
         # dataset that draws anew on every read streams (a store made once
         # would freeze one draw for the whole run)
@@ -369,7 +433,7 @@ class Finetuner:
             loader.skip_next = resume_skip
         win = {k: deque(maxlen=cfg.logging_freq) for k in ("loss", "acc", "macro_acc")}
         train_seconds, train_steps = 0.0, 0
-        meter = Throughput(cfg.batch_size)
+        meter = Throughput(cfg.batch_size, num_chips=self.world.size)
         meter.start()
 
         def done() -> bool:

@@ -16,9 +16,13 @@ import torch
 def micro_accuracy(pred: torch.Tensor, label: torch.Tensor, ignored_label: int = -1) -> torch.Tensor:
     """Share of correctly predicted non-ignored pixels; 0 when none is valid."""
     valid = label != ignored_label
-    total = valid.sum()
-    correct = ((pred == label) & valid).sum()
-    return torch.where(total > 0, correct / total.clamp_min(1), torch.zeros((), device=pred.device))
+    return micro_from_counts(((pred == label) & valid).sum(), valid.sum())
+
+
+def micro_from_counts(correct: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """``correct / total`` (int64 counts), 0 when ``total`` is 0."""
+    return torch.where(total > 0, correct / total.clamp_min(1),
+                       torch.zeros((), device=correct.device))
 
 
 def _one_hot(x: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -36,7 +40,12 @@ def confusion_matrix(pred: torch.Tensor, label: torch.Tensor, num_classes: int,
 def macro_accuracy(pred: torch.Tensor, label: torch.Tensor, num_classes: int,
                    ignored_label: int = -1) -> torch.Tensor:
     """Mean per-class recall over the classes with support."""
-    cm = confusion_matrix(pred, label, num_classes, ignored_label)
+    return macro_from_cm(confusion_matrix(pred, label, num_classes, ignored_label))
+
+
+def macro_from_cm(cm: torch.Tensor) -> torch.Tensor:
+    """Mean per-class recall of a confusion matrix over the classes with
+    support."""
     support = cm.sum(dim=1)
     recall = torch.where(support > 0, cm.diagonal() / support.clamp_min(1), torch.zeros_like(support))
     present = (support > 0).float()

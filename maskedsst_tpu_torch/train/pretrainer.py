@@ -1,5 +1,4 @@
-"""SimMIM masked pretraining loop, the JAX package's ``Pretrainer`` on one
-card.
+"""SimMIM masked pretraining loop, the JAX package's ``Pretrainer``.
 
 One training step: one crop origin per batch in [0, tile − image_size),
 then the mask (drawn on the card), then the dropout seeds, all from the
@@ -25,8 +24,19 @@ scheduler on completed epochs only, and writes full-state checkpoints
 ``model_save_freq``, and at a ``max_steps`` break. ``resume`` restores
 one; ``fit`` then continues at its step, on the loader's epoch and past
 the batches already trained, so a resumed run gives the bits of an
-uninterrupted one. Not ported yet (ROADMAP.md): the superstep (CUDA graphs
-later), multi-host.
+uninterrupted one.
+
+Data parallelism (``world``, a ``parallel.mesh.DataWorld``): every process
+builds the same batches (the same loader seed) and takes its rows of each,
+of the index vector on the store path and of the host batch when
+streaming; it draws the same crop origin, mask seed and dropout seeds from
+its generator, keeps its rows of the global mask, and folds the layers'
+dropout seeds by its rank. After the backward the gradients are averaged
+over the processes by one all-reduce (each process's loss is the mean over
+its equal share of the rows), so the clamp, the norm and AdamW see the
+global batch's gradient on every process, and so do the logged and
+validation losses. Not ported yet (ROADMAP.md): the superstep (CUDA graphs
+later).
 """
 
 from __future__ import annotations
@@ -43,6 +53,13 @@ from maskedsst_tpu_torch.config import Config
 from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
 from maskedsst_tpu_torch.data.pipeline import DataLoader, split_dataset
 from maskedsst_tpu_torch.models import SimMIMSpatialSpectral, ViTSpatialSpectral
+from maskedsst_tpu_torch.parallel.mesh import (
+    DataWorld,
+    all_reduce_grads_,
+    global_streamed_batch,
+    resolve_device,
+    sum_across,
+)
 from maskedsst_tpu_torch.train.checkpoint import (
     load_metadata,
     restore_checkpoint,
@@ -120,14 +137,22 @@ class Pretrainer:
 
     ``tile_size``: the side of the dataset's tiles (64 for EnMAP; crops of
     ``image_size`` are drawn from them). Every random choice of a step comes
-    from ``self.state.rng``, a CPU generator seeded by ``config.seed``."""
+    from ``self.state.rng``, a CPU generator seeded by ``config.seed``.
+    ``world``: this process's place in a data-parallel run (default: one
+    process); ``config.batch_size`` is the global batch, which its size
+    must divide."""
 
     def __init__(self, config: Config, dtype: Optional[torch.dtype] = None,
-                 tile_size: int = 64, device: str = "cuda"):
+                 tile_size: int = 64, device: str = "cuda",
+                 world: Optional[DataWorld] = None):
         self.config = config
-        self.device = torch.device(device)
+        self.world = world or DataWorld()
+        if config.batch_size % self.world.size:
+            raise ValueError(f"batch_size {config.batch_size} is not divisible by the world size "
+                             f"({self.world.size}): each process takes an equal share of the rows")
+        self.device = resolve_device(device)
         self.tile_size = tile_size
-        self.model = build_pretrain_model(config, dtype, device)
+        self.model = build_pretrain_model(config, dtype, self.device)
         optimizer = build_pretrain_optimizer(self.model, config.optimizer, config.lr,
                                              config.weight_decay)
         self.grad_clamp = 1.0 if config.get("clip_grad_norm") else None
@@ -147,17 +172,22 @@ class Pretrainer:
 
     def _update(self, img: torch.Tensor,
                 bool_mask: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Loss, backward, clamp, AdamW; the mask drawn when not given.
-        Returns the loss and, with ``log_grad_norm``, the raw gradients'
-        global norm, as device scalars."""
-        model = self.model
+        """Loss, backward, the gradients averaged over the processes, clamp,
+        AdamW on this process's rows ``img``; the mask drawn when not given
+        (a given one is the global batch's). Returns the global batch's loss
+        and, with ``log_grad_norm``, the raw gradients' global norm, as
+        device scalars."""
+        model, world = self.model, self.world
         model.train()
         model.zero_grad(set_to_none=True)
         if bool_mask is None:
-            bool_mask = model.sample_mask(img.shape[0], img.device, self.state.rng)
-        loss = model(img, rng=self.state.rng, bool_mask=bool_mask)
+            bool_mask = model.sample_mask(img.shape[0], img.device, self.state.rng, world.shard)
+        else:
+            bool_mask = bool_mask[world.rows(bool_mask.shape[0])]
+        loss = model(img, rng=self.state.rng, bool_mask=bool_mask, shard=world.shard)
         loss.backward()
-        metrics = {"loss": loss.detach()}
+        all_reduce_grads_(model.parameters(), world, 1.0 / world.size)
+        metrics = {"loss": sum_across({"loss": loss.detach()}, world)["loss"] / world.size}
         if self.log_grad_norm:
             metrics["grad_norm"] = global_norm(
                 p.grad for p in model.parameters() if p.grad is not None)
@@ -168,11 +198,12 @@ class Pretrainer:
 
     def train_step(self, tiles, xy: Optional[Tuple[int, int]] = None,
                    bool_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """One update on a batch of tiles [B, C, T, T] (numpy or a tensor);
-        the crop is taken where the batch lies, before the copy to the card.
-        ``xy`` and ``bool_mask`` inject the crop origin and the mask."""
+        """One update on a batch of tiles [B, C, T, T] (numpy or a tensor, the
+        global batch: this process takes its rows); the crop is taken where
+        the batch lies, before the copy to the card. ``xy`` and ``bool_mask``
+        inject the crop origin and the global batch's mask."""
         s = self.config.image_size
-        tiles = torch.as_tensor(tiles)
+        tiles = global_streamed_batch(self.world, torch.as_tensor(tiles))
         if self.crop:
             x0, y0 = xy if xy is not None else self._crop_draw()
             tiles = tiles[:, :, x0 : x0 + s, y0 : y0 + s]
@@ -191,9 +222,11 @@ class Pretrainer:
     def train_step_idx(self, store_img: torch.Tensor, idx,
                        xy: Optional[Tuple[int, int]] = None,
                        bool_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        """One update on the store's tiles at ``idx`` ([B] indices)."""
+        """One update on the store's tiles at ``idx`` ([B] indices of the
+        global batch: this process gathers its rows)."""
         s = self.config.image_size
-        idx = torch.as_tensor(idx, dtype=torch.int64).to(store_img.device)
+        idx = torch.as_tensor(idx, dtype=torch.int64)
+        idx = idx[self.world.rows(idx.shape[0])].to(store_img.device)
         if self.crop:
             img = self._gather_crop(store_img, idx, xy if xy is not None else self._crop_draw(), s)
         else:
@@ -206,19 +239,24 @@ class Pretrainer:
         """Mean loss over every ``image_size`` window of the tiles (stride =
         window), in chunks of ``largest_divisor(windows, 512)``, each masked
         by a generator seeded with ``fold_seed(seed, chunk)`` or by
-        ``bool_masks[chunk]``; deterministic forward."""
+        ``bool_masks[chunk]``; deterministic forward. Each process computes
+        its rows of every chunk (under its rows of the chunk's mask), and
+        the losses are averaged over the processes."""
         s = self.config.image_size
+        world = self.world
         (windows,) = window_tiles(tiles, s)
         n = windows.shape[0]
         chunk = largest_divisor(n, 512)
+        rows = world.rows(chunk)
         self.model.eval()
         losses = []
         for i in range(n // chunk):
-            w = windows[i * chunk : (i + 1) * chunk]
-            mask = bool_masks[i] if bool_masks is not None else None
+            w = windows[i * chunk : (i + 1) * chunk][rows]
+            mask = bool_masks[i][rows] if bool_masks is not None else None
             rng = torch.Generator().manual_seed(fold_seed(seed, i))
-            losses.append(self.model(w, rng=rng, bool_mask=mask))
-        return torch.stack(losses).mean()
+            losses.append(self.model(w, rng=rng, bool_mask=mask, shard=world.shard))
+        loss = torch.stack(losses).mean()
+        return sum_across({"loss": loss}, world)["loss"] / world.size
 
     # --- checkpoints ----------------------------------------------------------
     def resume(self, path: str) -> int:
@@ -298,7 +336,7 @@ class Pretrainer:
         gn_window: deque = deque(maxlen=freq)
         history: dict = {"train_loss": [], "val_loss": []}
         train_seconds = 0.0
-        meter = Throughput(bs)
+        meter = Throughput(bs, num_chips=self.world.size)
         meter.start()
 
         def log_row(epoch: int) -> None:

@@ -31,6 +31,7 @@ from maskedsst_tpu_torch.config import get_finetune_config
 from maskedsst_tpu_torch.io.flax_params import flax_from_params, grads_to_flax, params_from_flax
 from maskedsst_tpu_torch.models.layers import BlockwisePatchEmbedding
 from maskedsst_tpu_torch.ops import fused_embed, fused_layer
+from maskedsst_tpu_torch.tools import dist_worker
 from maskedsst_tpu_torch.train.factory import build_finetune_model
 from maskedsst_tpu_torch.train.finetuner import Finetuner
 
@@ -139,6 +140,43 @@ def test_finetune_step_matches_jax(jax_side):
             assert err[~sensitive[name]].max(initial=0.0) <= 1e-2 * lr, f"step {k} {name}"
             assert err[sensitive[name]].max(initial=0.0) <= 2 * lr, f"step {k} {name}"
     assert sum(m.sum() for m in sensitive.values()) <= 5e-3 * total
+
+
+def test_two_ranks_match_jax(jax_side, tmp_path):
+    """The JAX step on a one-device mesh is what its multi-process mesh
+    computes (tests/test_multihost.py): two Gloo ranks of the port, one row
+    of each batch apiece, hold their parameters after steps 1 and 2 to the
+    JAX ones by the rule of test_finetune_step_matches_jax, and to each
+    other bit for bit."""
+    inputs = {f"params/{k}": v.numpy() for k, v in params_from_flax(jax_side["params0"]).items()}
+    for k in (1, 2):
+        inputs[f"img{k}"], inputs[f"label{k}"] = _batch(k - 1)
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    case = dict(kind="finetune", name="jax", configs=list(CONFIGS), tile_size=8, steps=2,
+                arrays=True,
+                set=dict(transformer_dropout=0.0, transformer_emb_dropout=0.0, batch_size=2))
+    ranks = dist_worker.launch(dict(out=str(tmp_path / "out"), device="cpu", threads=1,
+                                    inputs=str(tmp_path / "inputs.npz"), cases=[case]), 2)
+    digests = [[s["state_digest"] for s in r["cases"]["jax"]["steps"]] for r in ranks]
+    assert digests[0] == digests[1]
+    for rank in ranks:
+        for key in ("loss", "acc", "macro_acc"):
+            assert abs(rank["cases"]["jax"]["steps"][0][key] - jax_side[key]) <= 2e-5, key
+    arrays = dist_worker.load_arrays(tmp_path / "out")
+    cfg = _no_dropout(get_finetune_config(*CONFIGS))
+    sensitive = None
+    for k in (1, 2):
+        prefix = f"jax/params{k}/"
+        have = _leaves(flax_from_params({n[len(prefix):]: torch.from_numpy(v)
+                                         for n, v in arrays.items() if n.startswith(prefix)}))
+        sensitive = sensitive or {n: np.zeros(w.shape, bool)
+                                  for n, w in jax_side["params1"].items()}
+        for name, want in jax_side[f"params{k}"].items():
+            lr = cfg.mlp_head_lr if "head_" in name else cfg.lr
+            sensitive[name] |= np.abs(jax_side[f"effective_grads{k}"][name]) < 1e-6
+            err = np.abs(have[name] - want)
+            assert err[~sensitive[name]].max(initial=0.0) <= 1e-2 * lr, f"step {k} {name}"
+            assert err[sensitive[name]].max(initial=0.0) <= 2 * lr, f"step {k} {name}"
 
 
 def test_store_step_matches_jax(jax_side):

@@ -39,6 +39,7 @@ from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
 from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
 from maskedsst_tpu_torch.io.flax_params import flax_from_params, grads_to_flax, params_from_flax
 from maskedsst_tpu_torch.ops import fused_embed, fused_layer, fused_simmim
+from maskedsst_tpu_torch.tools import dist_worker
 from maskedsst_tpu_torch.train.optim import (
     CosineAnnealingLR,
     build_pretrain_optimizer,
@@ -142,6 +143,33 @@ def test_pretrain_step_matches_jax(jax_side):
         if k == 2:
             trainer.train_step(_batch(2), bool_mask=torch.from_numpy(_tube_masks(2, 2, 20)))
         have = _leaves(flax_from_params(trainer.model.state_dict()))
+        for name, want in jax_side[f"params{k}"].items():
+            err = np.abs(have[name] - want).max()
+            assert err <= 1e-2 * lr, f"step {k} {name}: {err / lr:.3e} lr"
+
+
+def test_two_ranks_match_jax(jax_side, tmp_path):
+    """The JAX step on a one-device mesh is what its multi-process mesh
+    computes (tests/test_multihost.py): two Gloo ranks of the port, one row
+    of each batch apiece, hold their parameters after steps 1 and 2 to the
+    JAX ones within 1e-2 x lr, and to each other bit for bit."""
+    inputs = {f"params/{k}": v.numpy() for k, v in params_from_flax(jax_side["params0"]).items()}
+    for k in (1, 2):
+        inputs[f"img{k}"], inputs[f"mask{k}"] = _batch(k), _tube_masks(k, 2, 20)
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    case = dict(kind="pretrain", name="jax", configs=list(CONFIGS), tile_size=8, steps=2,
+                mask="mask", arrays=True,
+                set=dict(transformer_dropout=0.0, transformer_emb_dropout=0.0, batch_size=2))
+    ranks = dist_worker.launch(dict(out=str(tmp_path / "out"), device="cpu", threads=1,
+                                    inputs=str(tmp_path / "inputs.npz"), cases=[case]), 2)
+    digests = [[s["state_digest"] for s in r["cases"]["jax"]["steps"]] for r in ranks]
+    assert digests[0] == digests[1]
+    arrays = dist_worker.load_arrays(tmp_path / "out")
+    lr = _cfg(get_pretrain_config).lr
+    for k in (1, 2):
+        prefix = f"jax/params{k}/"
+        have = _leaves(flax_from_params({n[len(prefix):]: torch.from_numpy(v)
+                                         for n, v in arrays.items() if n.startswith(prefix)}))
         for name, want in jax_side[f"params{k}"].items():
             err = np.abs(have[name] - want).max()
             assert err <= 1e-2 * lr, f"step {k} {name}: {err / lr:.3e} lr"
