@@ -170,7 +170,31 @@ Phases:
      its step bit-equal to the step without a process group, steps/s of
      both; (f) the pretraining driver under ``torch.distributed.run
      --nproc_per_node 2`` (Gloo), 3 synthetic steps, both ranks' lines and
-     rank 0's two checkpoints.
+     rank 0's two checkpoints;
+ 10. the other models and SimMIM options (models/vit_rgb.py,
+     vit_spatial_spectral_v1.py, layers.py::PatchEmbed, simmim.py) at the
+     repo's full widths: (a) the layer kernels at S = 65, ViTRGB's
+     cls-token sequence past the 64 rows of the other paths: each form's
+     shared-memory plan (ops/fused_layer.py::launch_plan) within the
+     card's limit, the forward at batch 256 and the backward at [64, 65,
+     96] as phases 1 and 1b hold them (fp32 and bf16, dropout 0 and 0.1,
+     the masks, the row kernel and layer_wgrad, repeats, device times and
+     bounds); (b) ViTRGB on the EnMAP-DFC config (method_name ViTRGB)
+     behind Predictor(batch_size=256) in bf16 and fp32: 4 layer forwards a
+     batch and no other kernel, logits against the plain versions,
+     cubes/s; (c) its Finetuner at batch 64 (dropout and embedding dropout
+     0.1): every step's launches (bf16 4/4/4, fp32 4/4/0 of forward, row or
+     FMA backward, layer_wgrad), one step's gradients against the plain
+     step, the loss falling over 30 steps, steps/s in bf16 and fp32; (d)
+     the EnMAP pretraining recipe with blockwise_patch_embed and
+     to_pixels_per_spectral_block off, from the store and streamed: 8/8/8
+     layer launches a step and none of #3-#6, one step's loss and
+     gradients against the plain step, the loss falling over 60 steps,
+     steps/s; (e) SimMIM over ViTSpatialSpectralV1 at the same widths with
+     intermediate_losses: its loss exactly 3x the loss without, one step
+     against the plain step; (f) the legacy SimMIM over ViTRGB (S = 64, no
+     cls token): its five outputs' shapes, one step against the plain
+     step.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -296,8 +320,13 @@ def random_layer_params(gen, d, heads, dh, f, device):
     )
 
 
-def phase_layer(gen):
-    """fused_layer_fwd against reference_layer at the serving shapes."""
+SERVING_SHAPES = (("spatial", BATCH * 20, 64), ("spectral", BATCH * 64, 20),
+                  ("houston_spectral", BATCH * 64, 5))
+
+
+def phase_layer(gen, shapes=SERVING_SHAPES):
+    """fused_layer_fwd against reference_layer at the serving shapes
+    (label, sequences, S)."""
     import torch
 
     from maskedsst_tpu_torch.ops import fused_layer
@@ -306,8 +335,7 @@ def phase_layer(gen):
     i = heads * dh
     params = random_layer_params(gen, d, heads, dh, f, "cuda")
     cases = []
-    for label, b, s in (("spatial", BATCH * 20, 64), ("spectral", BATCH * 64, 20),
-                        ("houston_spectral", BATCH * 64, 5)):
+    for label, b, s in shapes:
         x32 = torch.randn(b, s, d, generator=gen).cuda()
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
@@ -432,11 +460,17 @@ def check_layer_split(x, dy, params, cfg, tag):
     return x1, werrs[wworst][0], plain_ms
 
 
-def phase_layer_bwd(gen):
-    """fused_layer_bwd against reference_layer_bwd at the training shapes,
-    the tensor-core form's two kernels against their plain versions, the
-    masks bit for bit, determinism, and the forward's times with
-    dropout."""
+TRAINING_SHAPES = (("spatial", TRAIN_BATCH * 20, 64, ("float32", "bfloat16")),
+                   ("spectral", TRAIN_BATCH * 64, 20, ("float32", "bfloat16")),
+                   ("houston_spectral", TRAIN_BATCH * 64, 5, ("float32", "bfloat16")),
+                   ("houston_spatial", TRAIN_BATCH * 5, 64, ("bfloat16",)))
+
+
+def phase_layer_bwd(gen, shapes=TRAINING_SHAPES):
+    """fused_layer_bwd against reference_layer_bwd at the training shapes
+    (label, sequences, S, dtypes), the tensor-core form's two kernels
+    against their plain versions, the masks bit for bit, determinism, and
+    the forward's times with dropout."""
     import torch
 
     from maskedsst_tpu_torch.ops import dropout_probe, fused_layer
@@ -447,11 +481,8 @@ def phase_layer_bwd(gen):
     params = random_layer_params(gen, d, heads, dh, f, "cuda")
     names = ("dx",) + LayerParams._fields
     bwd_cases, fwd_cases, wgrad_cases = [], [], []
-    both = (torch.float32, torch.bfloat16)
-    for label, b, s, dtypes in (
-            ("spatial", TRAIN_BATCH * 20, 64, both), ("spectral", TRAIN_BATCH * 64, 20, both),
-            ("houston_spectral", TRAIN_BATCH * 64, 5, both),
-            ("houston_spatial", TRAIN_BATCH * 5, 64, (torch.bfloat16,))):
+    for label, b, s, dtype_names in shapes:
+        dtypes = tuple(getattr(torch, n) for n in dtype_names)
         x32 = torch.randn(b, s, d, generator=gen).cuda()
         dy32 = torch.randn(b, s, d, generator=gen).cuda()
         seed = 1000 + s
@@ -2549,6 +2580,360 @@ def phase_data_parallel(card: str, per_step: dict):
     return out
 
 
+def count_steps(step, steps: int) -> tuple:
+    """Runs ``step`` (k → loss) ``steps`` times: (the losses, the distinct
+    per-step launch counts)."""
+    import torch
+
+    losses, seen = [], []
+    for k in range(steps):
+        before = launch_counts()
+        losses.append(float(step(k)))
+        torch.cuda.synchronize()
+        after = launch_counts()
+        per_step = {n: after[n] - before[n] for n in after}
+        if per_step not in seen:
+            seen.append(per_step)
+    return losses, seen
+
+
+def launches_want(fwd=0, bwd=0, wgrad=0) -> dict:
+    """A path's launch counts: the layer kernels' and none of #3-#6."""
+    return {"fused_layer_fwd": fwd, "fused_layer_bwd": bwd, "layer_wgrad": wgrad,
+            "fused_embed_fwd": 0, "fused_embed_bwd": 0, "fused_simmim_fwd": 0,
+            "fused_simmim_bwd": 0}
+
+
+def hold_step(label: str, name: str, step_grads_fn, tol_loss: float, ref32=None) -> dict:
+    """One step's loss and gradients (``step_grads_fn(seed)`` → (loss,
+    grads)) against the same step through the plain versions on the card,
+    the step with other dropout masks printed beside the limit. With
+    ``ref32``, the fp32 plain step's gradients on the same inputs, a bf16
+    leaf above TOL_STEP is held instead by its distance from that step, as
+    phase 5 holds Houston2018's step on fresh weights (NEARER_FP32: d
+    pos_embedding sums every sample's tokens and takes whole the L1's sign
+    flips that one bf16 rounding makes). Returns the plain step's
+    gradients."""
+    loss_k, g_k = step_grads_fn(77)
+    with plain_versions():
+        loss_p, g_p = step_grads_fn(77)
+        _, g_f = step_grads_fn(78)
+    errs = {n: rel_to_max(g_k[n], ref) for n, ref in g_p.items()}
+    faults = sorted(rel_to_max(g_f[n], ref) for n, ref in g_p.items())
+    check(abs(loss_k - loss_p) <= tol_loss * abs(loss_p),
+          f"{label} {name} step: loss {loss_k:.8e} vs plain {loss_p:.8e} (rel "
+          f"{abs(loss_k - loss_p) / abs(loss_p):.3e} <= {tol_loss:.0e})")
+    over = {}
+    if ref32 is not None:
+        over = {n: e for n, e in errs.items() if e > TOL_STEP[name]}
+    for n, e in over.items():
+        k32, p32 = rel_to_max(g_k[n], ref32[n]), max(rel_to_max(g_p[n], ref32[n]), 1e-30)
+        check(k32 <= NEARER_FP32 * p32,
+              f"{label} {name} step: {n} reads {e:.3e} vs the plain bf16 step (> "
+              f"{TOL_STEP[name]:.1e}); from the fp32 plain step the kernels read {k32:.3e} <= "
+              f"{NEARER_FP32} x the plain bf16 step's {p32:.3e}")
+    held = {n: e for n, e in errs.items() if n not in over}
+    worst = max(held, key=held.get)
+    check(held[worst] <= TOL_STEP[name],
+          f"{label} {name} step: {len(held)} of {len(errs)} gradients vs plain versions on the "
+          f"card, worst {worst} max|d|/max|ref| {held[worst]:.3e} <= {TOL_STEP[name]:.1e}; "
+          f"{len(over)} held by the fp32 step above (other dropout masks read "
+          f"{faults[-1]:.3e} at worst, {faults[len(faults) // 2]:.3e} median, "
+          f"{sum(v > TOL_STEP[name] for v in faults)} leaves above the limit)")
+    return g_p
+
+
+def steps_per_s(step, card: str, label: str, batch: int = TRAIN_BATCH) -> float:
+    """Median of 7 synchronized steps after 2 warm-up ones, with a profile."""
+    import torch
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    step_s = statistics.median(walls)
+    prof = profile_step(step)
+    if prof:
+        print(f"     profile {label}: {prof['device_ms_per_step']:.2f} ms of device time in a "
+              f"{prof['wall_ms_per_step']:.2f} ms step (busy {prof['busy_share']:.1%}); by "
+              "kernel: " + ", ".join(f"{g} {ms:.3f} ms"
+                                     for g, ms in prof["groups_ms_per_step"].items()), flush=True)
+    else:
+        print(f"     profile {label}: the profiler recorded no device time (not measured)",
+              flush=True)
+    print(f"     {label}: {1 / step_s:.3f} steps/s, {batch / step_s:.1f} cubes/s (batch {batch}, "
+          f"median of 7 steps) on {card}", flush=True)
+    return 1 / step_s
+
+
+def phase_other_models(card: str, gen):
+    """Phase 10: the other ViT models and SimMIM options at the repo's full
+    widths: (a) the layer kernels at S = 65 (ViTRGB's cls-token sequence);
+    (b) ViTRGB serving and (c) finetuning on the EnMAP-DFC config; (d)
+    EnMAP pretraining with PatchEmbed and the shared decoder; (e) SimMIM
+    over ViTSpatialSpectralV1 with intermediate_losses; (f) the legacy
+    SimMIM over ViTRGB. Returns the kernels' cases at S = 65 and each
+    path's launches."""
+    import torch
+
+    from maskedsst_tpu_torch.config import get_finetune_config, get_pretrain_config
+    from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
+    from maskedsst_tpu_torch.data.pipeline import DataLoader, split_dataset
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+    from maskedsst_tpu_torch.models import (
+        SimMIM,
+        SimMIMSpatialSpectral,
+        ViTRGB,
+        ViTSpatialSpectralV1,
+    )
+    from maskedsst_tpu_torch.ops import fused_layer
+    from maskedsst_tpu_torch.serve import Predictor
+    from maskedsst_tpu_torch.train.factory import build_finetune_model
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+
+    out = {"launches": {}}
+    # --- (a) the layer kernels at S = 65 --------------------------------------
+    for form in ("fwd", "bwd", "rows"):
+        plan = fused_layer.launch_plan(form, 65, 96, 64, 64, "cuda")
+        check(plan.shared_bytes <= plan.limit,
+              f"layer plan at S 65, {fused_layer.FORMS[form]}: level {plan.level}, "
+              f"{plan.shared_bytes} shared bytes a block <= the card's {plan.limit}, "
+              f"{plan.scratch_bytes} bytes of device scratch a block")
+    fwd_cases = phase_layer(gen, (("vit_rgb", BATCH, 65),))
+    bwd_cases, train_fwd_cases, wgrad_cases = phase_layer_bwd(
+        gen, (("vit_rgb", TRAIN_BATCH, 65, ("float32", "bfloat16")),))
+    out["cases"] = (fwd_cases + train_fwd_cases, bwd_cases, wgrad_cases)
+
+    base = get_finetune_config("configs/finetune_config_enmap.yaml", "configs/config.yaml",
+                               seed=SEED)
+    base.method_name = "ViTRGB"
+    depth = base.transformer_depth
+
+    # --- (b) ViTRGB serving -----------------------------------------------------
+    rng = np.random.default_rng(SEED + 10)
+    requests = {n: rng.standard_normal((n, base.n_bands, 8, 8)).astype(np.float32)
+                for n in REQUESTS}
+    batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        model, kw = build_finetune_model(base, dtype=dtype, device="cuda")
+        check(isinstance(model, ViTRGB) and kw == {} and model.pixelwise,
+              f"vit_rgb {name}: the factory builds ViTRGB per pixel, no trainer flags")
+        pred = Predictor(model, batch_size=BATCH)
+        reset_counts()
+        outs = {n: pred(x) for n, x in requests.items()}
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out["launches"][f"vit_rgb_serving_{name}"] = counts
+        want = launches_want(fwd=depth * batches)
+        check(counts == want, f"vit_rgb serving {name}: launches {counts} == {want} "
+                              f"({depth} layer forwards a batch, no embed or SimMIM kernel)")
+        for n, o in outs.items():
+            check(o.shape == (n, base.n_classes, 8, 8) and bool(np.isfinite(o).all()),
+                  f"vit_rgb serving {name}: N={n} -> shape {o.shape}, finite")
+        with plain_versions():
+            refs = {n: pred(x) for n, x in requests.items() if n}
+        for n, ref in refs.items():
+            diff = np.abs(outs[n] - ref)
+            err = float((diff / np.maximum(1.0, np.abs(ref))).max())
+            check(err <= TOL_MODEL[name],
+                  f"vit_rgb serving {name}: N={n} logits vs plain versions on the card: max|d| "
+                  f"{float(diff.max()):.3e}, max|d|/max(1,|ref|) {err:.3e} <= "
+                  f"{TOL_MODEL[name]:.0e}")
+        x = rng.standard_normal((8 * BATCH, base.n_bands, 8, 8)).astype(np.float32)
+        pred(x)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred(x)
+            walls.append(time.perf_counter() - t0)
+        print(f"     vit_rgb serving {name}: {x.shape[0] / statistics.median(walls):.1f} cubes/s "
+              f"(N={x.shape[0]}, batch {BATCH}, median of 3, host clock incl. transfers) on "
+              f"{card}", flush=True)
+        del model, pred
+        torch.cuda.empty_cache()
+
+    # --- (c) ViTRGB finetuning (dropout 0.1, embedding dropout 0.1) -----------
+    data = SyntheticCubeDataset(num_tiles=TRAIN_BATCH, n_bands=base.n_bands,
+                                n_classes=base.n_classes, seed=SEED)
+    tiles = next(iter(DataLoader(data, TRAIN_BATCH, shuffle=False)))
+
+    def finetuner(dtype, batch=TRAIN_BATCH):
+        cfg = base.copy()
+        cfg.batch_size = batch
+        model, kw = build_finetune_model(cfg, dtype=dtype, device="cuda")
+        return Finetuner(cfg, model, **kw)
+
+    for dtype, want in ((torch.bfloat16, launches_want(depth, depth, depth)),
+                        (torch.float32, launches_want(depth, depth, 0))):
+        name = str(dtype).split(".")[1]
+        trainer = finetuner(dtype)
+        reset_counts()
+        losses, seen = count_steps(
+            lambda k: trainer.train_step(tiles["img"], tiles["label"])["loss"], 20)
+        out["launches"][f"vit_rgb_finetune_{name}"] = launch_counts()
+        check(seen == [want], f"vit_rgb finetune {name}: launches at every one of "
+                              f"{len(losses)} steps {seen} == {want}")
+        check(all(math.isfinite(v) for v in losses),
+              f"vit_rgb finetune {name}: {len(losses)} losses finite (last {losses[-1]:.4f})")
+        hold_step("vit_rgb finetune", name,
+                  lambda seed: step_grads(trainer, tiles["img"], tiles["label"], seed),
+                  TOL_MODEL[name])
+        del trainer
+        torch.cuda.empty_cache()
+    trainer = finetuner(torch.bfloat16)
+    losses = [float(trainer.train_step(tiles["img"], tiles["label"])["loss"]) for _ in range(30)]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"vit_rgb finetune bf16: mean loss of steps 1-5 {first:.4f} > steps "
+                        f"26-30 {last:.4f}")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        trainer = finetuner(dtype)
+        steps_per_s(lambda: trainer.train_step(tiles["img"], tiles["label"]), card,
+                    f"vit_rgb finetuning {name}")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # --- (d) pretraining with PatchEmbed and the shared decoder ---------------
+    pcfg = get_pretrain_config("configs/pretrain_config.yaml", "configs/config.yaml", seed=SEED)
+    pcfg.blockwise_patch_embed = False
+    pcfg.to_pixels_per_spectral_block = False
+    pdata = pretrain_tiles(pcfg.n_bands)
+    _, train_ds = split_dataset(pdata, pcfg.train_fraction, pcfg.data_fraction, SEED)
+    store = DeviceTileStore(train_ds, "cuda").arrays["img"]
+    idx_all = IndexBatcher(store.shape[0], TRAIN_BATCH, shuffle=True, drop_last=True,
+                           seed=SEED).take(60)
+    host = next(iter(DataLoader(train_ds, TRAIN_BATCH, shuffle=False)))["img"]
+
+    def pretrainer(dtype):
+        return Pretrainer(pcfg.copy(), dtype=dtype, device="cuda")
+
+    trainer = pretrainer(torch.bfloat16)
+    check(not trainer.model.pn_layout and not trainer.model.per_block,
+          "pretrain patch_embed: the model takes the PatchEmbed tokenization and the shared "
+          "to_pixels_linear decoder")
+    want = launches_want(2 * depth, 2 * depth, 2 * depth)
+    reset_counts()
+    losses, seen = count_steps(lambda k: trainer.train_step_idx(store, idx_all[k])["loss"], 20)
+    streamed, seen_streamed = count_steps(lambda k: trainer.train_step(host)["loss"], 3)
+    out["launches"]["patch_embed_pretrain"] = launch_counts()
+    check(seen == [want] and seen_streamed == [want],
+          f"pretrain patch_embed bf16: launches at every one of 20 store steps {seen} and 3 "
+          f"streamed steps {seen_streamed} == {want} (none of #3-#6)")
+    check(all(math.isfinite(v) for v in losses + streamed),
+          f"pretrain patch_embed bf16: 23 losses finite (last {losses[-1]:.6e})")
+    del trainer
+    ref32 = None  # fp32 first: its plain step holds the bf16 leaves above TOL_STEP
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        trainer = pretrainer(dtype)
+        img = trainer._gather_crop(store, torch.as_tensor(idx_all[0], device="cuda"), (5, 9),
+                                   pcfg.image_size)
+        mask = trainer.model.sample_mask(TRAIN_BATCH, "cuda", torch.Generator().manual_seed(3))
+        plain = hold_step("pretrain patch_embed", name,
+                          lambda seed: pretrain_step_grads(trainer, img, mask, seed),
+                          TOL_LOSS[name], ref32)
+        ref32 = ref32 or plain
+        del trainer
+        torch.cuda.empty_cache()
+    trainer = pretrainer(torch.bfloat16)
+    losses = [float(trainer.train_step_idx(store, idx)["loss"]) for idx in idx_all]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"pretrain patch_embed bf16: mean loss of steps 1-5 {first:.6e} > steps "
+                        f"56-60 {last:.6e}")
+    it = iter(idx_all)
+    steps_per_s(lambda: trainer.train_step_idx(store, next(it)), card,
+                "pretraining patch_embed + shared decoder bfloat16")
+    del trainer
+    torch.cuda.empty_cache()
+    img = store[torch.as_tensor(idx_all[0], device="cuda"), :, 5:13, 9:17].contiguous()
+
+    # --- (e) SimMIM over ViTSpatialSpectralV1 with intermediate_losses ---------
+    def v1_simmim(dtype, intermediate):
+        enc = ViTSpatialSpectralV1(
+            image_size=8, spatial_patch_size=1, spectral_patch_size=pcfg.band_patch_size,
+            num_classes=pcfg.n_classes, dim=pcfg.transformer_dim, depth=depth,
+            heads=pcfg.transformer_n_heads, mlp_dim=pcfg.transformer_mlp_dim,
+            channels=pcfg.n_bands, dropout=pcfg.transformer_dropout, dtype=dtype)
+        return SimMIMSpatialSpectral(enc, pcfg.mim_masking_ratio, pcfg.mim_mask_patch_size,
+                                     pcfg.tube_masking, intermediate_losses=intermediate,
+                                     dtype=dtype).init_weights(SEED).cuda()
+
+    class Holder:  # what pretrain_step_grads reads of a trainer
+        pass
+
+    ref32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        three, one = v1_simmim(dtype, True), v1_simmim(dtype, False)
+        mask = three.sample_mask(TRAIN_BATCH, "cuda", torch.Generator().manual_seed(4))
+        holder = Holder()
+        holder.model = three
+        reset_counts()
+        loss3, _ = pretrain_step_grads(holder, img, mask, 77)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out["launches"][f"v1_intermediate_{name}"] = counts
+        holder.model = one
+        loss1, _ = pretrain_step_grads(holder, img, mask, 77)
+        want = launches_want(2 * depth, 2 * depth, 2 * depth if dtype == torch.bfloat16 else 0)
+        check(counts == want, f"simmim v1 intermediate_losses {name}: one step's launches "
+                              f"{counts} == {want}")
+        check(math.isfinite(loss3) and np.float32(loss3) == np.float32(3.0) * np.float32(loss1),
+              f"simmim v1 {name}: the loss with intermediate_losses {loss3:.8e} == 3 x the "
+              f"loss without {loss1:.8e}, exactly")
+        holder.model = three
+        plain = hold_step("simmim v1 intermediate_losses", name,
+                          lambda seed: pretrain_step_grads(holder, img, mask, seed),
+                          TOL_LOSS[name], ref32)
+        ref32 = ref32 or plain
+        del three, one, holder
+        torch.cuda.empty_cache()
+
+    # --- (f) the legacy SimMIM over ViTRGB --------------------------------------
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        enc = ViTRGB(image_size=8, patch_size=1, num_classes=base.n_classes,
+                     dim=base.transformer_dim, depth=depth, heads=base.transformer_n_heads,
+                     mlp_dim=base.transformer_mlp_dim, channels=base.n_bands,
+                     dropout=base.transformer_dropout, dtype=dtype)
+        legacy = SimMIM(enc, 0.5).init_weights(SEED).cuda().train()
+        reset_counts()
+        loss, pred, patches, idx, encoded = legacy(img, rng=torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out["launches"][f"legacy_simmim_{name}"] = counts
+        m = legacy.num_masked
+        shapes = [tuple(t.shape) for t in (loss, pred, patches, idx, encoded)]
+        want_shapes = [(), (TRAIN_BATCH, m, base.n_bands), (TRAIN_BATCH, m, base.n_bands),
+                       (TRAIN_BATCH, m), (TRAIN_BATCH, 64, base.transformer_dim)]
+        check(shapes == want_shapes and bool(torch.isfinite(loss)),
+              f"legacy simmim {name}: (loss, pred, masked patches, indices, encoded) shapes "
+              f"{shapes} == {want_shapes}, finite loss {float(loss):.6e}; launches {counts}")
+        mask = torch.zeros(TRAIN_BATCH, 64, dtype=torch.bool, device="cuda")
+        mask.scatter_(1, idx, True)
+
+        def legacy_grads(seed):
+            legacy.zero_grad(set_to_none=True)
+            lo = legacy(img, rng=torch.Generator().manual_seed(seed), bool_mask=mask)[0]
+            lo.backward()
+            grads = {n: q.grad.detach().clone() for n, q in legacy.named_parameters()
+                     if q.grad is not None}
+            legacy.zero_grad(set_to_none=True)
+            return float(lo.detach()), grads
+
+        hold_step("legacy simmim", name, legacy_grads, TOL_LOSS[name])
+        del legacy, enc
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
@@ -2633,6 +3018,13 @@ def main() -> int:
         shutil.rmtree(store_dir, ignore_errors=True)
     dp = timed("phase 9 data-parallel training: 2 ranks on the card over gloo, nccl, the "
                "driver under torchrun", phase_data_parallel, card, per_step)
+    other = timed("phase 10 other models: the layer kernels at S = 65, ViTRGB serving and "
+                  "finetuning, PatchEmbed + shared-decoder pretraining, SimMIM over V1, the "
+                  "legacy SimMIM", phase_other_models, card, gen)
+    s65_fwd, s65_bwd, s65_wgrad = other["cases"]
+    for kname in ("fused_layer_fwd", "fused_layer_bwd", "layer_wgrad"):
+        total = sum(got[kname] for got in other["launches"].values())
+        check(total > 0, f"phase 10 paths: {kname} launched {total} times")
 
     batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
 
@@ -2641,15 +3033,16 @@ def main() -> int:
 
     kernels = [
         kernel_entry("fused_layer_fwd", "maskedsst_tpu_torch/csrc/fused_layer_fwd.cu",
-                     "maskedsst_tpu/ops/fused_layer.py:443", layer_cases + layer_drop_cases,
+                     "maskedsst_tpu/ops/fused_layer.py:443",
+                     layer_cases + layer_drop_cases + s65_fwd,
                      counts["fused_layer_fwd"], launches_per_step=steps_of("fused_layer_fwd"),
                      launches_serving=serving["bfloat16"]["fused_layer_fwd"],
                      launches_per_serving_batch=serving["bfloat16"]["fused_layer_fwd"] // batches),
         kernel_entry("fused_layer_bwd", "maskedsst_tpu_torch/csrc/fused_layer_bwd.cu",
-                     "maskedsst_tpu/ops/fused_layer.py:476", layer_bwd_cases,
+                     "maskedsst_tpu/ops/fused_layer.py:476", layer_bwd_cases + s65_bwd,
                      counts["fused_layer_bwd"], launches_per_step=steps_of("fused_layer_bwd")),
         kernel_entry("layer_wgrad", "maskedsst_tpu_torch/csrc/layer_wgrad.cu",
-                     "maskedsst_tpu/ops/fused_layer.py:476", wgrad_cases,
+                     "maskedsst_tpu/ops/fused_layer.py:476", wgrad_cases + s65_wgrad,
                      counts["layer_wgrad"], launches_per_step=steps_of("layer_wgrad")),
         kernel_entry("fused_embed_fwd", "maskedsst_tpu_torch/csrc/fused_embed_fwd.cu",
                      "maskedsst_tpu/ops/fused_embed.py:89", embed_cases,
@@ -2677,6 +3070,8 @@ def main() -> int:
         entry["launches_real_data"] = real["counts"][entry["name"]]
         entry["launches_drivers"] = drivers["counts"][entry["name"]]
         entry["launches_data_parallel"] = [got[entry["name"]] for got in dp["launches"]]
+        entry["launches_other_models"] = {path: got[entry["name"]]
+                                          for path, got in other["launches"].items()}
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",

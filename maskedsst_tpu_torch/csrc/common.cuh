@@ -46,6 +46,32 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// The buffers of a kernel's plan by level (the layer kernels): each level
+// moves one more buffer, the first `level` bits of `order`, from shared
+// memory to the block's scratch in device memory.
+__host__ __device__ inline unsigned spill_bits(const unsigned* order, int level) {
+  unsigned bits = 0;
+  for (int i = 0; i < level; ++i) bits |= order[i];
+  return bits;
+}
+
+// Bump allocators over shared memory and the block's device scratch: a
+// buffer whose bit is in `spill` goes to the scratch; sizes rounded up to
+// `align` (units are the caller's: bytes or floats).
+struct Placer {
+  unsigned spill;
+  size_t align;
+  size_t shared = 0, device = 0;
+
+  __host__ __device__ Placer(unsigned spill_, size_t align_) : spill(spill_), align(align_) {}
+  __host__ __device__ size_t put(size_t n, unsigned bit) {
+    size_t& off = (spill & bit) ? device : shared;
+    const size_t at = off;
+    off += (n + align - 1) / align * align;
+    return at;
+  }
+};
+
 __device__ __forceinline__ float gelu(float u) {  // exact (erf) GELU
   return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
 }

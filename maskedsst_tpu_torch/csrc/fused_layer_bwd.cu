@@ -42,6 +42,20 @@
 //    soon as the previous head has read it for the last time, so the copy
 //    runs under the products of the rest of the head.
 //
+// Past 64 rows a block (ViTRGB's cls-token sequence of 65 at the EnMAP
+// widths: R = 80) the whole row block no longer fits the card's opt-in
+// 227 KB of shared memory (278,016 bytes for the row kernel, 242,784 for
+// the FMA form). Each form then takes a plan of a higher level
+// (fused_layer_bwd_plan): the row kernel first reads its weight slices
+// from device memory instead of staging them (226,304 bytes at S = 65),
+// then each level moves one more buffer (the [rows, D] fp32 streams, the
+// score tiles, the MLP's fp32 buffers; for the FMA form also the bf16
+// streams) to a per-block scratch in device memory, reached through L1
+// and L2, until the plan fits. Every geometry of the tensor-core widths
+// (at most 128 rows) fits; the wrapper refuses one that no level fits,
+// naming it. Level 0 is the layout above, and its instantiation keeps
+// every pointer a shared one.
+//
 // FMA loops (fp32 compute, other widths): a persistent grid of at most one
 // block per SM walks row blocks (up to 64 rows of whole sequences) in a
 // fixed order, keeps the row block in shared memory (215 KB at S = 64), and
@@ -69,12 +83,36 @@ constexpr int kRowTile = 8;
 
 __host__ __device__ inline int seqs_per_block(int S) { return S >= 64 ? 1 : 64 / S; }
 
-// shared-memory plan, in floats
+// Where a form's buffers live. A plan of level 0 keeps every buffer in
+// shared memory (and, in the tensor-core form, stages the weight slices
+// there); each higher level moves one more buffer, in the order of the
+// form's spill order, to a per-block scratch area in device memory, which
+// the block reaches through L1 and L2 (the tensor-core form reads its
+// weights from device memory from level 1 on). The launch takes the lowest
+// level whose shared memory fits the card's opt-in limit.
+
+// the FMA form's buffers that may live in device memory, in the order the
+// levels move them there: the [rows, D] streams first, then the score tiles
+enum FmaSpill : unsigned {
+  kFAcc = 1, kFXs = 2, kFDp1 = 4, kFHb = 8, kFDsc = 16, kFPb = 32, kFSc = 64
+};
+__host__ __device__ inline unsigned fma_spill(int level) {
+  const unsigned order[] = {kFAcc, kFXs, kFDp1, kFHb, kFDsc, kFPb, kFSc};
+  return spill_bits(order, level);
+}
+constexpr int kFmaLevels = 8;
+
+// the FMA form's plan, in floats: shared memory (`floats`) and the block's
+// device scratch (`gfloats`); a buffer's offset counts in the space its
+// bit in `spill` names. Level 0's layout is written out (the arithmetic of
+// the form before the plans, whose code it keeps); a higher level places
+// the same buffers again.
 struct BwdPlan {
   int rcap, ldh, region;
-  size_t xs, acc, hb, dp1, q, k, v, dO, sc, dsc, pb, u, g, dp2, stats, floats;
+  unsigned spill;
+  size_t xs, acc, hb, dp1, q, k, v, dO, sc, dsc, pb, u, g, dp2, stats, floats, gfloats;
 
-  __host__ __device__ BwdPlan(int S, int D, int dh, int F) {
+  __host__ __device__ BwdPlan(int S, int D, int dh, int F, int level = 0) {
     rcap = round_up(seqs_per_block(S) * S, kRowTile);
     ldh = dh + 1;  // odd stride: the k/v column walks are free of bank conflicts
     const int attn = 4 * ldh + 3 * S, mlp = 2 * F + D;
@@ -99,6 +137,31 @@ struct BwdPlan {
     o = r0 + static_cast<size_t>(rcap) * region;
     stats = o; o += 4 * static_cast<size_t>(rcap);  // mu1, rsig1, mu2, rsig2
     floats = o;
+    spill = fma_spill(level);
+    gfloats = 0;
+    if (!spill) return;
+    Placer pl(spill, 1);
+    const size_t rd = static_cast<size_t>(rcap) * D, rh = static_cast<size_t>(rcap) * ldh,
+                 rs = static_cast<size_t>(rcap) * S;
+    xs = pl.put(rd, kFXs);
+    acc = pl.put(rd, kFAcc);
+    hb = pl.put(rd, kFHb);
+    dp1 = pl.put(rd, kFDp1);
+    const size_t r1 = pl.shared;
+    q = pl.put(rh, 0);
+    k = pl.put(rh, 0);
+    v = pl.put(rh, 0);
+    dO = pl.put(rh, 0);
+    sc = pl.put(rs, kFSc);
+    dsc = pl.put(rs, kFDsc);
+    pb = pl.put(rs, kFPb);
+    u = r1;
+    g = u + static_cast<size_t>(rcap) * F;
+    dp2 = g + static_cast<size_t>(rcap) * F;
+    o = pl.shared > dp2 + rd ? pl.shared : dp2 + rd;
+    stats = o; o += 4 * static_cast<size_t>(rcap);
+    floats = o;
+    gfloats = pl.device;
   }
 };
 
@@ -273,7 +336,10 @@ __device__ void ln_param_partials(const float* g, const X* x, const float* mu,
   }
 }
 
-template <typename T, typename C>
+// FLEX: the plan's level (> 0) places some buffers in the block's slice of
+// `scratch` (device memory); without it every buffer is in shared memory
+// and the pointers are known to be shared ones
+template <typename T, typename C, bool FLEX>
 __global__ void __launch_bounds__(kThreads)
 fused_layer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
                        const float* __restrict__ ln1s, const float* __restrict__ ln1b,
@@ -282,10 +348,10 @@ fused_layer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __r
                        const float* __restrict__ ln2s, const float* __restrict__ ln2b,
                        const C* __restrict__ w1, const float* __restrict__ b1,
                        const C* __restrict__ w2, const float* __restrict__ b2,
-                       float* __restrict__ ws, int B, int S, int D, int H, int dh, int F,
-                       DropCfg dc) {
+                       float* __restrict__ ws, float* __restrict__ scratch, int B, int S, int D,
+                       int H, int dh, int F, int level, DropCfg dc) {
   extern __shared__ float smem[];
-  const BwdPlan plan(S, D, dh, F);
+  const BwdPlan plan(S, D, dh, F, FLEX ? level : 0);
   const int I = H * dh, ldh = plan.ldh;
   const GradLayout gl(D, I, F);
   float* xs = smem + plan.xs;
@@ -299,6 +365,17 @@ fused_layer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __r
   float* sc = smem + plan.sc;
   float* dsc = smem + plan.dsc;
   float* pb = smem + plan.pb;
+  if constexpr (FLEX) {  // some buffers in the block's slice of the scratch
+    float* gblk = scratch + static_cast<size_t>(blockIdx.x) * plan.gfloats;
+    auto at = [&](size_t off, unsigned bit) { return plan.spill & bit ? gblk + off : smem + off; };
+    xs = at(plan.xs, kFXs);
+    acc = at(plan.acc, kFAcc);
+    hb = at(plan.hb, kFHb);
+    dp1 = at(plan.dp1, kFDp1);
+    sc = at(plan.sc, kFSc);
+    dsc = at(plan.dsc, kFDsc);
+    pb = at(plan.pb, kFPb);
+  }
   float* u = smem + plan.u;
   float* g = smem + plan.g;
   float* dp2 = smem + plan.dp2;
@@ -508,15 +585,30 @@ constexpr int kPad = 8;  // bf16 row padding: keeps WMMA strides a multiple of 8
 __host__ __device__ inline size_t align128(size_t bytes) { return (bytes + 127) / 128 * 128; }
 __host__ __device__ inline size_t larger(size_t a, size_t b) { return a > b ? a : b; }
 
-// Byte offsets of the tensor-core form's shared memory, every buffer on a
-// 128-byte boundary. R is the block's row count rounded up to 16; rows past
-// the block's real rows are kept zero in the products' operands.
+// the tensor-core form's buffers that may live in device memory, in the
+// order the levels move them there (level 1 moves none: it stops staging
+// the weights)
+enum TcSpill : unsigned { kTAcc = 1, kTXs = 2, kTDsc = 4, kTSc = 8, kTDgd = 16, kTU = 32 };
+__host__ __device__ inline unsigned tc_spill(int level) {
+  const unsigned order[] = {0u, kTAcc, kTXs, kTDsc, kTSc, kTDgd, kTU};
+  return spill_bits(order, level);
+}
+constexpr int kTcLevels = 8;
+
+// Byte offsets of the tensor-core form's buffers, each on a 128-byte
+// boundary: in shared memory (`bytes`) or, by its bit in `spill`, in the
+// block's device scratch (`gbytes`). R is the block's row count rounded up
+// to 16; rows past the block's real rows are kept zero in the products'
+// operands. Level 0 stages the weights in shared memory (`staged`); higher
+// levels read them from device memory.
 struct TcBwdPlan {
   int R, ld_h, ld_q, ld_sc, ld_p, ld_u, ld_g, ld_w3, ld_wd, ld_w1;
+  bool staged;
+  unsigned spill;
   size_t xs, acc, hb, dp1, q, k, v, dO, sc, dsc, p, u, dgd, g, dp2, wst, wst2, w1s, w2s;
-  size_t stage, stats, bytes;
+  size_t stage, stats, bytes, gbytes;
 
-  __host__ __device__ TcBwdPlan(int S, int D, int dh, int F, int nwarps) {
+  __host__ __device__ TcBwdPlan(int S, int D, int dh, int F, int nwarps, int level = 0) {
     R = round_up(seqs_per_block(S) * S, 16);
     ld_h = D + kPad;
     ld_q = dh + kPad;
@@ -527,36 +619,46 @@ struct TcBwdPlan {
     ld_w3 = 3 * dh + kPad;
     ld_wd = D + kPad;
     ld_w1 = F + kPad;
-    size_t o = 0;
-    xs = o;   o += align128(sizeof(float) * R * D);     // x1, then the dh1 accumulator
-    acc = o;  o += align128(sizeof(float) * R * D);     // projection sum, then dh2, then dx1
-    hb = o;   o += align128(sizeof(bf16) * R * ld_h);   // h1 / h2
-    dp1 = o;  o += align128(sizeof(bf16) * R * ld_h);   // dx1 * mask3
-    const size_t region = o;
-    q = o;    o += align128(sizeof(bf16) * R * ld_q);   // q, then the head's output
-    k = o;    o += align128(sizeof(bf16) * R * ld_q);   // k, then dk
-    v = o;    o += align128(sizeof(bf16) * R * ld_q);   // v, then dv
-    dO = o;   o += align128(sizeof(bf16) * R * ld_q);   // o_h, then dO, then dq
-    sc = o;   o += align128(sizeof(float) * R * ld_sc); // scores, then a
-    dsc = o;  o += align128(sizeof(float) * R * ld_sc); // da_d
-    p = o;    o += align128(sizeof(bf16) * R * ld_p);   // a * mask1, then ds
-    size_t m = region;  // the MLP phase, over the attention buffers
-    u = m;    m += align128(sizeof(float) * R * ld_u);  // fc1 pre-activation
-    dgd = m;  m += align128(sizeof(float) * R * ld_u);  // the dropped GELU output's gradient
-    g = m;    m += align128(sizeof(bf16) * R * ld_g);   // dropped GELU output, then du
-    dp2 = m;  m += align128(sizeof(bf16) * R * ld_h);   // dy * mask7
-    o = larger(o, m);
+    staged = level == 0;
+    spill = tc_spill(level);
+    Placer pl(spill, 128);
+    xs = pl.put(sizeof(float) * R * D, kTXs);     // x1, then the dh1 accumulator
+    acc = pl.put(sizeof(float) * R * D, kTAcc);   // projection sum, then dh2, then dx1
+    hb = pl.put(sizeof(bf16) * R * ld_h, 0);      // h1 / h2
+    dp1 = pl.put(sizeof(bf16) * R * ld_h, 0);     // dx1 * mask3
+    const size_t region = pl.shared;
+    q = pl.put(sizeof(bf16) * R * ld_q, 0);       // q, then the head's output
+    k = pl.put(sizeof(bf16) * R * ld_q, 0);       // k, then dk
+    v = pl.put(sizeof(bf16) * R * ld_q, 0);       // v, then dv
+    dO = pl.put(sizeof(bf16) * R * ld_q, 0);      // o_h, then dO, then dq
+    sc = pl.put(sizeof(float) * R * ld_sc, kTSc);   // scores, then a
+    dsc = pl.put(sizeof(float) * R * ld_sc, kTDsc); // da_d
+    p = pl.put(sizeof(bf16) * R * ld_p, 0);       // a * mask1, then ds
+    size_t m = region;  // the MLP phase, over the attention buffers in shared memory
+    auto put_mlp = [&](size_t n, unsigned bit) {
+      if (spill & bit) return pl.put(n, bit);
+      const size_t at = m;
+      m += align128(n);
+      return at;
+    };
+    u = put_mlp(sizeof(float) * R * ld_u, kTU);      // fc1 pre-activation
+    dgd = put_mlp(sizeof(float) * R * ld_u, kTDgd);  // the dropped GELU output's gradient
+    g = put_mlp(sizeof(bf16) * R * ld_g, 0);         // dropped GELU output, then du
+    dp2 = put_mlp(sizeof(bf16) * R * ld_h, 0);       // dy * mask7
+    size_t o = larger(pl.shared, m);
     // staged weights: q/k/v of one head [D, 3dh] and its out-projection
     // rows [dh, D]; in the MLP phase w1 [D, F] and w2 [F, D]
     wst = o;
     wst2 = wst + align128(sizeof(bf16) * D * ld_w3);
     w1s = wst;
     w2s = wst + align128(sizeof(bf16) * D * ld_w1);
-    o = larger(wst2 + align128(sizeof(bf16) * dh * ld_wd),
-               w2s + align128(sizeof(bf16) * F * ld_wd));
+    if (staged)
+      o = larger(wst2 + align128(sizeof(bf16) * dh * ld_wd),
+                 w2s + align128(sizeof(bf16) * F * ld_wd));
     stage = o; o += align128(sizeof(float) * 256 * nwarps);  // one 16x16 tile per warp
     stats = o; o += align128(sizeof(float) * 4 * R);          // mu1, rsig1, mu2, rsig2
     bytes = o;
+    gbytes = pl.device;
   }
 };
 
@@ -692,8 +794,10 @@ __device__ void ln_stats_rows(const T* x, int rows, int D, float* mu_out, float*
 
 // The row kernel: dx, the weight gradients' bf16 operands (OperandLayout)
 // and the block's partial sums of the small vectors (SmallLayout), with no
-// weight-gradient product of its own.
-template <typename T>
+// weight-gradient product of its own. FLEX: a plan of level > 0 (weights
+// read from device memory, some buffers in the block's slice of `scratch`);
+// without it the plan of level 0, every pointer a shared one.
+template <typename T, bool FLEX>
 __global__ void __launch_bounds__(kTcThreads)
 fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
                           const T* __restrict__ dy, T* __restrict__ dx,
@@ -703,28 +807,33 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
                           const float* __restrict__ ln2s, const float* __restrict__ ln2b,
                           const bf16* __restrict__ w1, const float* __restrict__ b1,
                           const bf16* __restrict__ w2, const float* __restrict__ b2,
-                          bf16* __restrict__ ops, float* __restrict__ ws, int B, int S, int D,
-                          int H, int dh, int F, DropCfg dc) {
+                          bf16* __restrict__ ops, float* __restrict__ ws,
+                          unsigned char* __restrict__ scratch, int B, int S, int D, int H, int dh,
+                          int F, int level, DropCfg dc) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid % 32, nwarps = nthr / 32;
-  const TcBwdPlan pl(S, D, dh, F, nwarps);
+  const TcBwdPlan pl(S, D, dh, F, nwarps, FLEX ? level : 0);
   const int R = pl.R, I = H * dh;
   const SmallLayout sl(D, F);
   const OperandLayout ol(static_cast<long long>(B) * S, D, I, F);
-  float* xs = reinterpret_cast<float*>(smem_raw + pl.xs);
-  float* acc = reinterpret_cast<float*>(smem_raw + pl.acc);
+  unsigned char* gblk = FLEX ? scratch + static_cast<size_t>(blockIdx.x) * pl.gbytes : nullptr;
+  auto at = [&](size_t off, unsigned bit) {
+    return FLEX && (pl.spill & bit) ? gblk + off : smem_raw + off;
+  };
+  float* xs = reinterpret_cast<float*>(at(pl.xs, kTXs));
+  float* acc = reinterpret_cast<float*>(at(pl.acc, kTAcc));
   bf16* hb = reinterpret_cast<bf16*>(smem_raw + pl.hb);
   bf16* dp1 = reinterpret_cast<bf16*>(smem_raw + pl.dp1);
   bf16* q = reinterpret_cast<bf16*>(smem_raw + pl.q);
   bf16* k = reinterpret_cast<bf16*>(smem_raw + pl.k);
   bf16* v = reinterpret_cast<bf16*>(smem_raw + pl.v);
   bf16* dO = reinterpret_cast<bf16*>(smem_raw + pl.dO);
-  float* sc = reinterpret_cast<float*>(smem_raw + pl.sc);
-  float* dsc = reinterpret_cast<float*>(smem_raw + pl.dsc);
+  float* sc = reinterpret_cast<float*>(at(pl.sc, kTSc));
+  float* dsc = reinterpret_cast<float*>(at(pl.dsc, kTDsc));
   bf16* p = reinterpret_cast<bf16*>(smem_raw + pl.p);
-  float* u = reinterpret_cast<float*>(smem_raw + pl.u);
-  float* dgd = reinterpret_cast<float*>(smem_raw + pl.dgd);
+  float* u = reinterpret_cast<float*>(at(pl.u, kTU));
+  float* dgd = reinterpret_cast<float*>(at(pl.dgd, kTDgd));
   bf16* g = reinterpret_cast<bf16*>(smem_raw + pl.g);
   bf16* dp2 = reinterpret_cast<bf16*>(smem_raw + pl.dp2);
   bf16* wst = reinterpret_cast<bf16*>(smem_raw + pl.wst);
@@ -745,21 +854,34 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
 
   // the weight slices, staged with cp.async as soon as their buffer is free:
   // head h's q, k or v columns (j = 0, 1, 2) side by side in wst, its
-  // out-projection rows in wst2; w1 and w2 over them for the MLP phase
+  // out-projection rows in wst2; w1 and w2 over them for the MLP phase.
+  // Under FLEX nothing is staged: the products read the weights where they
+  // lie in device memory.
   auto stage_qkv = [&](int h, int j) {
-    stage_async(wqkv + j * I + h * dh, 3 * I, D, dh, wst + j * dh, pl.ld_w3);
+    if (!FLEX) stage_async(wqkv + j * I + h * dh, 3 * I, D, dh, wst + j * dh, pl.ld_w3);
   };
   auto stage_out = [&](int h) {
-    stage_async(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wst2, pl.ld_wd);
+    if (!FLEX) stage_async(wout + static_cast<size_t>(h) * dh * D, D, dh, D, wst2, pl.ld_wd);
   };
   auto stage_mlp = [&]() {
+    if (FLEX) return;
     stage_async(w1, F, D, F, w1s, pl.ld_w1);
     stage_async(w2, D, F, D, w2s, pl.ld_wd);
   };
-  // q, k, v of head h from hb and the staged slices; scores into sc
-  auto qkv_scores = [&]() {
+  // head h's q, k or v columns [D, dh], its out-projection rows [dh, D], w1
+  // and w2: staged, or in device memory
+  auto wj = [&](int h, int j) -> const bf16* { return FLEX ? wqkv + j * I + h * dh : wst + j * dh; };
+  const int ld_wj = FLEX ? 3 * I : pl.ld_w3;
+  auto wo = [&](int h) -> const bf16* { return FLEX ? wout + static_cast<size_t>(h) * dh * D : wst2; };
+  const int ld_wo = FLEX ? D : pl.ld_wd;
+  const bf16* w1m = FLEX ? w1 : w1s;
+  const int ld_w1m = FLEX ? F : pl.ld_w1;
+  const bf16* w2m = FLEX ? w2 : w2s;
+  const int ld_w2m = FLEX ? D : pl.ld_wd;
+  // q, k, v of head h from hb and the head's slices; scores into sc
+  auto qkv_scores = [&](int h) {
     for (int j = 0; j < 3; ++j)
-      tcmm<kTcBf16, wmma::row_major, wmma::row_major>(hb, pl.ld_h, R, D, wst + j * dh, pl.ld_w3,
+      tcmm<kTcBf16, wmma::row_major, wmma::row_major>(hb, pl.ld_h, R, D, wj(h, j), ld_wj,
                                                       dh, j == 0 ? q : (j == 1 ? k : v), pl.ld_q,
                                                       nullptr, stage);
     __syncthreads();
@@ -797,6 +919,9 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
 
   for (size_t i = tid; i < pl.bytes / sizeof(uint4); i += nthr)
     reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
+  if (FLEX)
+    for (size_t i = tid; i < pl.gbytes / sizeof(uint4); i += nthr)
+      reinterpret_cast<uint4*>(gblk)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
   stage_mlp();
 
@@ -821,7 +946,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
 
     // ---- MLP: forward, then backward ---------------------------------------
     copy_rows(hb, pl.ld_h, rows, D, ops + ol.h2 + row0 * D, D);
-    tcmm<kTcBiasF32, wmma::row_major, wmma::row_major>(hb, pl.ld_h, R, D, w1s, pl.ld_w1, F, u,
+    tcmm<kTcBiasF32, wmma::row_major, wmma::row_major>(hb, pl.ld_h, R, D, w1m, ld_w1m, F, u,
                                                        pl.ld_u, b1, stage);
     for (int c = tid; c < D; c += nthr) {  // dp2 = dy * mask7; db2
       float s = 0.f;
@@ -847,7 +972,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
     }
     __syncthreads();
     copy_rows(g, pl.ld_g, rows, F, ops + ol.gd + row0 * F, F);
-    tcmm<kTcF32, wmma::row_major, wmma::col_major>(dp2, pl.ld_h, R, D, w2s, pl.ld_wd, F, dgd,
+    tcmm<kTcF32, wmma::row_major, wmma::col_major>(dp2, pl.ld_h, R, D, w2m, ld_w2m, F, dgd,
                                                    pl.ld_u, nullptr, stage);  // dp2 w2^T
     __syncthreads();
     for (int c = tid; c < F; c += nthr) {  // du = dgd * mask5 * gelu'(u); db1
@@ -866,7 +991,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
     }
     __syncthreads();
     copy_rows(g, pl.ld_g, rows, F, ops + ol.du + row0 * F, F);
-    tcmm<kTcF32, wmma::row_major, wmma::col_major>(g, pl.ld_g, R, F, w1s, pl.ld_w1, D, acc, D,
+    tcmm<kTcF32, wmma::row_major, wmma::col_major>(g, pl.ld_g, R, F, w1m, ld_w1m, D, acc, D,
                                                    nullptr, stage);  // dh2 = du w1^T
     __syncthreads();
     for (int j = 0; j < 3; ++j) stage_qkv(0, j);  // w1 and w2 are done with
@@ -904,7 +1029,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
       const bool next = h + 1 < H;
       cp_async_wait_all();
       __syncthreads();
-      qkv_scores();
+      qkv_scores(h);
       softmax(h, seq0, rows, true);  // sc = a, p = a * mask1
       __syncthreads();
       tcmm<kTcBf16, wmma::row_major, wmma::row_major>(p, pl.ld_p, R, R, v, pl.ld_q, dh, dO,
@@ -912,7 +1037,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
       __syncthreads();
       copy_rows(dO, pl.ld_q, rows, dh, ops + ol.o + row0 * I + h * dh, I);
       __syncthreads();
-      tcmm<kTcBf16, wmma::row_major, wmma::col_major>(dp1, pl.ld_h, R, D, wst2, pl.ld_wd, dh, dO,
+      tcmm<kTcBf16, wmma::row_major, wmma::col_major>(dp1, pl.ld_h, R, D, wo(h), ld_wo, dh, dO,
                                                       pl.ld_q, nullptr, stage);  // dO
       __syncthreads();
       if (next) stage_out(h + 1);
@@ -925,7 +1050,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
       // dv out to device memory; dh1 += dv W_v,h^T (the dh1 products touch
       // only xs, so each overlaps the product beside it)
       copy_rows(v, pl.ld_q, rows, dh, ops + ol.dqkv + row0 * 3 * I + 2 * I + h * dh, 3 * I);
-      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(v, pl.ld_q, R, dh, wst + 2 * dh, pl.ld_w3,
+      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(v, pl.ld_q, R, dh, wj(h, 2), ld_wj,
                                                         D, xs, D, nullptr, stage);
       for (int r = tid / 32; r < rows; r += nwarps) {  // ds = (da - sum(da a)) a, over p
         const int lo = r / S * S, hi = lo + S;
@@ -949,14 +1074,14 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
                                                       pl.ld_q, nullptr, stage);  // dq = ds k
       __syncthreads();
       copy_rows(dO, pl.ld_q, rows, dh, ops + ol.dqkv + row0 * 3 * I + h * dh, 3 * I);
-      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(dO, pl.ld_q, R, dh, wst, pl.ld_w3, D, xs,
+      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(dO, pl.ld_q, R, dh, wj(h, 0), ld_wj, D, xs,
                                                         D, nullptr, stage);  // dh1 += dq W_q,h^T
       tcmm<kTcBf16, wmma::col_major, wmma::row_major>(p, pl.ld_p, R, R, q, pl.ld_q, dh, k,
                                                       pl.ld_q, nullptr, stage);  // dk = ds^T q
       __syncthreads();
       if (next) stage_qkv(h + 1, 0);
       copy_rows(k, pl.ld_q, rows, dh, ops + ol.dqkv + row0 * 3 * I + I + h * dh, 3 * I);
-      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(k, pl.ld_q, R, dh, wst + dh, pl.ld_w3, D,
+      tcmm<kTcAccF32, wmma::row_major, wmma::col_major>(k, pl.ld_q, R, dh, wj(h, 1), ld_wj, D,
                                                         xs, D, nullptr, stage);  // dh1 += dk W_k,h^T
       __syncthreads();
       if (next)
@@ -1004,15 +1129,32 @@ __global__ void reduce_small(const float* __restrict__ ws, float* __restrict__ g
   }
 }
 
+// the card's opt-in limit on one block's shared memory, in bytes
+cudaError_t smem_limit(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+size_t fma_bytes(int S, int D, int dh, int F, int level) {
+  return BwdPlan(S, D, dh, F, level).floats * sizeof(float);
+}
+
+size_t tc_bytes(int S, int D, int dh, int F, int level) {
+  return TcBwdPlan(S, D, dh, F, kTcThreads / 32, level).bytes;
+}
+
 // the FMA form's block kernel, then the reduction of its partials
-template <typename T, typename C>
-cudaError_t launch(const void* x, const void* dy, void* dx, const void* ln1s, const void* ln1b,
-                   const void* wqkv, const void* wout, const void* bout, const void* ln2s,
-                   const void* ln2b, const void* w1, const void* b1, const void* w2,
-                   const void* b2, void* ws, void* grads, int B, int S, int D, int H, int dh,
-                   int F, int nparts, DropCfg dc, cudaStream_t stream) {
-  auto kernel = fused_layer_bwd_kernel<T, C>;
-  const size_t bytes = BwdPlan(S, D, dh, F).floats * sizeof(float);
+template <typename T, typename C, bool FLEX>
+cudaError_t launch_as(const void* x, const void* dy, void* dx, const void* ln1s, const void* ln1b,
+                      const void* wqkv, const void* wout, const void* bout, const void* ln2s,
+                      const void* ln2b, const void* w1, const void* b1, const void* w2,
+                      const void* b2, void* ws, void* scratch, void* grads, int B, int S, int D,
+                      int H, int dh, int F, int nparts, int level, DropCfg dc,
+                      cudaStream_t stream) {
+  auto kernel = fused_layer_bwd_kernel<T, C, FLEX>;
+  const size_t bytes = fma_bytes(S, D, dh, F, level);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -1022,7 +1164,8 @@ cudaError_t launch(const void* x, const void* dy, void* dx, const void* ln1s, co
       static_cast<const C*>(wqkv), static_cast<const C*>(wout), static_cast<const float*>(bout),
       static_cast<const float*>(ln2s), static_cast<const float*>(ln2b),
       static_cast<const C*>(w1), static_cast<const float*>(b1), static_cast<const C*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(ws), B, S, D, H, dh, F, dc);
+      static_cast<const float*>(b2), static_cast<float*>(ws), static_cast<float*>(scratch), B,
+      S, D, H, dh, F, level, dc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = GradLayout(D, H * dh, F).total;
@@ -1033,16 +1176,27 @@ cudaError_t launch(const void* x, const void* dy, void* dx, const void* ln1s, co
   return cudaGetLastError();
 }
 
+template <typename T, typename C>
+cudaError_t launch(const void* x, const void* dy, void* dx, const void* ln1s, const void* ln1b,
+                   const void* wqkv, const void* wout, const void* bout, const void* ln2s,
+                   const void* ln2b, const void* w1, const void* b1, const void* w2,
+                   const void* b2, void* ws, void* scratch, void* grads, int B, int S, int D,
+                   int H, int dh, int F, int nparts, int level, DropCfg dc, cudaStream_t stream) {
+  return (level ? launch_as<T, C, true> : launch_as<T, C, false>)(
+      x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2, ws, scratch, grads, B,
+      S, D, H, dh, F, nparts, level, dc, stream);
+}
+
 // the row kernel, then the reduction of its small-vector partials
-template <typename T>
-cudaError_t launch_tc(const void* x, const void* x1, const void* dy, void* dx,
-                      const void* ln1s, const void* ln1b, const void* wqkv, const void* wout, const void* bout,
-                      const void* ln2s, const void* ln2b, const void* w1, const void* b1,
-                      const void* w2, const void* b2, void* ops, void* ws, void* grads, int B,
-                      int S, int D, int H, int dh, int F, int nparts, DropCfg dc,
-                      cudaStream_t stream) {
-  auto kernel = fused_layer_bwd_tc_kernel<T>;
-  const size_t bytes = TcBwdPlan(S, D, dh, F, kTcThreads / 32).bytes;
+template <typename T, bool FLEX>
+cudaError_t launch_tc_as(const void* x, const void* x1, const void* dy, void* dx,
+                         const void* ln1s, const void* ln1b, const void* wqkv, const void* wout,
+                         const void* bout, const void* ln2s, const void* ln2b, const void* w1,
+                         const void* b1, const void* w2, const void* b2, void* ops, void* ws,
+                         void* scratch, void* grads, int B, int S, int D, int H, int dh, int F,
+                         int nparts, int level, DropCfg dc, cudaStream_t stream) {
+  auto kernel = fused_layer_bwd_tc_kernel<T, FLEX>;
+  const size_t bytes = tc_bytes(S, D, dh, F, level);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -1054,7 +1208,8 @@ cudaError_t launch_tc(const void* x, const void* x1, const void* dy, void* dx,
       static_cast<const float*>(bout), static_cast<const float*>(ln2s),
       static_cast<const float*>(ln2b), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-      static_cast<bf16*>(ops), static_cast<float*>(ws), B, S, D, H, dh, F, dc);
+      static_cast<bf16*>(ops), static_cast<float*>(ws), static_cast<unsigned char*>(scratch), B,
+      S, D, H, dh, F, level, dc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int total = SmallLayout(D, F).total;
@@ -1064,74 +1219,121 @@ cudaError_t launch_tc(const void* x, const void* x1, const void* dy, void* dx,
   return cudaGetLastError();
 }
 
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+template <typename T>
+cudaError_t launch_tc(const void* x, const void* x1, const void* dy, void* dx,
+                      const void* ln1s, const void* ln1b, const void* wqkv, const void* wout,
+                      const void* bout, const void* ln2s, const void* ln2b, const void* w1,
+                      const void* b1, const void* w2, const void* b2, void* ops, void* ws,
+                      void* scratch, void* grads, int B, int S, int D, int H, int dh, int F,
+                      int nparts, int level, DropCfg dc, cudaStream_t stream) {
+  return (level ? launch_tc_as<T, true> : launch_tc_as<T, false>)(
+      x, x1, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2, ops, ws, scratch,
+      grads, B, S, D, H, dh, F, nparts, level, dc, stream);
+}
 
+bool aligned(const void* ptr, uintptr_t n) { return reinterpret_cast<uintptr_t>(ptr) % n == 0; }
 DropCfg drop_cfg(int on, int proj, int seed, int thr, float scale) {
   return DropCfg{on, proj, static_cast<uint32_t>(seed), static_cast<uint32_t>(thr), scale};
 }
 
 }  // namespace
 
+// The plan a launch takes at this geometry. form: 0 the FMA form, 1 the
+// tensor-core form. out[0]: the lowest level whose shared memory fits the
+// card's opt-in limit, or -1 when none does; out[1]: that level's shared
+// bytes (when none fits, the last level's, the least the form can take);
+// out[2]: its device scratch bytes per block; out[3]: the card's limit.
+// Returns a CUDA error code.
+extern "C" int fused_layer_bwd_plan(int S, int D, int dh, int F, int form, long long* out) {
+  int limit = 0;
+  const cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int levels = form ? kTcLevels : kFmaLevels;
+  out[0] = -1;
+  out[3] = limit;
+  for (int level = 0; level < levels; ++level) {
+    const size_t bytes = form ? tc_bytes(S, D, dh, F, level) : fma_bytes(S, D, dh, F, level);
+    out[1] = static_cast<long long>(bytes);
+    out[2] = static_cast<long long>(
+        form ? TcBwdPlan(S, D, dh, F, kTcThreads / 32, level).gbytes
+             : BwdPlan(S, D, dh, F, level).gfloats * sizeof(float));
+    if (bytes <= static_cast<size_t>(limit)) {
+      out[0] = level;
+      break;
+    }
+  }
+  return 0;
+}
+
 // The FMA form. x, dy, dx: [B, S, D] in T (fp32, or bf16 when io_bf16).
 // Weights as for fused_layer_fwd (wqkv's q block pre-scaled) in the compute
 // type (bf16 when compute_bf16, else fp32); LN scales/biases and biases in
 // fp32. ws: fp32 workspace of nparts x (gradient count) floats, where nparts
-// is the grid (at most the number of row blocks); grads: the fp32 gradient
-// vector in the order ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
-// b2. Dropout arguments as for fused_layer_fwd. Launches the block kernel
-// and the reduction on `stream`; returns cudaGetLastError().
+// is the grid (at most the number of row blocks); scratch: nparts x the
+// plan's scratch bytes (fused_layer_bwd_plan, form 0, at `level`; null when
+// those are 0); grads: the fp32 gradient vector in the order ln1s, ln1b,
+// wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2. Dropout arguments as for
+// fused_layer_fwd. Launches the block kernel and the reduction on `stream`;
+// returns cudaGetLastError().
 extern "C" int fused_layer_bwd(const void* x, const void* dy, void* dx, const void* ln1s,
                                const void* ln1b, const void* wqkv, const void* wout,
                                const void* bout, const void* ln2s, const void* ln2b,
                                const void* w1, const void* b1, const void* w2, const void* b2,
-                               void* ws, void* grads, int B, int S, int D, int H, int dh, int F,
-                               int io_bf16, int compute_bf16, int nparts, int drop_on,
-                               int drop_proj, int drop_seed, int drop_thr, float drop_scale,
-                               void* stream) {
+                               void* ws, void* scratch, void* grads, int B, int S, int D, int H,
+                               int dh, int F, int io_bf16, int compute_bf16, int nparts,
+                               int level, int drop_on, int drop_proj, int drop_seed, int drop_thr,
+                               float drop_scale, void* stream) {
+  if (level < 0 || level >= kFmaLevels) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale);
   cudaError_t err;
   if (io_bf16 && compute_bf16)
     err = launch<bf16, bf16>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2,
-                             ws, grads, B, S, D, H, dh, F, nparts, dc, st);
+                             ws, scratch, grads, B, S, D, H, dh, F, nparts, level, dc, st);
   else if (io_bf16)
     err = launch<bf16, float>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
-                              b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
+                              b2, ws, scratch, grads, B, S, D, H, dh, F, nparts, level, dc, st);
   else if (compute_bf16)
     err = launch<float, bf16>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
-                              b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
+                              b2, ws, scratch, grads, B, S, D, H, dh, F, nparts, level, dc, st);
   else
     err = launch<float, float>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2,
-                               b2, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
+                               b2, ws, scratch, grads, B, S, D, H, dh, F, nparts, level, dc, st);
   return static_cast<int>(err);
 }
 
 // The tensor-core form's row kernel (bf16 compute; D, dh and F multiples of
-// 16; bf16 weights 16-byte aligned). Arguments as for fused_layer_bwd, and:
+// 16; bf16 weights 16-byte aligned, 32-byte aligned from level 1, where the
+// products read them in place). Arguments as for fused_layer_bwd, and:
 // x1, the fp32 [B, S, D] residual stream after attention that
 // fused_layer_fwd wrote for this x;
 // ops, the bf16 operand buffer of OperandLayout (N = B * S rows, 16-byte
 // aligned) that layer_wgrad.cu reads; ws, nparts x (6D + F) floats of
-// small-vector partials. Writes dx, ops and the small vectors' entries of
-// grads (layer_wgrad writes the four weight gradients).
+// small-vector partials; scratch as for fused_layer_bwd (form 1, 128-byte
+// aligned). Writes dx, ops and the small vectors' entries of grads
+// (layer_wgrad writes the four weight gradients).
 extern "C" int fused_layer_bwd_tc(const void* x, const void* x1, const void* dy, void* dx,
                                   const void* ln1s,
                                   const void* ln1b, const void* wqkv, const void* wout,
                                   const void* bout, const void* ln2s, const void* ln2b,
                                   const void* w1, const void* b1, const void* w2, const void* b2,
-                                  void* ops, void* ws, void* grads, int B, int S, int D, int H,
-                                  int dh, int F, int io_bf16, int nparts, int drop_on,
-                                  int drop_proj, int drop_seed, int drop_thr, float drop_scale,
-                                  void* stream) {
-  if (D % 16 || dh % 16 || F % 16 || !aligned16(wqkv) || !aligned16(wout) || !aligned16(w1) ||
-      !aligned16(w2) || !aligned16(ops))
+                                  void* ops, void* ws, void* scratch, void* grads, int B, int S,
+                                  int D, int H, int dh, int F, int io_bf16, int nparts, int level,
+                                  int drop_on, int drop_proj, int drop_seed, int drop_thr,
+                                  float drop_scale, void* stream) {
+  const uintptr_t wal = level ? 32 : 16;
+  if (D % 16 || dh % 16 || F % 16 || level < 0 || level >= kTcLevels || !aligned(wqkv, wal) ||
+      !aligned(wout, wal) || !aligned(w1, wal) || !aligned(w2, wal) || !aligned(ops, 16) ||
+      !aligned(scratch, 128))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale);
   const cudaError_t err =
       io_bf16 ? launch_tc<bf16>(x, x1, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1,
-                                w2, b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st)
+                                w2, b2, ops, ws, scratch, grads, B, S, D, H, dh, F, nparts, level,
+                                dc, st)
               : launch_tc<float>(x, x1, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1,
-                                 w2, b2, ops, ws, grads, B, S, D, H, dh, F, nparts, dc, st);
+                                 w2, b2, ops, ws, scratch, grads, B, S, D, H, dh, F, nparts,
+                                 level, dc, st);
   return static_cast<int>(err);
 }

@@ -56,7 +56,11 @@
 //    whole layer in dynamic shared memory (the residual stream, the LN
 //    output, the projection accumulator, q/k/v of one head, the scores and
 //    the MLP hidden layer), each head multiplied straight into the
-//    projection accumulator. It is far below even the FMA peak.
+//    projection accumulator. It is far below even the FMA peak. Past
+//    ~85 rows at the model's widths that layout exceeds the card's
+//    shared memory: a plan of a higher level (fused_layer_fwd_plan) moves
+//    the [rows, D] buffers, then the scores and the hidden layer, to a
+//    per-block scratch in device memory until it fits.
 
 #include <cstdint>
 
@@ -150,15 +154,42 @@ __device__ void block_mm(const float* A, int lda, int rows, int K,
   }
 }
 
-// Shared-memory plan of the FMA form, in floats; must match the carve-up in
-// the kernel. A geometry above the card's 227 KB makes cudaFuncSetAttribute
-// fail, and the launch returns that error.
-__host__ __device__ inline size_t smem_floats(int seqs, int S, int D, int dh, int F) {
-  const int rcap = round_up(seqs * S, kRowTile);
-  return static_cast<size_t>(rcap) * (3 * D + 3 * (dh + 1) + S + F);
-}
+// The FMA form's plan, in floats. Level 0 keeps every buffer in shared
+// memory (`floats`); each level above moves one more buffer, in the order
+// of `order`, to the block's slice of a scratch area in device memory
+// (`gfloats` a block), reached through L1 and L2. The launch takes the
+// lowest level that fits the card's opt-in limit on shared memory.
+enum FwdSpill : unsigned { kFProj = 1, kFXs = 2, kFHs = 4, kFSc = 8, kFHid = 16 };
+constexpr int kFwdLevels = 6;
 
-template <typename T, typename C>
+struct FwdPlan {
+  int rcap, ldh;
+  unsigned spill;
+  size_t xs, hs, proj, q, k, v, sc, hid, floats, gfloats;
+
+  __host__ __device__ FwdPlan(int S, int D, int dh, int F, int level = 0) {
+    const unsigned order[] = {kFProj, kFXs, kFHs, kFSc, kFHid};
+    spill = spill_bits(order, level);
+    rcap = round_up(seqs_per_block(S) * S, kRowTile);
+    ldh = dh + 1;  // odd stride: the k/v column walks are free of bank conflicts
+    Placer pl(spill, 1);
+    const size_t r = static_cast<size_t>(rcap);
+    xs = pl.put(r * D, kFXs);      // [rcap, D]   residual stream
+    hs = pl.put(r * D, kFHs);      // [rcap, D]   LN1 / LN2 output
+    proj = pl.put(r * D, kFProj);  // [rcap, D]   out-projection accumulator
+    q = pl.put(r * ldh, 0);        // [rcap, ldh] q, then the head's attention output
+    k = pl.put(r * ldh, 0);        // [rcap, ldh]
+    v = pl.put(r * ldh, 0);        // [rcap, ldh]
+    sc = pl.put(r * S, kFSc);      // [seqs, S, S] scores, then probabilities
+    hid = pl.put(r * F, kFHid);    // [rcap, F]   MLP hidden layer
+    floats = pl.shared;
+    gfloats = pl.device;
+  }
+};
+
+// FLEX: a plan of level > 0 (some buffers in the block's slice of
+// `scratch`); without it every buffer is in shared memory
+template <typename T, typename C, bool FLEX>
 __global__ void __launch_bounds__(kThreads)
 fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                        const float* __restrict__ ln1s, const float* __restrict__ ln1b,
@@ -167,11 +198,14 @@ fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                        const float* __restrict__ ln2s, const float* __restrict__ ln2b,
                        const C* __restrict__ w1, const float* __restrict__ b1,
                        const C* __restrict__ w2, const float* __restrict__ b2,
-                       int B, int S, int D, int H, int dh, int F, DropCfg dc) {
+                       float* __restrict__ scratch, int B, int S, int D, int H, int dh, int F,
+                       int level, DropCfg dc) {
   extern __shared__ float smem[];
   const int seqs = seqs_per_block(S);
   const int rcap = round_up(seqs * S, kRowTile);
   const int ldh = dh + 1;  // odd stride: the k/v column walks are free of bank conflicts
+  // level 0, FwdPlan's layout written out (the arithmetic of the form
+  // before the plans, whose code it keeps)
   float* xs = smem;                 // [rcap, D]   residual stream
   float* hs = xs + rcap * D;        // [rcap, D]   LN1 / LN2 output
   float* proj = hs + rcap * D;      // [rcap, D]   out-projection accumulator
@@ -180,6 +214,19 @@ fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
   float* v = k + rcap * ldh;        // [rcap, ldh]
   float* sc = v + rcap * ldh;       // [seqs, S, S] scores, then probabilities
   float* hid = sc + rcap * S;       // [rcap, F]   MLP hidden layer
+  if constexpr (FLEX) {
+    const FwdPlan plan(S, D, dh, F, level);
+    float* gblk = scratch + static_cast<size_t>(blockIdx.x) * plan.gfloats;
+    auto at = [&](size_t off, unsigned bit) { return plan.spill & bit ? gblk + off : smem + off; };
+    xs = at(plan.xs, kFXs);
+    hs = at(plan.hs, kFHs);
+    proj = at(plan.proj, kFProj);
+    q = smem + plan.q;
+    k = smem + plan.k;
+    v = smem + plan.v;
+    sc = at(plan.sc, kFSc);
+    hid = at(plan.hid, kFHid);
+  }
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid % 32, nwarps = nthr / 32;
@@ -682,16 +729,16 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
 // ---------------------------------------------------------------------------
 // launches
 
-template <typename T, typename C>
-cudaError_t launch_fma(const void* x, void* y, const void* ln1s, const void* ln1b,
-                       const void* wqkv, const void* wout, const void* bout,
-                       const void* ln2s, const void* ln2b, const void* w1, const void* b1,
-                       const void* w2, const void* b2,
-                       int B, int S, int D, int H, int dh, int F, DropCfg dc,
-                       cudaStream_t stream) {
+template <typename T, typename C, bool FLEX>
+cudaError_t launch_fma_as(const void* x, void* y, const void* ln1s, const void* ln1b,
+                          const void* wqkv, const void* wout, const void* bout,
+                          const void* ln2s, const void* ln2b, const void* w1, const void* b1,
+                          const void* w2, const void* b2, void* scratch,
+                          int B, int S, int D, int H, int dh, int F, int level, DropCfg dc,
+                          cudaStream_t stream) {
   const int seqs = seqs_per_block(S);
-  const size_t bytes = smem_floats(seqs, S, D, dh, F) * sizeof(float);
-  auto kernel = fused_layer_fwd_kernel<T, C>;
+  const size_t bytes = FwdPlan(S, D, dh, F, level).floats * sizeof(float);
+  auto kernel = fused_layer_fwd_kernel<T, C, FLEX>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -702,9 +749,21 @@ cudaError_t launch_fma(const void* x, void* y, const void* ln1s, const void* ln1
       static_cast<const float*>(bout),
       static_cast<const float*>(ln2s), static_cast<const float*>(ln2b),
       static_cast<const C*>(w1), static_cast<const float*>(b1),
-      static_cast<const C*>(w2), static_cast<const float*>(b2),
-      B, S, D, H, dh, F, dc);
+      static_cast<const C*>(w2), static_cast<const float*>(b2), static_cast<float*>(scratch),
+      B, S, D, H, dh, F, level, dc);
   return cudaGetLastError();
+}
+
+template <typename T, typename C>
+cudaError_t launch_fma(const void* x, void* y, const void* ln1s, const void* ln1b,
+                       const void* wqkv, const void* wout, const void* bout,
+                       const void* ln2s, const void* ln2b, const void* w1, const void* b1,
+                       const void* w2, const void* b2, void* scratch,
+                       int B, int S, int D, int H, int dh, int F, int level, DropCfg dc,
+                       cudaStream_t stream) {
+  return (level ? launch_fma_as<T, C, true> : launch_fma_as<T, C, false>)(
+      x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2, scratch, B, S, D, H, dh,
+      F, level, dc, stream);
 }
 
 template <typename T, int KD, int KH, int KF, int KT, bool EXACT, int MAXR, int MINB>
@@ -755,6 +814,31 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
+// The FMA form's plan at this geometry: out[0] the lowest level whose
+// shared memory fits the card's opt-in limit, or -1 when none does; out[1]
+// that level's shared bytes (when none fits, the last level's); out[2] its
+// device scratch bytes per block; out[3] the card's limit. Returns a CUDA
+// error code.
+extern "C" int fused_layer_fwd_plan(int S, int D, int dh, int F, long long* out) {
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = -1;
+  out[3] = limit;
+  for (int level = 0; level < kFwdLevels; ++level) {
+    const FwdPlan plan(S, D, dh, F, level);
+    out[1] = static_cast<long long>(plan.floats * sizeof(float));
+    out[2] = static_cast<long long>(plan.gfloats * sizeof(float));
+    if (plan.floats * sizeof(float) <= static_cast<size_t>(limit)) {
+      out[0] = level;
+      break;
+    }
+  }
+  return 0;
+}
+
 // x, y: [B, S, D] in T (fp32, or bf16 when io_bf16). wqkv [D, 3*H*dh] (q
 // block pre-scaled), wout [H*dh, D], w1 [D, F], w2 [F, D] in the compute type
 // (bf16 when compute_bf16, else fp32). LN scales/biases and the three
@@ -764,23 +848,27 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // arrive as the int bit patterns of their uint32 values. Launches on
 // `stream`; returns cudaGetLastError(). bf16 compute takes the tensor-core
 // form at the widths tc_widths takes with 16-byte aligned weights, else the
-// FMA form. x1: null, or (tensor-core form only) an fp32
+// FMA form, whose plan `level` (fused_layer_fwd_plan) places some buffers
+// in `scratch`: one slice of the plan's scratch bytes per block of the grid
+// (null when those are 0). x1: null, or (tensor-core form only) an fp32
 // [B, S, D] that receives the residual stream after attention, x + the
 // dropped projection, for fused_layer_bwd.cu's row kernel.
 extern "C" int fused_layer_fwd(const void* x, void* y, void* x1, const void* ln1s,
                                const void* ln1b,
                                const void* wqkv, const void* wout, const void* bout,
                                const void* ln2s, const void* ln2b, const void* w1,
-                               const void* b1, const void* w2, const void* b2,
+                               const void* b1, const void* w2, const void* b2, void* scratch,
                                int B, int S, int D, int H, int dh, int F,
-                               int io_bf16, int compute_bf16, int drop_on, int drop_proj,
-                               int drop_seed, int drop_thr, float drop_scale, void* stream) {
+                               int io_bf16, int compute_bf16, int level, int drop_on,
+                               int drop_proj, int drop_seed, int drop_thr, float drop_scale,
+                               void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const DropCfg dc{drop_on, drop_proj, static_cast<uint32_t>(drop_seed),
                    static_cast<uint32_t>(drop_thr), drop_scale};
   const bool tc = compute_bf16 && tc_widths(S, D, dh, F) && aligned16(wqkv) &&
                   aligned16(wout) && aligned16(w1) && aligned16(w2);
-  if (x1 && !tc) return static_cast<int>(cudaErrorInvalidValue);
+  if ((x1 && !tc) || level < 0 || level >= kFwdLevels)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (tc && io_bf16)
     err = launch_tc<__nv_bfloat16>(x, y, x1, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
@@ -790,15 +878,18 @@ extern "C" int fused_layer_fwd(const void* x, void* y, void* x1, const void* ln1
                            w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
   else if (io_bf16 && compute_bf16)
     err = launch_fma<__nv_bfloat16, __nv_bfloat16>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s,
-                                                   ln2b, w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
+                                                   ln2b, w1, b1, w2, b2, scratch, B, S, D, H, dh,
+                                                   F, level, dc, st);
   else if (io_bf16)
     err = launch_fma<__nv_bfloat16, float>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
-                                           w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
+                                           w1, b1, w2, b2, scratch, B, S, D, H, dh, F, level, dc,
+                                           st);
   else if (compute_bf16)
     err = launch_fma<float, __nv_bfloat16>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
-                                           w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
+                                           w1, b1, w2, b2, scratch, B, S, D, H, dh, F, level, dc,
+                                           st);
   else
     err = launch_fma<float, float>(x, y, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b,
-                                   w1, b1, w2, b2, B, S, D, H, dh, F, dc, st);
+                                   w1, b1, w2, b2, scratch, B, S, D, H, dh, F, level, dc, st);
   return static_cast<int>(err);
 }

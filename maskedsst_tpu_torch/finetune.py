@@ -13,8 +13,9 @@ Data-parallel over several processes, one card each: ``torchrun
 ``batch_size`` is the global batch; only rank 0 writes checkpoints and
 tracker rows. Processes that share one card need ``--dist-backend gloo``.
 
-The model comes from ``method_name`` in the finetune config (only
-ViTSpatialSpectral is ported) with weights made from the seed. Its encoder
+The model comes from ``method_name`` in the finetune config
+(ViTSpatialSpectral, with either patch embedding, or ViTRGB; the ``li``
+baseline is not ported yet) with weights made from the seed. Its encoder
 comes from ``--checkpoint`` (default: the config's ``checkpoint_path``): a
 reference ``.pth`` or this package's pretraining ``.pt``, with a fresh
 classification head; a path that does not exist trains from scratch, and

@@ -14,7 +14,7 @@ recomputed (``rederive_finetune_config``). The encoder comes from
 ``checkpoint_path`` (a reference ``.pth`` or this package's ``.pt``, a
 fresh classification head) through ``factory.load_pretrained_params``; a
 path that does not exist trains from scratch. An option the port refuses
-(e.g. ``blockwise_patch_embed=false``) raises the factory's error. bf16
+(``method_name=li``) raises the factory's error. bf16
 compute (fp32 parameters) is the default; ``--fp32`` computes in fp32. It
 runs on the card unless ``--cpu`` is given. Prints ``best val acc: ...``
 at the end.

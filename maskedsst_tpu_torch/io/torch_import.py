@@ -18,13 +18,17 @@ Structural translations (reference → flax tree):
   ``to_pixels`` kernel [blocks, dim, pixels] and bias;
 * ``spatial_spectral_transformer`` is an ``nn.Sequential`` whose stacks sit
   at index 1 (spatial) and 3 (spectral), index 1 only under
-  ``spectral_only``.
+  ``spectral_only``;
+* the shared ``PatchEmbed`` keeps its pre-norm at ``to_patch.1`` and its
+  Linear and post-norm at ``embed.{0,1}``; the Sequential patch chains of
+  ViTRGB and V1 (``to_patch_embedding.{1,2,3}``: LN, Linear, LN) become
+  ``patch_chain`` and ``embed_chain``; SimMIM's shared decoder
+  ``to_pixels`` becomes ``to_pixels_linear``.
 
 ``load_pretrained_encoder`` is the reference's finetune-time surgery:
 strip the ``encoder.`` prefix SimMIM adds, take the fresh ``head_linear``,
 keep the checkpoint's ``head_norm``, and truncate ``pos_embed`` under
-``patch_sub``. Only the blockwise patch embedding is ported
-(``models/vit_spatial_spectral.py``).
+``patch_sub``.
 """
 
 from __future__ import annotations
@@ -82,16 +86,33 @@ def _depth(model) -> int:
     return len(model.spectral_transformer.layers)
 
 
+def _chain(sd: Mapping[str, Any], names) -> Dict[str, Any]:
+    """The reference's ``to_patch_embedding`` Sequential (Rearrange, LN,
+    Linear, LN) → the three named stages of a flax patch chain."""
+    pre, proj, post = names
+    return {pre: _layernorm(sd, "to_patch_embedding.1"),
+            proj: _linear(sd, "to_patch_embedding.2"),
+            post: _layernorm(sd, "to_patch_embedding.3")}
+
+
 def _vit_tree(sd: Mapping[str, Any], model) -> Dict[str, Any]:
     """Reference ViTSpatialSpectral state dict → the flax-shaped tree."""
-    stacked = _stack_blockwise(sd, "to_patch_embedding.blockwise_embed",
-                               model.num_spectral_patches)
-    tree: Dict[str, Any] = {"to_patch_embedding": {
-        "pre_norm": _layernorm(sd, "to_patch_embedding.pre_norm"),
-        "post_norm": _layernorm(sd, "to_patch_embedding.post_norm"),
-        "blockwise_kernel": stacked["kernel"],
-        "blockwise_bias": stacked["bias"],
-    }}
+    if model.blockwise_patch_embed:
+        stacked = _stack_blockwise(sd, "to_patch_embedding.blockwise_embed",
+                                   model.num_spectral_patches)
+        embedding = {
+            "pre_norm": _layernorm(sd, "to_patch_embedding.pre_norm"),
+            "post_norm": _layernorm(sd, "to_patch_embedding.post_norm"),
+            "blockwise_kernel": stacked["kernel"],
+            "blockwise_bias": stacked["bias"],
+        }
+    else:  # PatchEmbed: to_patch = (Rearrange, LN), embed = (Linear, LN)
+        embedding = {
+            "pre_norm": _layernorm(sd, "to_patch_embedding.to_patch.1"),
+            "proj": _linear(sd, "to_patch_embedding.embed.0"),
+            "post_norm": _layernorm(sd, "to_patch_embedding.embed.1"),
+        }
+    tree: Dict[str, Any] = {"to_patch_embedding": embedding}
     if model.spectral_pos_embed:
         tree["pos_embed"] = _np(sd["pos_embed"])
         tree["channel_embed"] = _np(sd["channel_embed"])
@@ -132,14 +153,50 @@ def import_vit_spatial_spectral(sd: Mapping[str, Any], model) -> Dict[str, torch
 
 def import_simmim(sd: Mapping[str, Any], simmim) -> Dict[str, torch.Tensor]:
     """Reference SimMIMSpatialSpectral state dict (``encoder.``-prefixed
-    keys, ``mask_token``, ``to_pixels.layers.{i}``) → ``state_dict`` of the
-    port's ``SimMIMSpatialSpectral``."""
+    keys, ``mask_token``, the per-block ``to_pixels.layers.{i}`` or the
+    shared ``to_pixels``) → ``state_dict`` of the port's
+    ``SimMIMSpatialSpectral`` (a ViTSpatialSpectral encoder)."""
     tree = {
         "encoder": _vit_tree(_strip_encoder(sd), simmim.encoder),
         "mask_token": _np(sd["mask_token"]),
-        "to_pixels": _stack_blockwise(sd, "to_pixels.layers", simmim.encoder.num_spectral_patches),
     }
+    if simmim.per_block:
+        tree["to_pixels"] = _stack_blockwise(sd, "to_pixels.layers",
+                                             simmim.encoder.num_spectral_patches)
+    else:
+        tree["to_pixels_linear"] = _linear(sd, "to_pixels")
     return params_from_flax(tree)
+
+
+_RGB_CHAIN = ("patch_pre_norm", "patch_proj", "patch_post_norm")
+_V1_CHAIN = ("pre_norm", "proj", "post_norm")
+
+
+def import_vit_rgb(sd: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Reference ViTRGB state dict → ``state_dict`` of the port's ``ViTRGB``
+    of the same config."""
+    return params_from_flax({
+        "patch_chain": _chain(sd, _RGB_CHAIN),
+        "pos_embedding": _np(sd["pos_embedding"]),
+        "cls_token": _np(sd["cls_token"]),
+        "transformer": _transformer(sd, "transformer", len(model.transformer.layers)),
+        "head_norm": _layernorm(sd, "mlp_head.0"),
+        "head_linear": _linear(sd, "mlp_head.1"),
+    })
+
+
+def import_vit_spatial_spectral_v1(sd: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Reference ViTSpatialSpectral_V1 state dict → ``state_dict`` of the
+    port's ``ViTSpatialSpectralV1`` of the same config."""
+    depth = _depth(model)
+    return params_from_flax({
+        "embed_chain": _chain(sd, _V1_CHAIN),
+        "pos_embedding": _np(sd["pos_embedding"]),
+        "spatial_transformer": _transformer(sd, "spatial_spectral_transformer.1", depth),
+        "spectral_transformer": _transformer(sd, "spatial_spectral_transformer.3", depth),
+        "head_norm": _layernorm(sd, "mlp_head.0"),
+        "head_linear": _linear(sd, "mlp_head.1"),
+    })
 
 
 def load_pretrained_encoder(checkpoint: Mapping[str, Any], model,
@@ -210,13 +267,25 @@ def _export_stacked(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         out[f"{prefix}.{i}.bias"] = bias[i]
 
 
+def _export_chain(tree, names, out: Dict[str, np.ndarray]) -> None:
+    pre, proj, post = names
+    _export_layernorm(tree[pre], "to_patch_embedding.1", out)
+    _export_linear(tree[proj], "to_patch_embedding.2", out)
+    _export_layernorm(tree[post], "to_patch_embedding.3", out)
+
+
 def _export_vit(tree, model) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     emb = tree["to_patch_embedding"]
-    _export_layernorm(emb["pre_norm"], "to_patch_embedding.pre_norm", out)
-    _export_layernorm(emb["post_norm"], "to_patch_embedding.post_norm", out)
-    _export_stacked({"kernel": emb["blockwise_kernel"], "bias": emb["blockwise_bias"]},
-                    "to_patch_embedding.blockwise_embed", out)
+    if model.blockwise_patch_embed:
+        _export_layernorm(emb["pre_norm"], "to_patch_embedding.pre_norm", out)
+        _export_layernorm(emb["post_norm"], "to_patch_embedding.post_norm", out)
+        _export_stacked({"kernel": emb["blockwise_kernel"], "bias": emb["blockwise_bias"]},
+                        "to_patch_embedding.blockwise_embed", out)
+    else:
+        _export_layernorm(emb["pre_norm"], "to_patch_embedding.to_patch.1", out)
+        _export_linear(emb["proj"], "to_patch_embedding.embed.0", out)
+        _export_layernorm(emb["post_norm"], "to_patch_embedding.embed.1", out)
     if model.spectral_pos_embed:
         out["pos_embed"] = np.asarray(tree["pos_embed"])
         out["channel_embed"] = np.asarray(tree["channel_embed"])
@@ -257,5 +326,39 @@ def export_simmim(state_dict: Mapping[str, torch.Tensor], simmim) -> Dict[str, t
     tree = flax_from_params(state_dict)
     out = {f"encoder.{k}": v for k, v in _export_vit(tree["encoder"], simmim.encoder).items()}
     out["mask_token"] = np.asarray(tree["mask_token"])
-    _export_stacked(tree["to_pixels"], "to_pixels.layers", out)
+    if simmim.per_block:
+        _export_stacked(tree["to_pixels"], "to_pixels.layers", out)
+    else:
+        _export_linear(tree["to_pixels_linear"], "to_pixels", out)
+    return _tensors(out)
+
+
+def export_vit_rgb(state_dict: Mapping[str, torch.Tensor], model) -> Dict[str, torch.Tensor]:
+    """The port's ViTRGB ``state_dict`` → reference keys; the exact inverse
+    of :func:`import_vit_rgb`."""
+    tree = flax_from_params(state_dict)
+    out: Dict[str, np.ndarray] = {}
+    _export_chain(tree["patch_chain"], _RGB_CHAIN, out)
+    out["pos_embedding"] = np.asarray(tree["pos_embedding"])
+    out["cls_token"] = np.asarray(tree["cls_token"])
+    _export_transformer(tree["transformer"], "transformer", len(model.transformer.layers), out)
+    _export_layernorm(tree["head_norm"], "mlp_head.0", out)
+    _export_linear(tree["head_linear"], "mlp_head.1", out)
+    return _tensors(out)
+
+
+def export_vit_spatial_spectral_v1(state_dict: Mapping[str, torch.Tensor],
+                                   model) -> Dict[str, torch.Tensor]:
+    """The port's ViTSpatialSpectralV1 ``state_dict`` → reference keys; the
+    exact inverse of :func:`import_vit_spatial_spectral_v1`."""
+    tree = flax_from_params(state_dict)
+    out: Dict[str, np.ndarray] = {}
+    _export_chain(tree["embed_chain"], _V1_CHAIN, out)
+    out["pos_embedding"] = np.asarray(tree["pos_embedding"])
+    depth = _depth(model)
+    _export_transformer(tree["spatial_transformer"], "spatial_spectral_transformer.1", depth, out)
+    _export_transformer(tree["spectral_transformer"], "spatial_spectral_transformer.3", depth,
+                        out)
+    _export_layernorm(tree["head_norm"], "mlp_head.0", out)
+    _export_linear(tree["head_linear"], "mlp_head.1", out)
     return _tensors(out)

@@ -1,4 +1,7 @@
-from maskedsst_tpu_torch.models.simmim import SimMIMSpatialSpectral
+from maskedsst_tpu_torch.models.simmim import SimMIM, SimMIMSpatialSpectral
+from maskedsst_tpu_torch.models.vit_rgb import ViTOriginal, ViTRGB
 from maskedsst_tpu_torch.models.vit_spatial_spectral import ViTSpatialSpectral
+from maskedsst_tpu_torch.models.vit_spatial_spectral_v1 import ViTSpatialSpectralV1
 
-__all__ = ["SimMIMSpatialSpectral", "ViTSpatialSpectral"]
+__all__ = ["SimMIM", "SimMIMSpatialSpectral", "ViTOriginal", "ViTRGB", "ViTSpatialSpectral",
+           "ViTSpatialSpectralV1"]

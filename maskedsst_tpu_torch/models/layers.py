@@ -1,4 +1,5 @@
-"""Transformer building blocks and the blockwise patch embedding.
+"""Transformer building blocks and the patch embeddings (blockwise, and the
+shared ``PatchEmbed``).
 
 Parameter layout mirrors the JAX package's flax modules name for name
 (``io/flax_params.py`` maps one onto the other): pre-norm blocks with
@@ -12,6 +13,8 @@ and the fused embedding as one call of ``ops.fused_embed.fused_embed_mask``:
 the CUDA kernels for tensors on the card, their plain versions on the CPU,
 forward and backward. ``BlockwisePatchEmbedding.embed_pn`` is the same
 embedding in plain ops, for the route where embedding dropout is active.
+``PatchEmbed`` and the heads are plain ops (``layer_norm_to``,
+``linear_to``), as the JAX package computes them outside any kernel.
 
 Dropout seeds: a stack takes a per-call base seed and layer i uses
 base + i (mod 2**32), as the JAX ``FusedTransformer`` does; in a
@@ -57,6 +60,19 @@ def token_dropout(x: torch.Tensor, rate: float, seed: int,
     gen = torch.Generator(device=x.device).manual_seed(seed)
     keep = torch.rand((b * size, *x.shape[1:]), generator=gen, device=x.device) >= rate
     return torch.where(keep[rank * b : (rank + 1) * b], x / (1.0 - rate), torch.zeros_like(x))
+
+
+def layer_norm_to(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=dtype)``: fp32 statistics over the last axes,
+    the output rounded to ``dtype``."""
+    return nn.functional.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                                    LN_EPS).to(dtype)
+
+
+def linear_to(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Dense(dtype=dtype)``: input, kernel and bias in ``dtype``."""
+    bias = None if linear.bias is None else linear.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), linear.weight.to(dtype), bias)
 
 
 class FeedForward(nn.Module):
@@ -213,3 +229,40 @@ class BlockwisePatchEmbedding(nn.Module):
             self.post_norm.weight, self.post_norm.bias, pos, mask_token,
             self.dtype or patches_pn.dtype,
         )
+
+
+class PatchEmbed(nn.Module):
+    """The shared (non-blockwise) patch embedding: ``to_patch`` rearranges a
+    cube into patches [B, g*n, p] (block-major tokens, pixels ordered (p0,
+    p1, p2)) and layer-norms them over p; ``embed`` is Linear(p, dim) then
+    LayerNorm(dim). The pre-norm sits in ``to_patch`` because SimMIM
+    reconstructs what ``to_patch`` returns: with this embedding its targets
+    are layer-normed patches. Plain ops in ``dtype`` (None: the input's)."""
+
+    def __init__(self, dim: int, patch_depth: int, patch_height: int, patch_width: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dim, self.patch_depth = dim, patch_depth
+        self.patch_height, self.patch_width = patch_height, patch_width
+        self.dtype = dtype
+        self.patch_dim = patch_depth * patch_height * patch_width
+        self.pre_norm = nn.LayerNorm(self.patch_dim, eps=LN_EPS)
+        self.proj = nn.Linear(self.patch_dim, dim)
+        self.post_norm = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def to_patch(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, C, H, W] → layer-normed patches [B, g*n, p]."""
+        b, c, hh, ww = x.shape
+        p0, p1, p2 = self.patch_depth, self.patch_height, self.patch_width
+        g, h, w = c // p0, hh // p1, ww // p2
+        x = x.reshape(b, g, p0, h, p1, w, p2).permute(0, 1, 3, 5, 2, 4, 6)
+        return layer_norm_to(x.reshape(b, g * h * w, p0 * p1 * p2), self.pre_norm,
+                             self.dtype or x.dtype)
+
+    def embed(self, patches: torch.Tensor) -> torch.Tensor:
+        """patches [B, g*n, p] → tokens [B, g*n, dim]."""
+        dt = self.dtype or patches.dtype
+        return layer_norm_to(linear_to(patches, self.proj, dt), self.post_norm, dt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.embed(self.to_patch(x))

@@ -11,8 +11,11 @@ layout change inside XLA, did not pay.
 Tokenization runs through the fused embed op (blockwise embedding, +
 positions, with a zero mask and zero mask token) unless embedding dropout
 is active in training; then, as in the JAX model, it takes the plain
-``embed_pn`` + positions + dropout. Both stacks run through the fused layer
-op; the tensor's device picks kernel or plain version.
+``embed_pn`` + positions + dropout. With ``blockwise_patch_embed=False``
+the shared ``PatchEmbed`` tokenizes in plain ops, as in JAX. Both stacks
+run through the fused layer op; the tensor's device picks kernel or plain
+version. ``ViTBase`` holds what the package's other classifiers
+(``vit_spatial_spectral_v1.py``, ``vit_rgb.py``) share with this one.
 
 Randomness in training comes from an explicit ``torch.Generator`` passed
 to ``forward`` (never torch's global RNG): three seeds per call, for the
@@ -35,7 +38,10 @@ from torch import nn
 from maskedsst_tpu_torch.models.layers import (
     LN_EPS,
     BlockwisePatchEmbedding,
+    PatchEmbed,
     Transformer,
+    layer_norm_to,
+    linear_to,
     token_dropout,
 )
 from maskedsst_tpu_torch.ops.pos_embed import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed
@@ -57,7 +63,51 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
         t.copy_(cpu)
 
 
-class ViTSpatialSpectral(nn.Module):
+class ViTBase(nn.Module):
+    """What the package's classifiers share: the compute dtype, a training
+    call's dropout seeds, the plain head ops and the flax-distributed init
+    of their Linear and LayerNorm weights. A subclass sets ``dtype``,
+    ``dropout``, ``emb_dropout``, ``head_norm`` and ``head_linear``."""
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.dtype or torch.float32
+
+    def dropout_seeds(self, rng: Optional[torch.Generator]) -> Tuple[int, int, int]:
+        """(first stack, second stack, embedding) dropout seeds of one
+        training call, drawn from ``rng``; zeros when no dropout is active."""
+        if not (self.training and (self.dropout > 0.0 or self.emb_dropout > 0.0)):
+            return (0, 0, 0)
+        if rng is None:
+            raise ValueError(
+                "training with dropout needs an explicit torch.Generator (rng); "
+                "the model never draws from torch's global RNG"
+            )
+        return tuple(torch.randint(0, 2**31 - 1, (3,), generator=rng).tolist())
+
+    def _init_dense(self, gen: torch.Generator) -> None:
+        """LeCun-normal (truncated at ±2σ) Linear weights, zero biases, unit
+        LN scales, in module order, from ``gen``."""
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                lecun_normal_(mod.weight, mod.in_features, gen)
+                if mod.bias is not None:
+                    nn.init.zeros_(mod.bias)
+            elif isinstance(mod, nn.LayerNorm):
+                nn.init.ones_(mod.weight)
+                nn.init.zeros_(mod.bias)
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_to(x, self.head_norm, self.compute_dtype)
+
+    def _linear(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_to(x, self.head_linear, self.compute_dtype)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        return self._linear(self._norm(x))
+
+
+class ViTSpatialSpectral(ViTBase):
     """Args as the JAX package's ``ViTSpatialSpectral``, without ``fused``
     and ``mesh``: the fused ops always run, on one device."""
 
@@ -99,12 +149,8 @@ class ViTSpatialSpectral(nn.Module):
             f"{img_h=} {self.patch_height=} {img_w=} {self.patch_width=} "
             f"{channels=} {self.patch_depth=}"
         )
-        if not blockwise_patch_embed:
-            raise NotImplementedError(
-                "blockwise_patch_embed=False (PatchEmbed) is not ported yet "
-                "(ROADMAP.md, Queue 1, Slice E)"
-            )
         self.num_classes, self.dim, self.emb_dropout = num_classes, dim, emb_dropout
+        self.blockwise_patch_embed = blockwise_patch_embed
         self.dropout = dropout
         self.spectral_pos_embed, self.spectral_only = spectral_pos_embed, spectral_only
         self.spectral_mlp_head, self.pixelwise = spectral_mlp_head, pixelwise
@@ -113,11 +159,19 @@ class ViTSpatialSpectral(nn.Module):
         self.num_spatial_patches = self.num_spatial_patches_sqrt**2
         self.num_spectral_patches = channels // self.patch_depth
         self.num_patches = self.num_spatial_patches * self.num_spectral_patches
+        self.pixels_per_patch = self.patch_depth * self.patch_height * self.patch_width
+        self.image_size = img_h
 
-        self.to_patch_embedding = BlockwisePatchEmbedding(
-            num_channels=channels, dim=dim, patch_depth=self.patch_depth,
-            patch_height=self.patch_height, patch_width=self.patch_width, dtype=dtype,
-        )
+        if blockwise_patch_embed:
+            self.to_patch_embedding = BlockwisePatchEmbedding(
+                num_channels=channels, dim=dim, patch_depth=self.patch_depth,
+                patch_height=self.patch_height, patch_width=self.patch_width, dtype=dtype,
+            )
+        else:
+            self.to_patch_embedding = PatchEmbed(
+                dim=dim, patch_depth=self.patch_depth, patch_height=self.patch_height,
+                patch_width=self.patch_width, dtype=dtype,
+            )
 
         if spectral_pos_embed:
             # 1/3 of the embedding vector encodes the spectral block position,
@@ -168,27 +222,17 @@ class ViTSpatialSpectral(nn.Module):
         side = self.num_spatial_patches_sqrt
         return (self.num_classes, side * self.patch_height, side * self.patch_width)
 
-    @property
-    def compute_dtype(self) -> torch.dtype:
-        return self.dtype or torch.float32
-
     def init_weights(self, seed: int) -> "ViTSpatialSpectral":
         """Fresh weights from ``seed``, distributed as the JAX model's init:
         LeCun-normal (truncated at ±2σ) matrices and block kernels, zero
         biases, unit LN scales, normal(1) learned positions; the sin-cos
         tables are kept."""
         gen = torch.Generator().manual_seed(seed)
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                lecun_normal_(mod.weight, mod.in_features, gen)
-                if mod.bias is not None:
-                    nn.init.zeros_(mod.bias)
-            elif isinstance(mod, nn.LayerNorm):
-                nn.init.ones_(mod.weight)
-                nn.init.zeros_(mod.bias)
+        self._init_dense(gen)
         emb = self.to_patch_embedding
-        lecun_normal_(emb.blockwise_kernel, emb.num_blocks * emb.patch_dim, gen)
-        nn.init.zeros_(emb.blockwise_bias)
+        if self.blockwise_patch_embed:
+            lecun_normal_(emb.blockwise_kernel, emb.num_blocks * emb.patch_dim, gen)
+            nn.init.zeros_(emb.blockwise_bias)
         if not self.spectral_pos_embed:
             with torch.no_grad():
                 self.pos_embedding.copy_(torch.randn(self.pos_embedding.shape, generator=gen))
@@ -246,34 +290,24 @@ class ViTSpatialSpectral(nn.Module):
         tokens = self.to_patch_embedding.embed_mask_fused(patches, pos, mask_token, mask)
         return tokens.reshape(b, c * n, self.dim), patches
 
-    def dropout_seeds(self, rng: Optional[torch.Generator]) -> Tuple[int, int, int]:
-        """(spatial, spectral, embedding) dropout seeds of one training call,
-        drawn from ``rng``; zeros when no dropout is active."""
-        if not (self.training and (self.dropout > 0.0 or self.emb_dropout > 0.0)):
-            return (0, 0, 0)
-        if rng is None:
-            raise ValueError(
-                "training with dropout needs an explicit torch.Generator (rng); "
-                "the model never draws from torch's global RNG"
-            )
-        return tuple(torch.randint(0, 2**31 - 1, (3,), generator=rng).tolist())
-
     def forward_features(self, img: torch.Tensor, spectral_layout_out: bool = False,
                          rng: Optional[torch.Generator] = None,
                          shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """Tokenize (with positions) and run the factorized transformer.
 
-        The fused embed runs unless embedding dropout is active in
-        training (the JAX routing, ``deterministic or emb_dropout == 0``);
-        then the plain ``embed_pn`` + positions + token dropout."""
+        The fused embed runs on the blockwise route unless embedding
+        dropout is active in training (the JAX routing, ``deterministic or
+        emb_dropout == 0``); otherwise the plain embedding (``embed_pn``, or
+        ``PatchEmbed``) + positions + token dropout in training."""
         seeds = self.dropout_seeds(rng)
-        if not self.training or self.emb_dropout == 0.0:
+        if self.blockwise_patch_embed and (not self.training or self.emb_dropout == 0.0):
             tokens, _ = self.tokenize_fused(img)
         else:
             emb = self.to_patch_embedding
-            x = emb.embed_pn(emb.to_patch_pn(img))
+            x = emb.embed_pn(emb.to_patch_pn(img)) if self.blockwise_patch_embed else emb(img)
             x = x + self.pos_embedding_for(x.shape[1]).to(x.dtype)
-            tokens = token_dropout(x, self.emb_dropout, seeds[2], shard)
+            tokens = token_dropout(x, self.emb_dropout if self.training else 0.0, seeds[2],
+                                   shard)
         return self.transformer_forward(tokens, spectral_layout_out=spectral_layout_out,
                                         seeds=seeds[:2], rank=shard[0])
 
@@ -301,22 +335,6 @@ class ViTSpatialSpectral(nn.Module):
             x = self._norm(x).reshape(b, hh * ww * self.dim)
             return self._linear(x)
         return _unfold_pixel_logits(self._head(x), p1, p2, self.num_classes)
-
-    def _norm(self, x: torch.Tensor) -> torch.Tensor:
-        out = nn.functional.layer_norm(
-            x.float(), self.head_norm.normalized_shape, self.head_norm.weight,
-            self.head_norm.bias, LN_EPS,
-        )
-        return out.to(self.compute_dtype)
-
-    def _linear(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        return nn.functional.linear(
-            x.to(dt), self.head_linear.weight.to(dt), self.head_linear.bias.to(dt)
-        )
-
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return self._linear(self._norm(x))
 
 
 def _unfold_pixel_logits(x: torch.Tensor, p1: int, p2: int, num_classes: int) -> torch.Tensor:

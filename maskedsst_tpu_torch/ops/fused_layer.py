@@ -10,7 +10,9 @@ bias) → softmax attention per head (+ dropout) → out-projection + bias
 implementation by the tensor's device: a CPU tensor goes to
 :func:`reference_layer` forward and :func:`reference_layer_bwd` backward,
 the plain PyTorch versions; a CUDA tensor launches ``csrc/fused_layer_fwd.cu``
-and ``csrc/fused_layer_bwd.cu`` or raises. In bf16 at widths that are
+and ``csrc/fused_layer_bwd.cu`` or raises (a geometry whose buffers do not
+fit the card's shared memory, even with some moved to a device scratch,
+raises a ValueError that names it: :func:`launch_plan`). In bf16 at widths that are
 multiples of 16 the backward is split: the row kernel of
 ``fused_layer_bwd.cu`` (:func:`layer_bwd_rows`), started from the residual
 stream x1 that the training forward saved, then the weight-gradient kernel
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -431,10 +433,74 @@ def _bind(name: str):
 
     lib = _build.load(name)
     if name == _FWD:
-        return lib, _build.bind(lib, name, n_pointers=14, n_ints=12, n_floats=1)
-    fn = _build.bind(lib, name, n_pointers=16, n_ints=13, n_floats=1)
-    tc = _build.bind(lib, name + "_tc", n_pointers=18, n_ints=12, n_floats=1)
-    return lib, (fn, tc)
+        fn = _build.bind(lib, name, n_pointers=15, n_ints=13, n_floats=1)
+        plan = lib.fused_layer_fwd_plan
+        plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    else:
+        fn = (_build.bind(lib, name, n_pointers=17, n_ints=14, n_floats=1),
+              _build.bind(lib, name + "_tc", n_pointers=19, n_ints=13, n_floats=1))
+        plan = lib.fused_layer_bwd_plan
+        plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+    plan.restype = ctypes.c_int
+    return lib, fn, plan
+
+
+class Plan(NamedTuple):
+    """Where a kernel launch keeps its buffers (``fused_layer_fwd_plan``,
+    ``fused_layer_bwd_plan``): the plan's level (0: every buffer in shared
+    memory, the row kernel's weights staged there; each level above moves
+    one more buffer to a per-block scratch in device memory), its shared
+    bytes, its scratch bytes per block, and the card's limit on a block's
+    shared memory."""
+
+    level: int
+    shared_bytes: int
+    scratch_bytes: int
+    limit: int
+
+
+# the forms a plan is asked for: the forward's FMA form, the backward's FMA
+# form, the backward's row kernel
+FORMS = {"fwd": "forward's FMA form", "bwd": "backward's FMA form", "rows": "row kernel"}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(form: str, s: int, d: int, dh: int, f: int, device: torch.device) -> Plan:
+    from maskedsst_tpu_torch.ops import _build
+
+    name = _FWD if form == "fwd" else _BWD
+    lib, _, query = _bind(name)
+    out = (ctypes.c_longlong * 4)()
+    extra = () if form == "fwd" else (int(form == "rows"),)
+    with torch.cuda.device(device):
+        _build.check(lib, name + "_plan", query(s, d, dh, f, *extra, out))
+    return Plan(*out)
+
+
+def launch_plan(form: str, s: int, d: int, dh: int, f: int, device: torch.device) -> Plan:
+    """The plan a launch of ``form`` (a key of FORMS) takes at this geometry
+    on ``device``; a ValueError naming the geometry and the bytes when even
+    its last level does not fit the card's shared memory."""
+    plan = _plan(form, s, d, dh, f, torch.device(device))
+    if plan.level < 0:
+        raise ValueError(
+            f"fused_layer: the {FORMS[form]} does not fit the card's shared memory at S {s}, "
+            f"D {d}, dh {dh}, F {f}: its smallest plan takes {plan.shared_bytes} bytes a "
+            f"block, the card allows {plan.limit}")
+    return plan
+
+
+def _scratch(plan: Plan, blocks: int, device) -> Optional[torch.Tensor]:
+    """The plan's per-block device scratch for a grid of ``blocks`` blocks
+    (None for a plan without one: no allocation on the main paths)."""
+    if not plan.scratch_bytes:
+        return None
+    return torch.empty(blocks * plan.scratch_bytes, dtype=torch.uint8, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's address for a C entry; null for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _i32(v: int) -> int:
@@ -498,15 +564,19 @@ def _launch(x, params, *config, x1=None):
 
     cfg = LayerConfig(*config)
     b, s, d, _, f = _check(x, params, cfg, _FWD)
+    level, scratch = 0, None
+    if not _tc_form(cfg, s, d, f):
+        plan = launch_plan("fwd", s, d, cfg.dim_head, f, x.device)
+        level, scratch = plan.level, _scratch(plan, -(-b // seqs_per_block(s)), x.device)
     args = _kernel_weights(params, cfg)  # kept referenced until the launch is enqueued
     y = torch.empty_like(x)
-    lib, fn = _bind(_FWD)
+    lib, fn, _ = _bind(_FWD)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(
             x.data_ptr(), y.data_ptr(), None if x1 is None else x1.data_ptr(),
-            *(a.data_ptr() for a in args),
-            b, s, d, cfg.heads, cfg.dim_head, f, *_flags(x, cfg), *_drop_args(cfg),
+            *(a.data_ptr() for a in args), _ptr(scratch),
+            b, s, d, cfg.heads, cfg.dim_head, f, *_flags(x, cfg), level, *_drop_args(cfg),
             ctypes.c_void_p(stream),
         )
     _build.check(lib, _FWD, code)
@@ -524,7 +594,10 @@ def _tc_form(cfg: LayerConfig, s: int, d: int, f: int) -> bool:
     backward's row kernel and layer_wgrad) rather than the FMA forms: bf16
     compute at widths that are multiples of 16, within the tensor-core
     forward's register tiles (``tc_widths`` in ``csrc/fused_layer_fwd.cu``):
-    D and F at most 128, dim_head at most 64, at most 128 rows a block."""
+    D and F at most 128, dim_head at most 64, at most 128 rows a block.
+    Every such geometry launches: past 64 rows the row kernel reads its
+    weights from device memory and moves buffers to a device scratch until
+    its shared memory fits (:func:`launch_plan`)."""
     dh = cfg.dim_head
     rows = -(-seqs_per_block(s) * s // 16) * 16
     return (cfg.compute_dtype == torch.bfloat16 and d % 16 == 0 and dh % 16 == 0
@@ -578,20 +651,22 @@ def layer_bwd_rows(x, dy, params, *config, x1=None):
         _launch(x, params, *cfg, x1=x1)
     if x1.shape != x.shape or x1.dtype != torch.float32 or not x1.is_contiguous():
         raise ValueError(f"{_BWD}: x1 must be a contiguous fp32 {tuple(x.shape)}")
+    plan = launch_plan("rows", s, d, cfg.dim_head, f, x.device)
     args = _kernel_weights(params, cfg)
     n = b * s
     ops = torch.empty(n * sum(layer_wgrad.operand_widths(d, inner, f).values()),
                       dtype=torch.bfloat16, device=x.device)
     ws = torch.empty((nparts, 6 * d + f), dtype=torch.float32, device=x.device)
+    scratch = _scratch(plan, nparts, x.device)
     dx = torch.empty_like(x)
-    lib, (_, fn) = _bind(_BWD)
+    lib, (_, fn), _ = _bind(_BWD)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(
             x.data_ptr(), x1.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            *(a.data_ptr() for a in args), ops.data_ptr(), ws.data_ptr(), grads.data_ptr(),
-            b, s, d, cfg.heads, cfg.dim_head, f, _flags(x, cfg)[0], nparts, *_drop_args(cfg),
-            ctypes.c_void_p(stream),
+            *(a.data_ptr() for a in args), ops.data_ptr(), ws.data_ptr(), _ptr(scratch),
+            grads.data_ptr(), b, s, d, cfg.heads, cfg.dim_head, f, _flags(x, cfg)[0], nparts,
+            plan.level, *_drop_args(cfg), ctypes.c_void_p(stream),
         )
     _build.check(lib, _BWD, code)
     bwd_launches += 1
@@ -630,20 +705,22 @@ def _launch_bwd(x, dy, params, *config, x1=None):
     _check_dy(x, dy, _BWD)
     if _tc_form(cfg, s, d, f):
         return layer_bwd_split(x, dy, params, *cfg, x1=x1)
+    plan = launch_plan("bwd", s, d, cfg.dim_head, f, x.device)
     args = _kernel_weights(params, cfg)
-    lib, (fn, _) = _bind(_BWD)
+    lib, (fn, _), _ = _bind(_BWD)
     count = layer_wgrad.grad_count(d, inner, f)
     nparts = _nparts(b, s, x.device)
     ws = torch.empty((nparts, count), dtype=torch.float32, device=x.device)
+    scratch = _scratch(plan, nparts, x.device)
     grads = torch.empty(count, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(
             x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
-            ws.data_ptr(), grads.data_ptr(),
-            b, s, d, cfg.heads, cfg.dim_head, f, *_flags(x, cfg), nparts, *_drop_args(cfg),
-            ctypes.c_void_p(stream),
+            ws.data_ptr(), _ptr(scratch), grads.data_ptr(),
+            b, s, d, cfg.heads, cfg.dim_head, f, *_flags(x, cfg), nparts, plan.level,
+            *_drop_args(cfg), ctypes.c_void_p(stream),
         )
     _build.check(lib, _BWD, code)
     bwd_launches += 1

@@ -6,7 +6,7 @@
 A pretraining checkpoint (``model_*.pt``: SimMIM, ``encoder.*`` keys) is
 written with the reference's SimMIM keys, which its finetuning (and
 ``load_pretrained_params``) reads; a finetune checkpoint (``{method}_*.pt``)
-with the reference's ViTSpatialSpectral keys. The model is rebuilt from the
+with the reference's ViTSpatialSpectral or ViTRGB keys. The model is rebuilt from the
 config in the checkpoint's ``.json`` sidecar; its ``load_state_dict``
 checks every key and shape before the export. Saves
 ``torch.save({"model_state_dict": ..., "config": ...})``. A file
@@ -21,7 +21,11 @@ import os
 import torch
 
 from maskedsst_tpu_torch.config import Config
-from maskedsst_tpu_torch.io.torch_import import export_simmim, export_vit_spatial_spectral
+from maskedsst_tpu_torch.io.torch_import import (
+    export_simmim,
+    export_vit_rgb,
+    export_vit_spatial_spectral,
+)
 from maskedsst_tpu_torch.train.checkpoint import _jsonable, load_metadata, restore_params
 
 
@@ -43,7 +47,8 @@ def export_checkpoint(path: str, out: str) -> int:
     else:
         model, _ = build_finetune_model(config, device="cpu")
         model.load_state_dict(state_dict)
-        sd = export_vit_spatial_spectral(state_dict, model)
+        export = export_vit_rgb if config.method_name == "ViTRGB" else export_vit_spatial_spectral
+        sd = export(state_dict, model)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     torch.save({"model_state_dict": sd, "config": _jsonable(saved)}, out)
     return len(sd)

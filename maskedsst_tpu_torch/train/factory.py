@@ -1,24 +1,25 @@
 """Finetune model factory: builds the model named by ``config.method_name``
-with weights made from ``config.seed``, plus the trainer flags it needs,
-and loads pretrained encoder weights into it (``load_pretrained_params``).
-Only ``ViTSpatialSpectral`` is ported; ``li`` and ``ViTRGB`` raise.
+(``ViTSpatialSpectral`` or ``ViTRGB``) with weights made from
+``config.seed``, plus the trainer flags it needs, and loads pretrained
+encoder weights into it (``load_pretrained_params``). The ``li`` baseline
+is not ported yet (ROADMAP.md, Queue 1, Q1.10) and raises.
 """
 
 from __future__ import annotations
 
 import copy
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from maskedsst_tpu_torch.config import Config
-from maskedsst_tpu_torch.models import ViTSpatialSpectral
+from maskedsst_tpu_torch.models import ViTRGB, ViTSpatialSpectral
 
 
 def build_finetune_model(
     config: Config, dtype: Optional[torch.dtype] = None, device: str = "cuda"
-) -> Tuple[ViTSpatialSpectral, Dict[str, Any]]:
+) -> Tuple[Union[ViTSpatialSpectral, ViTRGB], Dict[str, Any]]:
     """Returns (model on ``device``, trainer_kwargs). ``dtype`` is the
     compute dtype of the fused ops (None = fp32; params stay fp32)."""
     name = config.method_name
@@ -48,14 +49,32 @@ def build_finetune_model(
         model.init_weights(config.get("seed", 5))
         return model.to(device), {"center_pixel": bool(config.pixelwise)}
 
-    if name in ("li", "ViTRGB"):
+    if name == "ViTRGB":
+        model = ViTRGB(
+            image_size=config.image_size,
+            patch_size=config.patch_size,
+            num_classes=config.n_classes,
+            dim=config.transformer_dim,
+            depth=config.transformer_depth,
+            heads=config.transformer_n_heads,
+            mlp_dim=config.transformer_mlp_dim,
+            dropout=config.transformer_dropout,
+            emb_dropout=config.transformer_emb_dropout,
+            channels=config.n_bands,
+            pixelwise=True,  # one prediction per pixel
+            dtype=dtype,
+        )
+        model.init_weights(config.get("seed", 5))
+        return model.to(device), {}
+
+    if name == "li":
         raise NotImplementedError(
-            f"method {name} is not ported yet (ROADMAP.md, Queue 1, Slice E)"
+            "method li (the DeepHyperX 3-D CNN) is not ported yet (ROADMAP.md, Queue 1, Q1.10)"
         )
     raise NotImplementedError(f"method {name} not available")
 
 
-def load_pretrained_params(path: str, config: Config, model: ViTSpatialSpectral,
+def load_pretrained_params(path: str, config: Config, model: torch.nn.Module,
                            seed: int = 5) -> Optional[Dict[str, torch.Tensor]]:
     """A ``state_dict`` for ``model`` (the finetune model of ``config``):
     the pretrained encoder of the checkpoint at ``path`` over weights made

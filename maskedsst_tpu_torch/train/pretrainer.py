@@ -99,9 +99,14 @@ def build_pretrain_model(config: Config, dtype: Optional[torch.dtype] = None,
                          device: str = "cuda") -> SimMIMSpatialSpectral:
     """Encoder + SimMIM wrapper from a merged pretrain config, with weights
     made from ``config.seed``, on ``device``. ``dtype`` is the compute dtype
-    of the fused ops (None = fp32; parameters stay fp32)."""
-    if config.encoder_name != "ViTSpatialSpectral":
-        raise NotImplementedError(f"encoder {config.encoder_name} is not ported yet")
+    of the fused ops (None = fp32; parameters stay fp32). The options
+    ``blockwise_patch_embed``, ``to_pixels_per_spectral_block`` and
+    ``mim_intermediate_losses`` choose the routes of
+    ``models/simmim.py``; as in JAX, the encoder is a ViTSpatialSpectral,
+    so ``mim_intermediate_losses`` raises JAX's assertion."""
+    assert config.encoder_name == "ViTSpatialSpectral", (
+        f"encoder {config.encoder_name} not available"
+    )
     encoder = ViTSpatialSpectral(
         image_size=config.image_size,
         spatial_patch_size=config.patch_size,

@@ -34,7 +34,11 @@ both forms (tensor cores for bf16 compute at the widths of
 fused_embed._tc_form, FMA loops otherwise), ragged token tiles (n 9, 20),
 p 16, B 1 and a batch whose last chunk of b's is short; the backward's
 repeats bit for bit in both forms at the EnMAP and Houston2018 shapes
-(test_embed_bwd_gradients_are_deterministic).
+(test_embed_bwd_gradients_are_deterministic). The layer forward and
+backward past 64 rows a block (S 65, 80, 112, 128 at the model's widths,
+test_layer_long_sequences_match_plain), where their plans move buffers to
+a device scratch; the main paths' plans staying at level 0; a geometry no
+plan fits refused with a ValueError before any launch.
 
 Tolerances on max |kernel - plain| / max(1, |plain|): fp32 1e-4 (summation
 order and fast intrinsics only), bf16 3e-2 (both round every product
@@ -371,6 +375,85 @@ def test_layer_split_kernels_match_plain(cuda, b, s, d, heads, dh, f, io_dtype, 
     ref = layer_wgrad.layer_wgrad_reference(got, layer_wgrad.chunking(n, i, f)[0])
     for k, w in ref.items():
         assert _grad_err(views[k], w) <= TOL[torch.float32], k
+
+
+# sequences longer than the 64 rows a block of the main paths holds: the
+# cls-token sequence of ViTRGB (65 at 8x8 patches of 1) and the edges of
+# _tc_form's 128 rows, at the model's widths
+LONG_SEQS = [65, 80, 112, 128]
+
+
+@pytest.mark.parametrize("s", LONG_SEQS)
+@pytest.mark.parametrize(
+    "io_dtype,compute_dtype",
+    [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+     (torch.float32, torch.bfloat16)],
+)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_layer_long_sequences_match_plain(cuda, s, io_dtype, compute_dtype, rate):
+    """The layer forward and the whole backward (bf16: the row kernel from
+    the training forward's x1, then layer_wgrad; fp32: the FMA form) past
+    64 rows a block, where the plans move buffers to a device scratch,
+    against the plain versions; two calls give the same bits."""
+    rng = np.random.default_rng(12)
+    b, d, heads, dh, f = 3, 96, 8, 64, 64
+    params = tuple(t.requires_grad_() for t in _layer_params(rng, d, heads, dh, f, cuda))
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(cuda, io_dtype)
+    dy = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(cuda, io_dtype)
+    x.requires_grad_()
+    cfg = (heads, dh, compute_dtype, rate, rate > 0, 77, True)
+    tc = fused_layer._tc_form(fused_layer.LayerConfig(*cfg), s, d, f)
+    assert tc == (compute_dtype == torch.bfloat16)
+    plan = fused_layer.launch_plan("rows" if tc else "bwd", s, d, dh, f, cuda)
+    assert plan.level >= 1 and plan.shared_bytes <= plan.limit, plan
+
+    def run():
+        before = (fused_layer.launches, fused_layer.bwd_launches, layer_wgrad.launches)
+        y = fused_layer.fused_transformer_layer(x, LayerParams(*params), *cfg)
+        grads = torch.autograd.grad(y, (x, *params), dy)
+        torch.cuda.synchronize()
+        after = (fused_layer.launches, fused_layer.bwd_launches, layer_wgrad.launches)
+        assert after == (before[0] + 1, before[1] + 1, before[2] + int(tc)), (before, after)
+        return y, grads
+
+    y, grads = run()
+    y2, grads2 = run()
+    assert torch.equal(y, y2) and all(torch.equal(g, h) for g, h in zip(grads, grads2))
+    want_y = fused_layer.reference_layer(x.detach(), LayerParams(*params), *cfg)
+    assert _rel_err(y.detach(), want_y.detach()) <= TOL[compute_dtype]
+    want_dx, want = fused_layer.reference_layer_bwd(x.detach(), dy, LayerParams(*params), *cfg)
+    tol = max(TOL[io_dtype], TOL[compute_dtype])
+    for name, g, w in zip(("dx",) + LayerParams._fields, grads, (want_dx, *want)):
+        assert torch.isfinite(g.float()).all(), name
+        assert _grad_err(g, w) <= tol, f"{name}: {_grad_err(g, w):.3e}"
+
+
+@pytest.mark.parametrize("s,form", [(5, "rows"), (20, "rows"), (64, "rows"), (5, "bwd"),
+                                    (20, "bwd"), (64, "bwd"), (64, "fwd"), (80, "fwd")])
+def test_layer_plans_keep_the_main_paths_in_shared_memory(cuda, s, form):
+    """At the main paths' sequences (and the forward's FMA form up to 80
+    rows) every buffer stays in shared memory, the weights staged: the
+    plans of the launches before longer sequences were taken."""
+    plan = fused_layer.launch_plan(form, s, 96, 64, 64, cuda)
+    assert plan.level == 0 and plan.scratch_bytes == 0, plan
+
+
+@pytest.mark.parametrize("form", ["fwd", "bwd"])
+def test_layer_geometry_above_the_limit_raises(cuda, form):
+    """A geometry whose FMA form does not fit even with every movable buffer
+    in the device scratch raises a ValueError naming S, D, dh, F and the
+    bytes, before any launch."""
+    rng = np.random.default_rng(13)
+    b, s, d, heads, dh, f = 2, 200, 96, 2, 256, 64
+    params = _layer_params(rng, d, heads, dh, f, cuda)
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(cuda)
+    before = (fused_layer.launches, fused_layer.bwd_launches)
+    with pytest.raises(ValueError, match=r"S 200, D 96, dh 256, F 64: .* bytes a block"):
+        if form == "fwd":
+            fused_layer.fused_transformer_layer(x, params, heads, dh, torch.float32)
+        else:
+            fused_layer._launch_bwd(x, torch.randn_like(x), params, heads, dh, torch.float32)
+    assert (fused_layer.launches, fused_layer.bwd_launches) == before
 
 
 def test_layer_autograd_tc_route_saves_x1(cuda):

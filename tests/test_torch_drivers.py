@@ -271,9 +271,32 @@ def test_sweep_takes_the_agents_config_under_set(monkeypatch, capsys):
 
 def test_sweep_refused_option_raises_the_factorys_error(monkeypatch):
     _capture_trainer(monkeypatch)
-    with pytest.raises(NotImplementedError, match="blockwise_patch_embed=False"):
+    with pytest.raises(NotImplementedError, match="Q1.10"):
         finetune_sweep.main(["enmap", "--synthetic", "--cpu", "--set", "checkpoint_path=none",
-                             "--set", "blockwise_patch_embed=false"] + TINY_SET)
+                             "--set", "method_name=li", "--set", "pixelwise=true"] + TINY_SET)
+
+
+@pytest.mark.parametrize("option,model_name", [("method_name=ViTRGB", "ViTRGB"),
+                                               ("blockwise_patch_embed=false", "PatchEmbed")])
+def test_sweep_finetunes_the_other_models(monkeypatch, option, model_name):
+    """The sweep driver builds ViTRGB and the PatchEmbed encoder through the
+    factory (ViTRGB with no trainer flags), and its trainer takes finite
+    steps on them with dropout and embedding dropout."""
+    captured = _capture_trainer(monkeypatch)
+    finetune_sweep.main(["enmap", "--synthetic", "--cpu", "--set", "checkpoint_path=none",
+                         "--set", option] + TINY_SET)
+    trainer = captured["trainer"]
+    built = type(trainer.model).__name__
+    if model_name == "PatchEmbed":
+        built = type(trainer.model.to_patch_embedding).__name__
+    assert built == model_name
+    assert trainer.center_pixel is False
+    tiles = SyntheticCubeDataset(num_tiles=4, n_bands=40, n_classes=8, seed=0)
+    batch = [tiles[i] for i in range(4)]
+    img = np.stack([b["img"] for b in batch])
+    label = np.stack([b["label"] for b in batch])
+    losses = [float(trainer.train_step(img, label)["loss"]) for _ in range(2)]
+    assert all(np.isfinite(losses))
 
 
 # --- the inference example ------------------------------------------------------------

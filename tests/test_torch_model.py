@@ -94,10 +94,14 @@ def test_init_weights_is_seeded():
 
 
 def test_unported_options_raise():
-    """PatchEmbed is still unported; embedding dropout in training now runs
-    (it raised before the training slice) and needs an explicit generator."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ViTSpatialSpectral(**NARROW, blockwise_patch_embed=False)
+    """PatchEmbed (blockwise_patch_embed=False) builds and serves now (its
+    parity with JAX: tests/test_torch_models_more.py); embedding dropout in
+    training runs (it raised before the training slice) and needs an
+    explicit generator."""
+    patch_embed = ViTSpatialSpectral(**NARROW, blockwise_patch_embed=False).init_weights(0)
+    with torch.inference_mode():
+        out = patch_embed.eval()(torch.randn(2, 40, 8, 8))
+    assert out.shape == (2, *patch_embed.logits_shape) and torch.isfinite(out).all()
     model = ViTSpatialSpectral(**NARROW, emb_dropout=0.1).init_weights(0).train()
     x = torch.randn(1, 40, 8, 8)
     with pytest.raises(ValueError, match="torch.Generator"):

@@ -104,7 +104,28 @@ def test_bf16_model_serves_finite_float32_logits():
 
 @pytest.mark.parametrize("method", ["li", "ViTRGB"])
 def test_unported_methods_raise(method):
+    """li is still unported (Q1.10) and raises; ViTRGB is ported: the
+    factory's full-width EnMAP-DFC ViTRGB (S = 65 with its cls token)
+    serves through Predictor (a ragged tail) the JAX ViTRGB's logits on the
+    same weights."""
     cfg = get_finetune_config(*CONFIGS)
     cfg.method_name = method
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_finetune_model(cfg, device="cpu")
+    if method == "li":
+        with pytest.raises(NotImplementedError, match="Q1.10"):
+            build_finetune_model(cfg, device="cpu")
+        return
+    jcfg = jax_config(*CONFIGS)
+    jcfg.method_name = method
+    jmodel, jkwargs = jax_build(jcfg)
+    x0 = jnp.zeros((1, jcfg.n_bands, jcfg.image_size, jcfg.image_size), jnp.float32)
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda k, v: jmodel.init(k, v, deterministic=True))(jax.random.PRNGKey(3), x0)["params"])
+    model, kwargs = build_finetune_model(cfg, device="cpu")
+    assert kwargs == jkwargs == {}
+    model.load_state_dict(params_from_flax(params), strict=True)
+    x = _cubes(3, 4)
+    want = np.asarray(jax.jit(lambda p, a: jmodel.apply({"params": p}, a, deterministic=True))(
+        params, jnp.asarray(x)))
+    got = Predictor(model, batch_size=2, device="cpu")(x)
+    assert got.shape == want.shape == (3, 8, 8, 8) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

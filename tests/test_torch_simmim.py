@@ -150,14 +150,24 @@ def test_mask_patch_size_one_draws_exact_counts():
 
 
 def test_routes_not_ported_raise():
+    """The shared decoder and the V1 encoder build now (their parity with
+    JAX: tests/test_torch_models_more.py); intermediate_losses over a
+    non-V1 encoder raises JAX's assertion, and an encoder that is no
+    spatial-spectral ViT is refused."""
+    from maskedsst_tpu_torch.models import ViTSpatialSpectralV1
+
     def enc():
         return ViTSpatialSpectral(image_size=8, spatial_patch_size=1, spectral_patch_size=10,
                                   num_classes=8, dim=16, depth=1, heads=2, mlp_dim=12, channels=20,
                                   spectral_pos_embed=False)
 
-    with pytest.raises(NotImplementedError, match="to_pixels_linear"):
-        SimMIMSpatialSpectral(enc(), 0.7, 4, True, to_pixels_per_spectral_block=False)
-    with pytest.raises(NotImplementedError, match="intermediate_losses"):
+    shared = SimMIMSpatialSpectral(enc(), 0.7, 4, True, to_pixels_per_spectral_block=False)
+    assert {"to_pixels_linear.weight", "to_pixels_linear.bias"} <= set(shared.state_dict())
+    v1 = ViTSpatialSpectralV1(image_size=8, spatial_patch_size=1, spectral_patch_size=10,
+                              num_classes=8, dim=16, depth=1, heads=2, mlp_dim=12, channels=20)
+    model = SimMIMSpatialSpectral(v1, 0.7, 4, True, intermediate_losses=True).init_weights(0)
+    assert torch.isfinite(model(torch.randn(2, 20, 8, 8), rng=torch.Generator().manual_seed(0)))
+    with pytest.raises(AssertionError, match="intermediate_losses requires the V1 encoder"):
         SimMIMSpatialSpectral(enc(), 0.7, 4, True, True, intermediate_losses=True)
-    with pytest.raises(NotImplementedError, match="encoder"):
+    with pytest.raises(TypeError, match="encoder"):
         SimMIMSpatialSpectral(torch.nn.Linear(2, 2), 0.7, 4, True, True)
