@@ -194,7 +194,29 @@ Phases:
      intermediate_losses: its loss exactly 3x the loss without, one step
      against the plain step; (f) the legacy SimMIM over ViTRGB (S = 64, no
      cls token): its five outputs' shapes, one step against the plain
-     step.
+     step;
+ 11. the DeepHyperX zoo and the HyperX benchmark (models/zoo.py, hyperx/,
+     no CUDA kernel of the port's: convolutions, pools, GRU and LRN are
+     torch / cuDNN calls): (a) tools/zoo_check.py over the 12 nets at their
+     factory geometry and batch (20 classes, 50 bands, chen 100 at 27x27,
+     sharma 64x64): 4 steps, finite and moving losses, finite eval logits,
+     ms a step and device-busy ms; a held step of each (dropout off,
+     BatchNorm training) on the card against the CPU's from the same
+     weights on a batch of 8, fp32 with TF32 off: loss 1e-4 of |ref|, each
+     gradient 1e-4 of its max|ref|, or, where a cancelling sum leaves it
+     near zero, no further from a float64 CPU step than NEARER_FP32 x the
+     CPU fp32 step or within 1e-4 of the net's largest gradient; (b) li on the
+     EnMAP-DFC config (200 bands, 7x7 windows of 8x8 crops of 64x64 tiles,
+     8 classes, 16 planes): Finetuner.fit from the device store at batch
+     64 with the SGD recipe and class weights (steps/s, a store step's
+     idle share), Predictor at batch 256 (cubes/s), a .pt resume bit for
+     bit against its control, a .pth export and import serving the same
+     logits bit for bit, and the finetune driver with a li config; (c)
+     hyperx.main on a synthetic scene (li 20 epochs, liu and mou 3) with
+     --out-dir none and a JSON record, OA above chance, and the inference
+     CLI on li's checkpoint (its functions alone where PIL does not import;
+     the sklearn baseline only where sklearn does); every kernel count 0
+     over the phase ("launches_zoo").
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -2934,6 +2956,314 @@ def phase_other_models(card: str, gen):
     return out
 
 
+# fp32, TF32 off: a card step against the CPU step, relative. A gradient that
+# a cancelling sum makes near-zero (a bias before a training-mode BatchNorm;
+# chen's sums at its 0.001-std init) carries rounding far above 1e-4 of its
+# own max in both fp32 steps alike: it is held instead by its distance from
+# a float64 step (NEARER_FP32 x the CPU fp32 step's) or by the net's
+# largest gradient.
+ZOO_TOL = 1e-4
+
+
+def phase_zoo(card: str) -> dict:
+    """Phase 11: the DeepHyperX zoo and the HyperX benchmark. (a) every net
+    at its factory geometry and batch through ``tools/zoo_check.py`` on the
+    card, and a held step of each (dropout off, BatchNorm training) against
+    the same step on the CPU from the same weights on a batch of 8; (b) li
+    on the EnMAP-DFC config through the finetune factory: ``Finetuner.fit``
+    from the device store at batch 64 with the SGD recipe and class
+    weights, steps/s and the idle share, ``Predictor`` at batch 256, a
+    ``.pt`` resume bit for bit against its control, a ``.pth`` export and
+    import, and the finetune driver with a li config; (c) the two HyperX
+    CLIs on a synthetic scene, what needs PIL or sklearn only where they
+    import. Every kernel count stays 0: no zoo path runs a ViT kernel."""
+    import importlib.util
+
+    import torch
+
+    from maskedsst_tpu_torch import finetune
+    from maskedsst_tpu_torch.config import get_finetune_config
+    from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
+    from maskedsst_tpu_torch.data.pipeline import split_dataset
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+    from maskedsst_tpu_torch.hyperx import inference as hx_inference
+    from maskedsst_tpu_torch.hyperx import main as hx_main
+    from maskedsst_tpu_torch.io.torch_import import (
+        export_li_et_al,
+        import_li_et_al,
+        load_torch_checkpoint,
+    )
+    from maskedsst_tpu_torch.models.zoo import ZOO_NAMES
+    from maskedsst_tpu_torch.ops import dropout_sample
+    from maskedsst_tpu_torch.serve import Predictor
+    from maskedsst_tpu_torch.tools import zoo_check
+    from maskedsst_tpu_torch.train.checkpoint import save_checkpoint
+    from maskedsst_tpu_torch.train.factory import build_finetune_model, load_pretrained_params
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+
+    out: dict = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    reset_counts()
+    drop_before = dropout_sample.launches
+    try:
+        # --- (a) every net on the card, and held against the CPU -------------
+        t0 = time.perf_counter()
+        record = zoo_check.run(ZOO_NAMES, "cuda", steps=4)
+        out["zoo_check"] = record
+        for row in record["per_net"]:
+            check(row["ok"], f"zoo {row['name']}: {row.get('geometry')} batch "
+                  f"{row.get('batch')}, 4 steps, loss {row.get('loss_first', float('nan')):.5f} -> "
+                  f"{row.get('loss_last', float('nan')):.5f} finite and moving, eval logits finite"
+                  + ("" if row["ok"] else f": {row.get('error')}"))
+            if row["ok"]:
+                dev = row["device_ms_per_step"]
+                print(f"     zoo {row['name']}: {row['ms_per_step']:.3f} ms a step (host clock, "
+                      f"median of steps 2-4), device busy "
+                      f"{'not measured' if dev is None else f'{dev:.3f} ms'} a step; "
+                      f"{row['parameters']:,} parameters, batch {row['batch']} on {card}",
+                      flush=True)
+        holds = []
+        for name in ZOO_NAMES:
+            h = zoo_check.hold_on(name, "cuda", batch=8)
+            holds.append(h)
+            rows = h["grads"]
+            own = [k for k, r in rows.items() if r["own"] <= ZOO_TOL]
+            net = [k for k, r in rows.items() if k not in own and r["net"] <= ZOO_TOL]
+            fp64 = [k for k, r in rows.items() if k not in own and k not in net
+                    and r["fp64_device"] <= NEARER_FP32 * r["fp64_cpu"]]
+            bad = [k for k in rows if k not in own + fp64 + net]
+            worst = max(rows, key=lambda k: rows[k]["own"])
+            check(h["loss_rel"] <= ZOO_TOL and not bad,
+                  f"zoo {name}: card step vs CPU step (fp32, TF32 off, batch 8): loss "
+                  f"{h['loss_device']:.8e} vs {h['loss_cpu']:.8e} (rel {h['loss_rel']:.2e} <= "
+                  f"{ZOO_TOL:.0e}); of {len(rows)} gradients {len(own)} within {ZOO_TOL:.0e} of "
+                  f"their max|ref| (worst {worst} {rows[worst]['own']:.2e}), {len(net)} within "
+                  f"{ZOO_TOL:.0e} of the net's largest gradient "
+                  + "".join(f"[{k}: {rows[k]['net']:.2e}]" for k in net)
+                  + f", {len(fp64)} no further from a float64 step than {NEARER_FP32} x the CPU "
+                  "fp32 step "
+                  + "".join(f"[{k}: {rows[k]['fp64_device']:.2e} vs {rows[k]['fp64_cpu']:.2e}]"
+                            for k in fp64)
+                  + (f"; above all three: {bad}" if bad else ""))
+        out["holds"] = holds
+        # what cuDNN's deterministic algorithms (the Finetuner's choice for a
+        # zoo net) cost on the two heaviest nets: their steps in turns
+        before_det = torch.backends.cudnn.deterministic
+        for name in ("chen", "sharma"):
+            trainer, hp = zoo_check.build(name, "cuda")
+            img_t, label_t = trainer._to_device(*zoo_check.batch_for(hp, hp["batch_size"]))
+            ms = {False: [], True: []}
+            for det in (False, True, True, False):
+                torch.backends.cudnn.deterministic = det
+                trainer.train_step(img_t, label_t)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(3):
+                    trainer.train_step(img_t, label_t)
+                torch.cuda.synchronize()
+                ms[det].append(1e3 * (time.perf_counter() - t) / 3)
+            torch.backends.cudnn.deterministic = before_det
+            out[f"{name}_ms_nondeterministic_deterministic"] = (ms[False], ms[True])
+            print(f"     zoo {name}: cuDNN's default algorithms {ms[False][0]:.3f} / "
+                  f"{ms[False][1]:.3f} ms a step, its deterministic ones {ms[True][0]:.3f} / "
+                  f"{ms[True][1]:.3f} (default, deterministic, deterministic, default; 3 steps "
+                  f"each after one) on {card}", flush=True)
+            del trainer
+        print(f"     phase 11 (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # --- (b) li at the EnMAP-DFC geometry --------------------------------
+        t0 = time.perf_counter()
+        cfg = get_finetune_config("configs/finetune_config_enmap.yaml", "configs/config.yaml",
+                                  seed=SEED)
+        cfg.method_name, cfg.pixelwise, cfg.patch_sub = "li", True, 1
+        cfg.batch_size = cfg.val_batch_size = TRAIN_BATCH
+        model, kwargs = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
+        check(type(model).__name__ == "LiEtAl" and model.patch_size == 7
+              and kwargs["optimizer_override"]["name"] == "SGD"
+              and float(kwargs["class_weights"][-1]) == 0.0 and kwargs["add_channel_dim"],
+              f"li factory: LiEtAl (16 planes, 200 bands, 7x7 windows), fp32 whatever the "
+              f"compute dtype, SGD {kwargs['optimizer_override']}, class weights "
+              f"{list(kwargs['class_weights'])}")
+        data = SyntheticCubeDataset(num_tiles=256, n_bands=cfg.n_bands, n_classes=cfg.n_classes,
+                                    seed=SEED)
+        val_ds, train_ds = split_dataset(data, cfg.train_fraction, cfg.data_fraction, SEED)
+        trainer = Finetuner(cfg, model, tile_size=64, **kwargs)
+        hist = trainer.fit(train_ds, val_ds, tracker=QuietTracker(), save_checkpoints=False,
+                           max_steps=48)
+        losses = [row["loss"] for row in hist["train"]]
+        chance = 1.0 / cfg.n_classes
+        check(hist["device_store"] and all(np.isfinite(losses)) and len(hist["val"]) > 0
+              and all(np.isfinite(v["loss"]) for v in hist["val"])
+              and hist["best_val_acc"] > chance,
+              f"li finetune fit (device store, batch {TRAIN_BATCH}, SGD, class weights): 48 "
+              f"steps, every epoch's last loss finite ({losses[0]:.4f} ... {losses[-1]:.4f}), "
+              f"{len(hist['val'])} validations, best val acc {hist['best_val_acc']:.4f} > "
+              f"chance {chance:.3f}")
+        out["li_finetune_steps_per_s"] = hist["throughput"]["steps_per_s"]
+        store = DeviceTileStore(train_ds, "cuda")
+        idx = np.arange(TRAIN_BATCH) % len(store)
+        prof = profile_step(lambda: trainer.train_step_idx(store.arrays["img"],
+                                                           store.arrays["label"], idx))
+        out["li_finetune_idle_share"] = prof.get("idle_share")
+        out["li_finetune_device_ms"] = prof.get("device_ms_per_step")
+        print(f"     li finetune: {hist['throughput']['steps_per_s']:.3f} steps/s through fit "
+              f"(batch {TRAIN_BATCH}, whole epochs, validation excluded); one store step "
+              + (f"{prof['device_ms_per_step']:.3f} ms of device time in a "
+                 f"{prof['wall_ms_per_step']:.3f} ms step, idle {prof['idle_share']:.1%} of "
+                 f"the span" if prof else "not measured (no device time in the trace)")
+              + f" on {card}", flush=True)
+        cubes = np.random.default_rng(3).standard_normal(
+            (8 * BATCH, 1, cfg.n_bands, 7, 7)).astype(np.float32)
+        pred = Predictor(model, batch_size=BATCH)
+        logits = pred(cubes[:300])
+        with torch.no_grad():
+            direct = model.eval()(torch.from_numpy(cubes[:300]).cuda()).cpu().numpy()
+        check(logits.shape == (300, cfg.n_classes) and np.isfinite(logits).all()
+              and np.abs(logits - direct).max() <= 1e-5,
+              f"li serving: Predictor(batch {BATCH}) logits {logits.shape} finite, as the "
+              f"model's own forward (max |d| {np.abs(logits - direct).max():.2e})")
+        pred(cubes)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            pred(cubes)
+            walls.append(time.perf_counter() - t)
+        out["li_serving_cubes_per_s"] = cubes.shape[0] / statistics.median(walls)
+        print(f"     li serving: {out['li_serving_cubes_per_s']:.1f} cubes/s (N={cubes.shape[0]}, "
+              f"batch {BATCH}, median of 3, host clock incl. transfers) on {card}", flush=True)
+
+        def li_trainer():
+            m, kw = build_finetune_model(cfg, device="cuda")
+            return Finetuner(cfg, m, tile_size=64, **kw)
+
+        batches = [np.random.default_rng(40 + k).permutation(len(store))[:TRAIN_BATCH]
+                   for k in range(10)]
+        control, repeat, first = li_trainer(), li_trainer(), li_trainer()
+        for k in range(10):
+            control.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k])
+            repeat.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k])
+        diff = states_equal(control.state, repeat.state)
+        check(not diff and torch.backends.cudnn.deterministic,
+              "li determinism: 10 store steps repeated from the same seed equal bit for bit "
+              "(cuDNN's deterministic algorithms, selected by the Finetuner for a zoo net)"
+              + (f" (differ: {diff[:5]})" if diff else ""))
+        for k in range(5):
+            first.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k])
+        path = os.path.join(tmp, "li_at_step5.pt")
+        save_checkpoint(path, first.state, cfg)
+        resumed = li_trainer()
+        resumed.resume(path)
+        for k in range(5, 10):
+            resumed.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k])
+        diff = states_equal(control.state, resumed.state)
+        check(not diff and resumed.state.step == 10
+              and any("momentum_buffer" in s for s in resumed.state.optimizer.state.values()),
+              f"li resume: 5 steps, a .pt, a new Finetuner resumed for 5 more: parameters, SGD "
+              f"momentum buffers, step and generator equal the 10-step control bit for bit"
+              + (f" (differ: {diff[:5]})" if diff else ""))
+        pth = os.path.join(tmp, "li.pth")
+        torch.save({"model_state_dict": export_li_et_al(control.model.state_dict())}, pth)
+        fresh, _ = build_finetune_model(cfg, device="cuda")
+        fresh.load_state_dict(import_li_et_al(load_torch_checkpoint(pth)["model_state_dict"],
+                                              fresh))
+        fresh2, _ = build_finetune_model(cfg, device="cuda")
+        fresh2.load_state_dict(load_pretrained_params(pth, cfg, fresh2))
+        want = Predictor(control.model, batch_size=BATCH)(cubes[:300])
+        got, got2 = (Predictor(m, batch_size=BATCH)(cubes[:300]) for m in (fresh, fresh2))
+        check(np.array_equal(got, want) and np.array_equal(got2, want),
+              "li .pth: export -> torch.save -> load -> import (and through "
+              "load_pretrained_params) serves the trained logits bit for bit")
+        cfg_path = os.path.join(tmp, "finetune_config_li.yaml")
+        with open("configs/finetune_config_enmap.yaml") as f:
+            text = f.read()
+        with open(cfg_path, "w") as f:
+            f.write(text.replace("method_name: ViTSpatialSpectral", "method_name: li")
+                    .replace("pixelwise: False", "pixelwise: True"))
+        history, lines = run_quietly(os.path.join(tmp, "finetune_li.log"), finetune.main, [
+            "enmap", "--synthetic", "--synthetic-tiles", "16", "--steps", "6",
+            "--finetune-config", cfg_path, "--checkpoint", "none",
+            "--models-dir", os.path.join(tmp, "models")])
+        check(any(line.startswith("Model name: li") for line in lines)
+              and any(line.startswith("device: ") and "cpu" not in line for line in lines)
+              and np.isfinite(history["train"][-1]["loss"]),
+              f"finetune driver with method_name li on the card: final loss "
+              f"{history['train'][-1]['loss']:.5f}, best val acc {history['best_val_acc']:.4f}")
+        del store, control, repeat, first, resumed, trainer
+        torch.cuda.empty_cache()
+        print(f"     phase 11 (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # --- (c) the HyperX CLIs ---------------------------------------------
+        t0 = time.perf_counter()
+        has_pil = importlib.util.find_spec("PIL") is not None
+        has_sklearn = importlib.util.find_spec("sklearn") is not None
+        not_run = []
+        cli = {}
+        for name, epochs in (("li", 20), ("liu", 3), ("mou", 3)):
+            np.random.seed(SEED)
+            json_out = os.path.join(tmp, f"hyperx_{name}.json")
+            results, _ = run_quietly(os.path.join(tmp, f"hyperx_{name}.log"), hx_main.main, [
+                "--model", name, "--synthetic-scene", "--epoch", str(epochs),
+                "--out-dir", "none", "--json-out", json_out,
+                "--checkpoint-dir", os.path.join(tmp, "ck")])
+            with open(json_out) as f:
+                rec = json.load(f)
+            acc, kappa = results[0]["Accuracy"], results[0]["Kappa"]
+            cli[name] = {"accuracy": acc, "kappa": kappa, "f1": list(results[0]["F1 scores"])}
+            chance = 100.0 / 6  # six classes on the synthetic scene
+            check(np.isfinite(acc) and np.isfinite(kappa)
+                  and np.isfinite(results[0]["F1 scores"]).all() and acc > chance
+                  and rec["platform"] == "gpu" and rec["device"] == torch.cuda.get_device_name(0),
+                  f"hyperx.main --model {name} --synthetic-scene --epoch {epochs} on the card: "
+                  f"OA {acc:.3f} % > chance {chance:.1f} %, kappa {kappa:.4f}, F1 finite; "
+                  f"record on {rec['device']}")
+        out["cli"] = cli
+        ckpt = os.path.join(tmp, "ck", "li_et_al", "synthetic", "best.pt")
+        img, *_ = hx_main.synthetic_scene()
+        scene = os.path.join(tmp, "scene.npy")
+        np.save(scene, img)
+        if has_pil:
+            infer_out = os.path.join(tmp, "infer")
+            run_quietly(os.path.join(tmp, "infer.log"), hx_inference.main, [
+                "--model", "li", "--checkpoint", ckpt, "--image", scene, "--n-classes", "7",
+                "--out", infer_out])
+            probs = np.load(os.path.join(infer_out, "probs.npy"))
+            prediction = np.load(os.path.join(infer_out, "prediction.npy"))
+            wrote = os.path.exists(os.path.join(infer_out, "color_prediction.tif"))
+        else:
+            probs, prediction = hx_inference.predict_scene(
+                "li", ckpt, hx_inference.load_scene(scene), 7)
+            wrote = True
+            not_run.append("the inference CLI's .tif maps and hyperx.main's image outputs "
+                           "(PIL does not import here; probabilities and predictions ran)")
+        check(probs.shape == img.shape[:2] + (7,) and np.isfinite(probs).all()
+              and np.array_equal(prediction, probs.argmax(-1)) and wrote,
+              f"hyperx inference of li's checkpoint on the card: scores {probs.shape} finite, "
+              f"prediction their argmax" + (", maps written" if has_pil else ""))
+        if has_sklearn:
+            results, _ = run_quietly(os.path.join(tmp, "svm.log"), hx_main.main, [
+                "--model", "SVM", "--synthetic-scene", "--training_sample", "0.05",
+                "--out-dir", "none", "--checkpoint-dir", "none"])
+            check(np.isfinite(results[0]["Accuracy"]),
+                  f"hyperx.main --model SVM: OA {results[0]['Accuracy']:.3f} %")
+        else:
+            not_run.append("the sklearn baselines (sklearn does not import here; random "
+                           "sampling took the numpy stratified split)")
+        print("     phase 11 did not run: " + ("; ".join(not_run) if not_run else "nothing")
+              + f" (PIL {'imports' if has_pil else 'absent'}, sklearn "
+              f"{'imports' if has_sklearn else 'absent'}); the CPU tests cover them", flush=True)
+        print(f"     phase 11 (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    out["drop_launches"] = dropout_sample.launches - drop_before
+    check(all(v == 0 for v in out["launches"].values()) and out["drop_launches"] == 0,
+          f"phase 11 paths launched no ViT kernel: {out['launches']}, dropout_sample "
+          f"{out['drop_launches']}")
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
@@ -3021,6 +3351,8 @@ def main() -> int:
     other = timed("phase 10 other models: the layer kernels at S = 65, ViTRGB serving and "
                   "finetuning, PatchEmbed + shared-decoder pretraining, SimMIM over V1, the "
                   "legacy SimMIM", phase_other_models, card, gen)
+    zoo = timed("phase 11 zoo and HyperX: the 12 DeepHyperX nets, li on the EnMAP-DFC config, "
+                "the HyperX CLIs", phase_zoo, card)
     s65_fwd, s65_bwd, s65_wgrad = other["cases"]
     for kname in ("fused_layer_fwd", "fused_layer_bwd", "layer_wgrad"):
         total = sum(got[kname] for got in other["launches"].values())
@@ -3072,11 +3404,13 @@ def main() -> int:
         entry["launches_data_parallel"] = [got[entry["name"]] for got in dp["launches"]]
         entry["launches_other_models"] = {path: got[entry["name"]]
                                           for path, got in other["launches"].items()}
+        entry["launches_zoo"] = zoo["launches"][entry["name"]]
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",
         replaces="scripts/tpu_kernel_check.py:167", launches=drop_launches,
         launches_model_paths=drop_model_paths, launches_drivers=drivers["drop_launches"],
+        launches_zoo=zoo["drop_launches"],
         max_abs_err=max(c["max_abs_err"] for c in drop_cases),
         ms=attn["ms"], plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
         bound_by=attn["bound_by"], library_ms=None, library_note=LIBRARY_NONE["dropout_sample"],

@@ -2,7 +2,7 @@
 ``finetune.py``).
 
     python -m maskedsst_tpu_torch.finetune {enmap|houston2018} [--config configs/config.yaml]
-        [--synthetic] [--synthetic-tiles N] [--epochs N] [--steps N] [--fp32] [--cpu]
+        [--finetune-config PATH] [--synthetic] [--synthetic-tiles N] [--epochs N] [--steps N] [--fp32] [--cpu]
         [--checkpoint PATH|none] [--resume CKPT] [--models-dir models] [--jsonl PATH]
         [--multihost [--coordinator HOST:PORT --num-processes N --process-id R]]
         [--dist-backend nccl|gloo]
@@ -14,8 +14,11 @@ Data-parallel over several processes, one card each: ``torchrun
 tracker rows. Processes that share one card need ``--dist-backend gloo``.
 
 The model comes from ``method_name`` in the finetune config
-(ViTSpatialSpectral, with either patch embedding, or ViTRGB; the ``li``
-baseline is not ported yet) with weights made from the seed. Its encoder
+(``--finetune-config``, default ``configs/finetune_config_<dataset>.yaml``):
+ViTSpatialSpectral, with either patch embedding, ViTRGB, or ``li``, the
+DeepHyperX 3-D CNN, which trains by its paper recipe (SGD with momentum,
+class-weighted cross-entropy) unless ``overwrite_li_optim``, always in
+fp32; weights made from the seed. Its encoder
 comes from ``--checkpoint`` (default: the config's ``checkpoint_path``): a
 reference ``.pth`` or this package's pretraining ``.pt``, with a fresh
 classification head; a path that does not exist trains from scratch, and
@@ -53,6 +56,8 @@ def main(argv=None) -> dict:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("dataset", choices=["enmap", "houston2018"])
     parser.add_argument("--config", default="configs/config.yaml")
+    parser.add_argument("--finetune-config", default=None, metavar="PATH",
+                        help="the finetune config (default configs/finetune_config_<dataset>.yaml)")
     parser.add_argument("--synthetic-tiles", type=int, default=512)
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--epochs", type=int, default=None)
@@ -101,7 +106,7 @@ def _run(args, world) -> dict:
     random.seed(SEED)
     np.random.seed(SEED)
     config = get_finetune_config(
-        f"configs/finetune_config_{args.dataset}.yaml", args.config, SEED
+        args.finetune_config or f"configs/finetune_config_{args.dataset}.yaml", args.config, SEED
     )
     config.synthetic_tiles = args.synthetic_tiles
     if args.checkpoint is not None:

@@ -13,8 +13,9 @@ Then the controller's string booleans are coerced and ``checkpoint_path``
 recomputed (``rederive_finetune_config``). The encoder comes from
 ``checkpoint_path`` (a reference ``.pth`` or this package's ``.pt``, a
 fresh classification head) through ``factory.load_pretrained_params``; a
-path that does not exist trains from scratch. An option the port refuses
-(``method_name=li``) raises the factory's error. bf16
+path that does not exist trains from scratch. ``method_name=li`` (with
+``pixelwise=true``) trains the DeepHyperX 3-D CNN by its recipe; a method
+the factory does not know raises its error. bf16
 compute (fp32 parameters) is the default; ``--fp32`` computes in fp32. It
 runs on the card unless ``--cpu`` is given. Prints ``best val acc: ...``
 at the end.

@@ -25,6 +25,10 @@ Structural translations (reference → flax tree):
   ``patch_chain`` and ``embed_chain``; SimMIM's shared decoder
   ``to_pixels`` becomes ``to_pixels_linear``.
 
+The DeepHyperX zoo nets keep the reference's module names, so their
+importers (``import_zoo``, ``import_li_et_al``) map key for key, checking
+shapes.
+
 ``load_pretrained_encoder`` is the reference's finetune-time surgery:
 strip the ``encoder.`` prefix SimMIM adds, take the fresh ``head_linear``,
 keep the checkpoint's ``head_norm``, and truncate ``pos_embed`` under
@@ -218,6 +222,63 @@ def load_pretrained_encoder(checkpoint: Mapping[str, Any], model,
     out.update((k, v) for k, v in params_from_flax(tree).items()
                if not k.startswith("head_linear."))
     return out
+
+
+# --- the DeepHyperX zoo -------------------------------------------------------
+#
+# The port's zoo nets carry the reference's module names, so a reference
+# state dict maps key for key: the importers check every shape and skip
+# what the JAX importer skips (BatchNorm's ``num_batches_tracked``, which
+# the flax statistics do not count, and LiuEtAl's registered-but-unused
+# ``fc1_dec_bn``, DeepHyperX/models.py:855).
+
+_ZOO_UNUSED = ("fc1_dec_bn",)
+
+
+def import_zoo(sd: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """A reference DeepHyperX ``state_dict`` → the ``state_dict`` of the port
+    net ``model`` (CPU tensors): its current entries, overwritten by the
+    reference's. An entry with no counterpart in the net (a GRU layer
+    beyond the first, say) or of another shape raises, rather than being
+    dropped."""
+    out = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    for key, value in sd.items():
+        prefix, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked" or prefix in _ZOO_UNUSED:
+            continue
+        if key not in out:
+            raise KeyError(f"state-dict entry {key!r} has no counterpart in "
+                           f"{type(model).__name__}; refusing to silently drop weights")
+        arr = torch.from_numpy(_np(value))
+        if tuple(arr.shape) != tuple(out[key].shape):
+            raise ValueError(f"{key}: shape {tuple(arr.shape)} != {tuple(out[key].shape)}")
+        out[key] = arr.to(out[key].dtype)
+    return out
+
+
+def import_li_et_al(sd: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """A reference LiEtAl ``state_dict`` (DeepHyperX/models.py:532-586:
+    ``conv1``, ``conv2``, ``fc``) → the port LiEtAl's. The fc weights carry
+    over as they are: both flatten the features in torch's order."""
+    out = import_zoo({k: v for k, v in sd.items() if k.split(".")[0] in ("conv1", "conv2", "fc")},
+                     model)
+    missing = [k for k in out if k not in sd]
+    if missing:
+        raise KeyError(f"LiEtAl state dict lacks {missing}")
+    return out
+
+
+def export_zoo(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port zoo net's ``state_dict`` → reference keys (CPU tensors); the
+    exact inverse of :func:`import_zoo` (the keys are the reference's
+    already)."""
+    return {k: torch.from_numpy(_np(v)) for k, v in state_dict.items()}
+
+
+def export_li_et_al(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port LiEtAl's ``state_dict`` → the reference's; the exact inverse of
+    :func:`import_li_et_al`."""
+    return export_zoo(state_dict)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, Any]:

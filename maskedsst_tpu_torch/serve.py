@@ -23,6 +23,8 @@ class Predictor:
       model: ``nn.Module`` mapping a batch [B, ...] to outputs [B, ...] and
         exposing ``logits_shape`` (the trailing output shape) and
         ``compute_dtype``; it is moved to ``device`` and put in eval mode.
+        A semi-supervised zoo net's ``(logits, reconstruction)`` serves its
+        logits.
       batch_size: every forward sees exactly this many rows.
       postprocess: optional function applied on the device to the outputs
         (e.g. ``lambda logits: logits.argmax(1)``), so that only the small
@@ -57,7 +59,10 @@ class Predictor:
                 batch = torch.zeros((self.batch_size, *chunk.shape[1:]), dtype=torch.float32,
                                     device=self.device)
                 batch[:real] = torch.from_numpy(chunk).to(self.device, torch.float32)
-                out = self.post(self.model(batch))[:real]
+                out = self.model(batch)
+                if isinstance(out, tuple):  # semi-supervised zoo nets
+                    out = out[0]
+                out = self.post(out)[:real]
                 outs.append(_to_numpy(out))
             if outs:
                 return np.concatenate(outs)

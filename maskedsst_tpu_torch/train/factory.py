@@ -1,8 +1,8 @@
 """Finetune model factory: builds the model named by ``config.method_name``
-(``ViTSpatialSpectral`` or ``ViTRGB``) with weights made from
-``config.seed``, plus the trainer flags it needs, and loads pretrained
-encoder weights into it (``load_pretrained_params``). The ``li`` baseline
-is not ported yet (ROADMAP.md, Queue 1, Q1.10) and raises.
+(``li``, the DeepHyperX 3-D CNN baseline; ``ViTSpatialSpectral``; or
+``ViTRGB``) with weights made from ``config.seed``, plus the trainer flags
+it needs, and loads pretrained encoder weights into it
+(``load_pretrained_params``).
 """
 
 from __future__ import annotations
@@ -15,15 +15,33 @@ import torch
 
 from maskedsst_tpu_torch.config import Config
 from maskedsst_tpu_torch.models import ViTRGB, ViTSpatialSpectral
+from maskedsst_tpu_torch.models.zoo import LiEtAl, get_model as zoo_get_model
 
 
 def build_finetune_model(
     config: Config, dtype: Optional[torch.dtype] = None, device: str = "cuda"
-) -> Tuple[Union[ViTSpatialSpectral, ViTRGB], Dict[str, Any]]:
+) -> Tuple[Union[ViTSpatialSpectral, ViTRGB, LiEtAl], Dict[str, Any]]:
     """Returns (model on ``device``, trainer_kwargs). ``dtype`` is the
-    compute dtype of the fused ops (None = fp32; params stay fp32)."""
+    compute dtype of the fused ops (None = fp32; params stay fp32); the li
+    3-D CNN ignores it and keeps the paper recipe in fp32.
+
+    trainer_kwargs for li: ``center_pixel`` and ``add_channel_dim``, and,
+    unless ``overwrite_li_optim``, the paper recipe: ``optimizer_override``
+    (SGD, momentum 0.9, L2 5e-4) and ``class_weights`` (the factory's,
+    with the ignored label's weight zeroed)."""
     name = config.method_name
     size = config.image_size - config.get("patch_sub", 0)
+
+    if name == "li":
+        model, opt, crit, _ = zoo_get_model(
+            "li", n_classes=config.n_classes, n_bands=config.n_bands,
+            ignored_labels=[config.ignored_label], patch_size=size,
+            seed=config.get("seed", 5))
+        trainer_kwargs: Dict[str, Any] = {"center_pixel": True, "add_channel_dim": True}
+        if not config.get("overwrite_li_optim", False):
+            trainer_kwargs["optimizer_override"] = opt
+            trainer_kwargs["class_weights"] = crit["weight"]
+        return model.to(device), trainer_kwargs
 
     if name == "ViTSpatialSpectral":
         model = ViTSpatialSpectral(
@@ -67,10 +85,6 @@ def build_finetune_model(
         model.init_weights(config.get("seed", 5))
         return model.to(device), {}
 
-    if name == "li":
-        raise NotImplementedError(
-            "method li (the DeepHyperX 3-D CNN) is not ported yet (ROADMAP.md, Queue 1, Q1.10)"
-        )
     raise NotImplementedError(f"method {name} not available")
 
 
@@ -82,7 +96,8 @@ def load_pretrained_params(path: str, config: Config, model: torch.nn.Module,
     classification head; ``pos_embed`` truncated under ``patch_sub``).
     None when ``path`` does not exist.
 
-    ``.pth``: the reference format, through ``io/torch_import.py``.
+    ``.pth``: the reference format, through ``io/torch_import.py`` (for li
+    a reference LiEtAl state dict, ``import_li_et_al``).
     ``.pt``: this package's pretraining checkpoint; the ``encoder.*``
     entries of its model, ``head_linear`` skipped, keys the model lacks
     printed and skipped. Tensors come back on the CPU."""
@@ -94,10 +109,14 @@ def load_pretrained_params(path: str, config: Config, model: torch.nn.Module,
 
     if path.endswith(".pth"):
         from maskedsst_tpu_torch.io.torch_import import (
+            import_li_et_al,
             load_pretrained_encoder,
             load_torch_checkpoint,
         )
 
+        if config.method_name == "li":
+            ckpt = load_torch_checkpoint(path)
+            return import_li_et_al(ckpt.get("model_state_dict", ckpt), model)
         return load_pretrained_encoder(load_torch_checkpoint(path), model, fresh, patch_sub)
 
     from maskedsst_tpu_torch.train.checkpoint import restore_params

@@ -5,9 +5,12 @@ the 64x64 tiles with one origin per batch, center-pixel labels for
 pixelwise models, the model's forward in train mode with its dropout drawn
 from the trainer's generator, cross-entropy with ignored labels, backward
 through the fused ops (the CUDA kernels on the card), and an Adam update
-with split head/backbone learning rates; it returns loss, micro and macro
-accuracy. Validation slides ``image_size`` windows over the tiles and
-averages over all windows, from per-chunk sums.
+with split head/backbone learning rates (the li 3-D CNN: the factory's
+``optimizer_override``, SGD with momentum, and ``class_weights`` in the
+cross-entropy, its cubes given their channel axis by ``add_channel_dim``);
+it returns loss, micro and macro accuracy. Validation slides
+``image_size`` windows over the tiles and averages over all windows, from
+per-chunk sums.
 
 ``fit`` keeps the tiles on the card (``DeviceTileStore``, unless
 ``device_data`` is off or the dataset draws anew on every read): each step
@@ -60,6 +63,7 @@ import torch
 from maskedsst_tpu_torch.config import Config
 from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
 from maskedsst_tpu_torch.data.pipeline import DataLoader
+from maskedsst_tpu_torch.models.zoo import ZooNet
 from maskedsst_tpu_torch.parallel.mesh import (
     DataWorld,
     all_reduce_,
@@ -104,7 +108,11 @@ class Finetuner:
     crop origin, then the model's dropout seeds) comes from
     ``self.state.rng``, a CPU generator seeded by ``config.seed``.
     ``world``: this process's place in a data-parallel run (default: one
-    process); ``config.batch_size`` is the global batch."""
+    process); ``config.batch_size`` is the global batch.
+    ``add_channel_dim``: feed the model [B, 1, C, H, W] (the li 3-D CNN);
+    ``optimizer_override``: a recipe's optimizer spec (``name``,
+    ``learning_rate``, ``weight_decay``, ``momentum``) over the config's;
+    ``class_weights``: per-class weights of the cross-entropy."""
 
     def __init__(
         self,
@@ -113,21 +121,37 @@ class Finetuner:
         center_pixel: bool = False,
         tile_size: int = 64,
         world: Optional[DataWorld] = None,
+        add_channel_dim: bool = False,
+        optimizer_override: Optional[dict] = None,
+        class_weights=None,
     ):
         self.config = config
         self.model = model
         self.world = world or DataWorld()
         self.device = next(model.parameters()).device
         self.center_pixel = center_pixel
+        self.add_channel_dim = add_channel_dim
+        if isinstance(model, ZooNet):
+            # cuDNN's fastest 3-D convolution weight gradients sum with
+            # atomics, so two li steps from one state differ in their last
+            # bits on the card and a resume misses its control (the JAX zoo's
+            # XLA convolutions repeat them); the deterministic algorithms cost
+            # li's store step ~2x of device time (PERF.md, PR 15). cuDNN
+            # only: the ViT paths run no cuDNN operation.
+            torch.backends.cudnn.deterministic = True
         self.tile_size = tile_size
-        linear_eval = bool(config.get("linear_eval", False))
-        optimizer = build_optimizer(
-            model, config.lr, config.weight_decay,
-            # linear eval trains the head at the base lr
-            head_lr=None if linear_eval else config.get("mlp_head_lr"),
-            head_label_fn=make_head_label_fn(config.get("method_name")),
-            linear_eval=linear_eval,
-        )
+        self.class_weights = (None if class_weights is None else
+                              torch.as_tensor(np.asarray(class_weights), dtype=torch.float32,
+                                              device=self.device))
+        opt = dict(name="Adam", learning_rate=config.lr, weight_decay=config.weight_decay,
+                   head_lr=config.get("mlp_head_lr"),
+                   head_label_fn=make_head_label_fn(config.get("method_name")),
+                   linear_eval=bool(config.get("linear_eval", False)))
+        opt.update(optimizer_override or {})
+        if opt["linear_eval"]:
+            opt["head_lr"] = None  # linear eval trains the head at the base lr
+        optimizer = build_optimizer(model, opt.pop("learning_rate"), opt.pop("weight_decay"),
+                                    **opt)
         rng = torch.Generator().manual_seed(int(config.get("seed", 5)))
         self.state = TrainState(model, optimizer, rng)
         self.scheduler = plateau_scheduler(optimizer)
@@ -247,8 +271,10 @@ class Finetuner:
         cfg, world = self.config, self.world
         self.model.train()
         self.model.zero_grad(set_to_none=True)
-        logits = self.model(img, rng=self.state.rng, shard=world.shard)
-        num, wsum = cross_entropy_sums(logits, label, ignore_index=cfg.ignored_label)
+        logits = self.model(img[:, None] if self.add_channel_dim else img, rng=self.state.rng,
+                            shard=world.shard)
+        num, wsum = cross_entropy_sums(logits, label, ignore_index=cfg.ignored_label,
+                                       weight=self.class_weights)
         loss = num / all_reduce_(wsum.detach(), world).clamp_min(1e-12)
         loss.backward()
         all_reduce_grads_(self.model.parameters(), world)
@@ -277,8 +303,9 @@ class Finetuner:
         if self.center_pixel and label.dim() == 3:
             label = label[:, self.window // 2, self.window // 2]
         self.model.eval()
-        logits = self.model(img)
-        loss_num, loss_wsum = cross_entropy_sums(logits, label, ignore_index=cfg.ignored_label)
+        logits = self.model(img[:, None] if self.add_channel_dim else img)
+        loss_num, loss_wsum = cross_entropy_sums(logits, label, ignore_index=cfg.ignored_label,
+                                                 weight=self.class_weights)
         pred = logits.argmax(dim=1)
         valid = label != cfg.ignored_label
         return {
@@ -353,7 +380,8 @@ class Finetuner:
     # --- checkpoints ----------------------------------------------------------
     def resume(self, path: str) -> int:
         """Restore the full finetune state from a checkpoint this trainer
-        wrote: parameters, Adam moments, step and generator, then from the
+        wrote: parameters, the optimizer's state (Adam moments, SGD momentum
+        buffers), step and generator, then from the
         sidecar the plateau scheduler, ``best_val_acc`` and the last mean
         validation loss, which the next ``fit`` takes up once. Returns the
         step."""

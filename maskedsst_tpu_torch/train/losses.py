@@ -3,7 +3,9 @@ package's chunk-aggregation form.
 
 * ``ignore_index``: ignored targets contribute neither to the sum nor to
   the normalizer;
-* optional per-class ``weight`` with weighted-mean normalization.
+* optional per-class ``weight`` with weighted-mean normalization;
+* the log-softmax in fp32 at least (bf16 logits are raised to it, float64
+  ones stay).
 
 Logits may be [B, C] or dense [B, C, H, W]; targets [B] / [B, H, W].
 """
@@ -42,7 +44,7 @@ def cross_entropy_sums(
     num_classes = logits.shape[-1]
     valid = targets != ignore_index
     safe = targets.clamp(0, num_classes - 1).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     w = weight.float()[safe] * valid if weight is not None else valid.float()
     return (nll * w).sum(), w.sum()

@@ -5,7 +5,9 @@
   per-class recall averaged over the classes present in the target;
 * the confusion matrix, rows = true class, columns = predicted; ids out of
   range (negative or >= num_classes) give all-zero one-hot rows and count
-  nowhere.
+  nowhere;
+* the DeepHyperX report of a confusion matrix: overall accuracy in
+  percent, per-class F1, Cohen's kappa.
 """
 
 from __future__ import annotations
@@ -50,3 +52,19 @@ def macro_from_cm(cm: torch.Tensor) -> torch.Tensor:
     recall = torch.where(support > 0, cm.diagonal() / support.clamp_min(1), torch.zeros_like(support))
     present = (support > 0).float()
     return (recall * present).sum() / present.sum().clamp_min(1.0)
+
+
+def classification_report(cm: torch.Tensor) -> dict:
+    """DeepHyperX ``metrics`` of a confusion matrix (DeepHyperX/utils.py:331-385),
+    as the JAX ``classification_report``: accuracy in percent, per-class F1
+    (0 where a class is neither true nor predicted), kappa; zero
+    denominators clamped (a total of 1 at least, 1 - pe at least 1e-12)."""
+    cm = cm.float()
+    total = cm.sum().clamp_min(1.0)
+    diag = cm.diagonal()
+    denom = cm.sum(dim=1) + cm.sum(dim=0)
+    f1 = torch.where(denom > 0, 2.0 * diag / denom.clamp_min(1), torch.zeros_like(denom))
+    pa = diag.sum() / total
+    pe = (cm.sum(dim=0) * cm.sum(dim=1)).sum() / (total * total)
+    return {"accuracy": diag.sum() * 100.0 / total, "f1": f1,
+            "kappa": (pa - pe) / (1.0 - pe).clamp_min(1e-12), "confusion_matrix": cm}

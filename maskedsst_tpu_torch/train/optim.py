@@ -23,6 +23,12 @@ Schedulers: ``ReduceLROnPlateau(factor 0.9, patience 5, rel threshold
 (T_max 50), whose rate is set per group in closed form each epoch. Both
 have ``state_dict`` / ``load_state_dict`` (a checkpoint's sidecar).
 
+The DeepHyperX recipes (``models/zoo.py::get_model``) name ``SGD``
+(coupled L2, optax's ``trace`` momentum: torch's buffer from the first
+gradient), ``Adagrad`` (:class:`Adagrad`, optax's form) and ``Adadelta``
+(rho 0.9, eps 1e-6, coupled L2: torch's algorithm is optax's), each in
+the same head/rest groups; the sharma recipe steps :class:`MultiStepLR`.
+
 Groups are ordered head first, then the rest, the order in which the JAX
 package's ``get_learning_rates`` reports them.
 """
@@ -45,23 +51,70 @@ def make_head_label_fn(method_name: Optional[str] = None) -> Callable[[str], boo
     return lambda name: any(part.startswith(prefixes) for part in name.split("."))
 
 
+class Adagrad(torch.optim.Optimizer):
+    """optax ``adagrad`` after ``add_decayed_weights``: g += wd * p, a
+    sum of squares from ``initial_accumulator_value``, the update
+    ``lr * g * rsqrt(sum + eps)`` (0 where the sum is 0). torch's
+    ``Adagrad`` divides by ``sqrt(sum) + eps`` instead; the recipe's
+    defaults are torch's (accumulator 0, eps 1e-10)."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 initial_accumulator_value: float = 0.0, eps: float = 1e-10):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, eps=eps,
+                                      initial_accumulator_value=initial_accumulator_value))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.add(p, alpha=group["weight_decay"]) if group["weight_decay"] else p.grad
+                state = self.state[p]
+                if not state:
+                    state["sum"] = torch.full_like(p, group["initial_accumulator_value"])
+                total = state["sum"].add_(g * g)
+                scale = torch.where(total > 0, torch.rsqrt(total + group["eps"]),
+                                    torch.zeros_like(total))
+                p.add_(g * scale, alpha=-group["lr"])
+        return None
+
+
+def _make(name: str, groups, learning_rate: float, weight_decay: float,
+          momentum: float) -> torch.optim.Optimizer:
+    if name == "Adam":
+        return torch.optim.Adam(groups, lr=learning_rate, weight_decay=weight_decay,
+                                betas=(0.9, 0.999), eps=1e-8)
+    if name == "SGD":
+        return torch.optim.SGD(groups, lr=learning_rate, momentum=momentum,
+                               weight_decay=weight_decay)
+    if name == "Adagrad":
+        return Adagrad(groups, lr=learning_rate, weight_decay=weight_decay)
+    if name == "Adadelta":
+        return torch.optim.Adadelta(groups, lr=learning_rate, rho=0.9, eps=1e-6,
+                                    weight_decay=weight_decay)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
 def build_optimizer(
     model: nn.Module,
     learning_rate: float,
     weight_decay: float = 0.0,
     *,
+    name: str = "Adam",
+    momentum: float = 0.0,
     head_lr: Optional[float] = None,
     head_label_fn: Optional[Callable[[str], bool]] = None,
     linear_eval: bool = False,
-) -> torch.optim.Adam:
-    """Adam with coupled L2 over the model's parameters, in head/rest groups
-    when ``head_lr`` differs from ``learning_rate`` or under
-    ``linear_eval`` (head only, at ``head_lr`` or the base lr)."""
+) -> torch.optim.Optimizer:
+    """The optimizer ``name`` (Adam, SGD, Adagrad or Adadelta, each with
+    coupled L2; ``momentum`` for SGD) over the model's parameters, in
+    head/rest groups when ``head_lr`` differs from ``learning_rate`` or
+    under ``linear_eval`` (head only, at ``head_lr`` or the base lr)."""
     named = list(model.named_parameters())
     needs_groups = linear_eval or (head_lr is not None and head_lr != learning_rate)
     if not needs_groups:
-        return torch.optim.Adam([p for _, p in named], lr=learning_rate,
-                                weight_decay=weight_decay, betas=(0.9, 0.999), eps=1e-8)
+        return _make(name, [p for _, p in named], learning_rate, weight_decay, momentum)
     if head_label_fn is None:
         raise ValueError("head_label_fn is required for parameter groups")
     head = [p for n, p in named if head_label_fn(n)]
@@ -69,8 +122,7 @@ def build_optimizer(
     groups = [{"params": head, "lr": head_lr if head_lr is not None else learning_rate}]
     if not linear_eval:
         groups.append({"params": rest, "lr": learning_rate})
-    return torch.optim.Adam(groups, lr=learning_rate, weight_decay=weight_decay,
-                            betas=(0.9, 0.999), eps=1e-8)
+    return _make(name, groups, learning_rate, weight_decay, momentum)
 
 
 def get_learning_rates(optimizer: torch.optim.Optimizer) -> List[float]:
@@ -100,14 +152,15 @@ def plateau_scheduler(optimizer: torch.optim.Optimizer, factor: float = 0.9,
 
 
 def build_pretrain_optimizer(model: nn.Module, name: str, learning_rate: float,
-                             weight_decay: float = 0.0) -> torch.optim.AdamW:
-    """The pretraining optimizer named by the config: ``AdamW``, decoupled
-    decay on every parameter (the recipe's; the others the JAX package
-    knows are not ported yet)."""
-    if name != "AdamW":
-        raise NotImplementedError(f"optimizer {name!r} is not ported yet (ROADMAP.md, Slice E)")
-    return torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+                             weight_decay: float = 0.0) -> torch.optim.Optimizer:
+    """The pretraining optimizer named by the config: ``AdamW`` (the
+    recipe's), decoupled decay on every parameter; any other name of
+    :func:`build_optimizer` with its coupled L2, as the JAX pretrainer
+    builds them."""
+    if name == "AdamW":
+        return torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=weight_decay)
+    return _make(name, list(model.parameters()), learning_rate, weight_decay, 0.0)
 
 
 def clamp_gradients_(params: Iterable[torch.Tensor], bound: float) -> None:
@@ -148,6 +201,30 @@ class CosineAnnealingLR:
 
     def load_state_dict(self, state: dict) -> None:
         self.epoch, self.bases = int(state["epoch"]), [float(b) for b in state["bases"]]
+
+
+class MultiStepLR:
+    """torch ``MultiStepLR(milestones, gamma)`` as the JAX package's: each
+    ``step`` (one epoch) counts the epoch and, at a milestone, multiplies
+    every group's rate by ``gamma`` (the sharma recipe). ``step`` takes and
+    ignores a metric, so that it is driven as the plateau scheduler is."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, milestones, gamma: float = 0.1):
+        self.optimizer, self.gamma = optimizer, gamma
+        self.milestones = sorted(int(m) for m in milestones)
+        self.epoch = 0
+
+    def step(self, metric: Optional[float] = None) -> None:
+        self.epoch += 1
+        if self.epoch in self.milestones:
+            set_learning_rates(self.optimizer,
+                               [lr * self.gamma for lr in get_learning_rates(self.optimizer)])
+
+    def state_dict(self) -> dict:
+        return {"epoch": self.epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.epoch = int(state["epoch"])
 
 
 def build_scheduler(name: Optional[str], optimizer: torch.optim.Optimizer):

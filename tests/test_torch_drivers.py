@@ -270,10 +270,23 @@ def test_sweep_takes_the_agents_config_under_set(monkeypatch, capsys):
 
 
 def test_sweep_refused_option_raises_the_factorys_error(monkeypatch):
-    _capture_trainer(monkeypatch)
-    with pytest.raises(NotImplementedError, match="Q1.10"):
+    """A method the factory does not know raises its error through the
+    sweep driver; li, which it refused until the zoo was ported, builds
+    the DeepHyperX 3-D CNN with the paper recipe and trains finite steps."""
+    captured = _capture_trainer(monkeypatch)
+    with pytest.raises(NotImplementedError, match="method LeNet not available"):
         finetune_sweep.main(["enmap", "--synthetic", "--cpu", "--set", "checkpoint_path=none",
-                             "--set", "method_name=li", "--set", "pixelwise=true"] + TINY_SET)
+                             "--set", "method_name=LeNet"] + TINY_SET)
+    finetune_sweep.main(["enmap", "--synthetic", "--cpu", "--set", "checkpoint_path=none",
+                         "--set", "method_name=li", "--set", "pixelwise=true"] + TINY_SET)
+    trainer = captured["trainer"]
+    assert type(trainer.model).__name__ == "LiEtAl" and trainer.model.patch_size == 7
+    assert trainer.add_channel_dim and trainer.center_pixel
+    assert type(trainer.state.optimizer).__name__ == "SGD"
+    assert trainer.class_weights is not None and float(trainer.class_weights[-1]) == 0.0
+    tiles = np.random.default_rng(0).standard_normal((4, 40, 64, 64)).astype(np.float32)
+    labels = np.random.default_rng(1).integers(0, 8, (4, 64, 64))
+    assert np.isfinite(float(trainer.train_step(tiles, labels)["loss"]))
 
 
 @pytest.mark.parametrize("option,model_name", [("method_name=ViTRGB", "ViTRGB"),

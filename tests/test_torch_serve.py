@@ -104,15 +104,27 @@ def test_bf16_model_serves_finite_float32_logits():
 
 @pytest.mark.parametrize("method", ["li", "ViTRGB"])
 def test_unported_methods_raise(method):
-    """li is still unported (Q1.10) and raises; ViTRGB is ported: the
-    factory's full-width EnMAP-DFC ViTRGB (S = 65 with its cls token)
-    serves through Predictor (a ragged tail) the JAX ViTRGB's logits on the
-    same weights."""
+    """Both methods the factory once refused now build and serve: li, the
+    DeepHyperX 3-D CNN (ported with the zoo), and the factory's full-width
+    EnMAP-DFC ViTRGB (S = 65 with its cls token), each through Predictor
+    (a ragged tail) with the JAX model's logits on the same weights."""
     cfg = get_finetune_config(*CONFIGS)
     cfg.method_name = method
     if method == "li":
-        with pytest.raises(NotImplementedError, match="Q1.10"):
-            build_finetune_model(cfg, device="cpu")
+        from maskedsst_tpu.models.zoo import LiEtAl as JaxLiEtAl
+        from maskedsst_tpu_torch.io.flax_params import zoo_flax_from_state
+
+        cfg.pixelwise, cfg.patch_sub = True, 1
+        model, kwargs = build_finetune_model(cfg, dtype=torch.bfloat16, device="cpu")
+        assert kwargs["add_channel_dim"] and kwargs["center_pixel"]
+        jmodel = JaxLiEtAl(input_channels=200, n_classes=8, n_planes=16, patch_size=7)
+        x = _cubes(3, 4)[:, None, :, :7, :7]
+        like = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+        want = np.asarray(jax.jit(lambda v, a: jmodel.apply(v, a))(
+            zoo_flax_from_state(model.state_dict(), like), jnp.asarray(x)))
+        got = Predictor(model, batch_size=2, device="cpu")(x)
+        assert got.shape == want.shape == (3, 8) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=3e-5)
         return
     jcfg = jax_config(*CONFIGS)
     jcfg.method_name = method
