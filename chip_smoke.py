@@ -216,7 +216,25 @@ Phases:
      --out-dir none and a JSON record, OA above chance, and the inference
      CLI on li's checkpoint (its functions alone where PIL does not import;
      the sklearn baseline only where sklearn does); every kernel count 0
-     over the phase ("launches_zoo").
+     over the phase ("launches_zoo");
+ 12. the JAX package's .msgpack checkpoints (io/flax_msgpack.py,
+     io/flax_checkpoint.py) and serving over several devices: (a) two bf16
+     pretraining steps at batch 64 on the EnMAP recipe written by
+     write_flax_checkpoint as the JAX pretrainer writes them (optax clip +
+     AdamW, flat moments), the file read back leaf for leaf equal to the
+     writing state, a new Pretrainer resumed from it (parameters, moments
+     and steps bit for bit) for 3 steps launching phase 4's counts; (b)
+     load_pretrained_params of that file into the EnMAP-DFC classifier equal
+     to the .pt route's, 3 finetune steps launching phase 3's counts, the
+     finetune state written as .msgpack (Adam, head / rest groups) and
+     resumed with its moments bit for bit ("launches_flax_checkpoint": (a)
+     and (b)); (c) Predictor(batch_size=256, devices=["cuda:0", "cuda:0"])
+     over 300 cubes equal bit for bit to one device at 128, and over the
+     default devices (every card) equal to one device at its slice,
+     the launches of #1 and #3 ("launches_multi_device"), cubes/s of both
+     beside phase 2's; (d) liu and sharma with seeded BatchNorm statistics
+     through HyperXTrainer.save / restore as .msgpack (params and
+     batch_stats): eval logits equal bit for bit.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -790,7 +808,8 @@ def plain_versions():
 
 
 def phase_main(card: str):
-    """The serving path: Predictor over the EnMAP-DFC classifier."""
+    """The serving path: Predictor over the EnMAP-DFC classifier. Returns
+    the launches and the cubes/s of each dtype."""
     import torch
 
     from maskedsst_tpu_torch.config import get_finetune_config
@@ -805,7 +824,7 @@ def phase_main(card: str):
                 for n in REQUESTS}
     batches = sum(math.ceil(n / BATCH) for n in REQUESTS)
     depth = config.transformer_depth
-    launches = {}
+    launches, rates = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         model, _ = build_finetune_model(config, dtype=dtype, device="cuda")
@@ -841,11 +860,12 @@ def phase_main(card: str):
             pred(x)
             walls.append(time.perf_counter() - t0)
         rate = x.shape[0] / statistics.median(walls)
+        rates[name] = rate
         print(f"     serving {name}: {rate:.1f} cubes/s (N={x.shape[0]}, batch {BATCH}, "
               f"median of 3, host clock incl. transfers) on {card}", flush=True)
         del model, pred
         torch.cuda.empty_cache()
-    return launches
+    return launches, rates
 
 
 def step_grads(trainer, img, label, seed):
@@ -3264,6 +3284,253 @@ def phase_zoo(card: str) -> dict:
     return out
 
 
+def phase_flax_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict,
+                          serving_rate: float) -> dict:
+    """Phase 12: the JAX package's .msgpack checkpoints and serving over
+    several devices. (a) two bf16 pretraining steps at batch 64 written by
+    write_flax_checkpoint (AdamW + clip, flat moments), read back bit for
+    bit, resumed by a new Pretrainer for 3 counted steps; (b) that file's
+    encoder through load_pretrained_params into the EnMAP-DFC classifier,
+    equal to the .pt route's, 3 counted finetune steps, the finetune state
+    written as .msgpack (Adam, head / rest groups) and resumed with its
+    moments bit for bit; (c) Predictor over ["cuda:0", "cuda:0"] at batch
+    256 against one device at 128, and over the default devices, their
+    cubes/s beside phase 2's one-device ``serving_rate``; (d)
+    BatchNorm zoo nets through HyperXTrainer.save / restore as .msgpack."""
+    import tempfile
+
+    import torch
+
+    from maskedsst_tpu_torch.config import get_finetune_config, get_pretrain_config
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+    from maskedsst_tpu_torch.hyperx.training import HyperXTrainer
+    from maskedsst_tpu_torch.io.flax_checkpoint import (
+        flax_tree_of,
+        read_flax_checkpoint,
+        write_flax_checkpoint,
+    )
+    from maskedsst_tpu_torch.models.zoo import BatchNorm, get_model
+    from maskedsst_tpu_torch.ops import dropout_sample
+    from maskedsst_tpu_torch.serve import Predictor
+    from maskedsst_tpu_torch.train.checkpoint import save_checkpoint
+    from maskedsst_tpu_torch.train.factory import build_finetune_model, load_pretrained_params
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+
+    def bits(x):
+        x = x.detach().cpu() if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+
+    def same_tree(a, b) -> list:
+        """The paths where two trees differ (keys or leaf bits)."""
+        if isinstance(a, dict) or isinstance(b, dict):
+            if not (isinstance(a, dict) and isinstance(b, dict)) or sorted(a) != sorted(b):
+                return ["keys"]
+            return [f"{k}/{d}" for k in a for d in same_tree(a[k], b[k])]
+        x, y = bits(a), bits(b)
+        return [] if x.dtype == y.dtype and torch.equal(x, y) else ["leaf"]
+
+    def moments_equal(a, b) -> list:
+        diff = [n for (n, p), q in zip(a.model.named_parameters(), b.model.parameters())
+                if not torch.equal(p, q)]
+        for (n, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+            sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+            diff += [f"{n} {k}" for k in ("step", "exp_avg", "exp_avg_sq")
+                     if not torch.equal(sa[k].cpu(), sb[k].cpu())]
+        return diff
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flax_")
+    out: dict = {}
+    try:
+        # --- (a) pretraining through a .msgpack --------------------------------
+        cfg = get_pretrain_config("configs/pretrain_config.yaml", "configs/config.yaml",
+                                  seed=SEED)
+        cfg.batch_size = TRAIN_BATCH
+        data = SyntheticCubeDataset(num_tiles=TRAIN_BATCH, n_bands=cfg.n_bands, labeled=False,
+                                    seed=SEED)
+        tiles = np.stack([data[i]["img"] for i in range(TRAIN_BATCH)])
+
+        def pretrainer():
+            return Pretrainer(cfg.copy(), dtype=torch.bfloat16, device="cuda")
+
+        writer = pretrainer()
+        for _ in range(2):
+            writer.train_step(tiles)
+        path = os.path.join(tmp, "model_at_step2.msgpack")
+        t0 = time.perf_counter()
+        write_flax_checkpoint(path, writer.state, writer.config, extra=writer._scheduler_extra())
+        save_s = time.perf_counter() - t0
+        tree = read_flax_checkpoint(path)
+        diff = same_tree(tree, flax_tree_of(writer.state, writer.config))
+        inject = tree["opt_state"]["1"]
+        flat = inject["inner_state"]["0"]["mu"]
+        check(not diff and sorted(tree["opt_state"]) == ["0", "1"] and flat.ndim == 1
+              and flat.size == writer.num_params,
+              f"phase 12 (a): {os.path.basename(path)} ({os.path.getsize(path) / 2**20:.2f} MiB, "
+              f"written in {save_s:.3f} s) read back leaf for leaf equal to the writing state: "
+              f"optax clip + AdamW layout, flat moments of {flat.size:,} values "
+              f"(differ: {diff[:4] or 'none'})")
+        resumed = pretrainer()
+        t0 = time.perf_counter()
+        at = resumed.resume(path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        diff = moments_equal(writer.state, resumed.state)
+        check(at == 2 and not diff and resumed.state.optimizer.param_groups[0]["lr"]
+              == float(np.float32(cfg.lr)),
+              f"phase 12 (a): Pretrainer.resume at step {at} (restored in {restore_s:.3f} s on "
+              f"{card}): every parameter, AdamW moment and step bit for bit (differ: "
+              f"{diff[:4] or 'none'}), the rate {cfg.lr} as float32")
+        seen: list = []
+        counting_steps(resumed, "train_step", seen)
+        dropout_sample.launches = 0
+        reset_counts()
+        losses = [float(resumed.train_step(tiles)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        pre_counts = launch_counts()
+        check(len(seen) == 3 and all(c == pretrain_per_step for c in seen)
+              and all(math.isfinite(v) for v in losses),
+              f"phase 12 (a): 3 resumed pretraining steps, each launching phase 4's "
+              f"{pretrain_per_step}, losses {' '.join(f'{v:.5f}' for v in losses)}")
+        del resumed
+
+        # --- (b) the encoder into the classifier, a finetune state ---------------
+        pt = os.path.join(tmp, "model_at_step2.pt")
+        save_checkpoint(pt, writer.state, writer.config)
+        ft = get_finetune_config("configs/finetune_config_enmap.yaml", "configs/config.yaml",
+                                 seed=SEED)
+        ft.transformer_emb_dropout = 0.0
+        ft.batch_size = TRAIN_BATCH
+        model, kw = build_finetune_model(ft, dtype=torch.bfloat16, device="cuda")
+        from_msgpack = load_pretrained_params(path, ft, model, seed=ft.seed)
+        from_pt = load_pretrained_params(pt, ft, model, seed=ft.seed)
+        carried = [k for k in from_pt if f"encoder.{k}" in writer.model.state_dict()]
+        check(from_msgpack.keys() == from_pt.keys() and carried
+              and all(torch.equal(from_msgpack[k], from_pt[k]) for k in from_pt),
+              f"phase 12 (b): load_pretrained_params of the .msgpack == of the .pt, bit for bit "
+              f"({len(carried)} encoder tensors carried, {len(from_pt) - len(carried)} fresh)")
+        model.load_state_dict(from_msgpack)
+        trainer = Finetuner(ft.copy(), model, **kw)
+        data_ft = SyntheticCubeDataset(num_tiles=TRAIN_BATCH, n_bands=ft.n_bands,
+                                       n_classes=ft.n_classes, seed=SEED)
+        batch = [data_ft[i] for i in range(TRAIN_BATCH)]
+        img = np.stack([b["img"] for b in batch])
+        label = np.stack([b["label"] for b in batch])
+        seen = []
+        counting_steps(trainer, "train_step", seen)
+        losses = [float(trainer.train_step(img, label)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        out["launches"] = launch_counts()  # (a)'s resumed steps and these
+        out["launches"]["dropout_sample"] = dropout_sample.launches
+        check(len(seen) == 3 and all(c == finetune_per_step for c in seen)
+              and all(math.isfinite(v) for v in losses),
+              f"phase 12 (b): 3 finetune steps from the .msgpack encoder, each launching phase "
+              f"3's {finetune_per_step}, losses {' '.join(f'{v:.5f}' for v in losses)}")
+        fpath = os.path.join(tmp, f"{ft.method_name}_at_step3.msgpack")
+        write_flax_checkpoint(fpath, trainer.state, trainer.config, extra={
+            "epoch": 0, "step": 3, "best_val_acc": 0.0, "last_val_loss": None,
+            "scheduler": trainer.scheduler.state_dict()})
+        groups = sorted(read_flax_checkpoint(fpath)["opt_state"].get("inner_states", {}))
+        model2, kw2 = build_finetune_model(ft, dtype=torch.bfloat16, device="cuda")
+        back = Finetuner(ft.copy(), model2, **kw2)
+        at = back.resume(fpath)
+        diff = moments_equal(trainer.state, back.state)
+        rates = [g["lr"] for g in back.state.optimizer.param_groups]
+        check(at == 3 and groups == ["head", "rest"] and not diff
+              and rates == [float(np.float32(g["lr"])) for g in trainer.state.optimizer
+                            .param_groups],
+              f"phase 12 (b): the finetune state as .msgpack (optax groups {groups}) resumed at "
+              f"step {at}: parameters, Adam moments and steps bit for bit (differ: "
+              f"{diff[:4] or 'none'}), rates {rates}")
+        del writer, trainer, back, model2
+        torch.cuda.empty_cache()
+
+        # --- (c) serving over several devices --------------------------------
+        serve_model, _ = build_finetune_model(ft, dtype=torch.bfloat16, device="cuda")
+        x = np.random.default_rng(SEED).standard_normal((300, ft.n_bands, 8, 8)).astype(
+            np.float32)
+        two = Predictor(serve_model, batch_size=BATCH, devices=["cuda:0", "cuda:0"])
+        one = Predictor(serve_model, batch_size=BATCH // 2, devices=["cuda:0"])
+        default = Predictor(serve_model, batch_size=BATCH * torch.cuda.device_count())
+        dropout_sample.launches = 0
+        reset_counts()
+        a = two(x)
+        b = default(x)
+        torch.cuda.synchronize()
+        out["multi_device"] = launch_counts()
+        out["multi_device"]["dropout_sample"] = dropout_sample.launches
+        ref = one(x)
+        depth = ft.transformer_depth
+        chunks = math.ceil(300 / BATCH) * 2 + math.ceil(
+            300 / default.batch_size) * len(default.devices)
+        want = {"fused_layer_fwd": 2 * depth * chunks, "fused_embed_fwd": chunks}
+        got = {k: out["multi_device"][k] for k in want}
+        check(a.shape == ref.shape == (300, ft.n_classes, 8, 8) and np.array_equal(a, ref)
+              and bool(np.isfinite(a).all()),
+              f"phase 12 (c): Predictor(batch_size={BATCH}, devices=['cuda:0', 'cuda:0']) "
+              f"logits of 300 cubes == Predictor(batch_size={BATCH // 2}) bit for bit")
+        ref = Predictor(serve_model, batch_size=default.per_device,
+                        devices=[default.devices[0]])(x)
+        check(b.shape == ref.shape and np.array_equal(b, ref),
+              f"phase 12 (c): Predictor over the default devices "
+              f"{[str(d) for d in default.devices]} (batch {default.batch_size}) == one device "
+              f"at batch {default.per_device}, bit for bit")
+        check(got == want and all(v == 0 for k, v in out["multi_device"].items() if k not in want),
+              f"phase 12 (c): launches {out['multi_device']} ({want} of #1 / #3, none else)")
+        xs = np.random.default_rng(SEED + 1).standard_normal(
+            (8 * BATCH, ft.n_bands, 8, 8)).astype(np.float32)
+        rates = {}
+        for name, pred in (("two replicas on cuda:0", two), ("default devices", default)):
+            pred(xs)  # warm-up
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                pred(xs)
+                walls.append(time.perf_counter() - t0)
+            rates[name] = xs.shape[0] / statistics.median(walls)
+        out["serving"] = rates
+        print(f"     serving bf16 over devices: two replicas on cuda:0 (batch {BATCH}, "
+              f"{BATCH // 2} a replica) {rates['two replicas on cuda:0']:.1f} cubes/s, "
+              f"the default devices "
+              f"({len(default.devices)}, batch {default.batch_size}) "
+              f"{rates['default devices']:.1f} cubes/s, beside phase 2's one-device batch "
+              f"{BATCH}: {serving_rate:.1f} cubes/s (N="
+              f"{xs.shape[0]}, median of 3, host clock incl. transfers) on {card}", flush=True)
+        del two, one, default, serve_model
+        torch.cuda.empty_cache()
+
+        # --- (d) BatchNorm zoo nets as .msgpack (params + batch_stats) ---------
+        for name in ("liu", "sharma"):
+            kwargs = dict(n_classes=20, n_bands=50, ignored_labels=[0])
+            net, opt, crit, hp = get_model(name, seed=SEED, **kwargs)
+            gen = torch.Generator().manual_seed(SEED)
+            with torch.no_grad():
+                for mod in net.modules():
+                    if isinstance(mod, BatchNorm):
+                        mod.running_mean.copy_(torch.randn(mod.running_mean.shape,
+                                                           generator=gen) * 0.1)
+                        mod.running_var.copy_(torch.rand(mod.running_var.shape,
+                                                         generator=gen) + 0.5)
+            source = HyperXTrainer(net, opt, crit, hp)
+            zpath = os.path.join(tmp, f"{name}.msgpack")
+            source.save(zpath)
+            variables = read_flax_checkpoint(zpath)
+            other, *_ = get_model(name, seed=SEED + 1, **kwargs)
+            target = HyperXTrainer(other, opt, crit, hp)
+            target.restore(zpath)
+            xz = np.random.default_rng(SEED).standard_normal(
+                (8, *net.input_shape)).astype(np.float32)
+            la, lb = source.predict(xz), target.predict(xz)
+            check(sorted(variables) == ["batch_stats", "params"] and variables["batch_stats"]
+                  and torch.equal(la, lb) and bool(torch.isfinite(la).all()),
+                  f"phase 12 (d): {name} through HyperXTrainer.save / restore as .msgpack "
+                  f"(params and batch_stats): eval logits {tuple(la.shape)} equal the source "
+                  f"net's bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
@@ -3322,8 +3589,8 @@ def main() -> int:
         lambda: (phase_layer_bwd(gen), phase_embed_bwd(gen)))
     simmim_fwd_cases, simmim_bwd_cases = timed(
         "phase 1c SimMIM decode + weighted-L1 kernels vs plain versions", phase_simmim, gen)
-    serving = timed("phase 2 serving path: Predictor over the EnMAP-DFC classifier",
-                    phase_main, card)
+    serving, serving_rates = timed("phase 2 serving path: Predictor over the EnMAP-DFC "
+                                   "classifier", phase_main, card)
     counts, per_step = timed("phase 3 training path: Finetuner over the EnMAP-DFC classifier",
                              phase_train, card)
     pre_counts, per_step["pretrain"] = timed(
@@ -3353,6 +3620,14 @@ def main() -> int:
                   "legacy SimMIM", phase_other_models, card, gen)
     zoo = timed("phase 11 zoo and HyperX: the 12 DeepHyperX nets, li on the EnMAP-DFC config, "
                 "the HyperX CLIs", phase_zoo, card)
+    flax = timed("phase 12 the JAX package's .msgpack checkpoints: pretraining and finetuning "
+                 "resumed, the encoder loaded, BatchNorm zoo nets; serving over several devices",
+                 phase_flax_checkpoint, card, per_step["pretrain"], per_step["emb_dropout_0"],
+                 serving_rates["bfloat16"])
+    for kname in ("fused_layer_fwd", "fused_layer_bwd", "layer_wgrad", "fused_embed_fwd",
+                  "fused_embed_bwd", "fused_simmim_fwd", "fused_simmim_bwd"):
+        check(flax["launches"][kname] > 0,
+              f"phase 12 .msgpack paths: {kname} launched {flax['launches'][kname]} times")
     s65_fwd, s65_bwd, s65_wgrad = other["cases"]
     for kname in ("fused_layer_fwd", "fused_layer_bwd", "layer_wgrad"):
         total = sum(got[kname] for got in other["launches"].values())
@@ -3405,12 +3680,16 @@ def main() -> int:
         entry["launches_other_models"] = {path: got[entry["name"]]
                                           for path, got in other["launches"].items()}
         entry["launches_zoo"] = zoo["launches"][entry["name"]]
+        entry["launches_flax_checkpoint"] = flax["launches"][entry["name"]]
+        entry["launches_multi_device"] = flax["multi_device"][entry["name"]]
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",
         replaces="scripts/tpu_kernel_check.py:167", launches=drop_launches,
         launches_model_paths=drop_model_paths, launches_drivers=drivers["drop_launches"],
         launches_zoo=zoo["drop_launches"],
+        launches_flax_checkpoint=flax["launches"]["dropout_sample"],
+        launches_multi_device=flax["multi_device"]["dropout_sample"],
         max_abs_err=max(c["max_abs_err"] for c in drop_cases),
         ms=attn["ms"], plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
         bound_by=attn["bound_by"], library_ms=None, library_note=LIBRARY_NONE["dropout_sample"],

@@ -20,10 +20,12 @@ DeepHyperX 3-D CNN, which trains by its paper recipe (SGD with momentum,
 class-weighted cross-entropy) unless ``overwrite_li_optim``, always in
 fp32; weights made from the seed. Its encoder
 comes from ``--checkpoint`` (default: the config's ``checkpoint_path``): a
-reference ``.pth`` or this package's pretraining ``.pt``, with a fresh
-classification head; a path that does not exist trains from scratch, and
-``none`` loads nothing. ``--resume`` instead continues a full-state ``.pt``
-this driver wrote (parameters, optimizer, step, scheduler, best accuracy).
+reference ``.pth``, this package's pretraining ``.pt`` or the JAX package's
+``.msgpack``, with a fresh classification head; a path that does not exist
+trains from scratch, and ``none`` loads nothing. ``--resume`` instead
+continues a full-state ``.pt`` this driver wrote, or a JAX finetuner's
+``.msgpack`` (parameters, optimizer, step, scheduler, best accuracy; a
+``.msgpack`` draws crops and dropout of its own, seeded from its JAX key).
 bf16 compute (fp32 parameters) is the default, as in the JAX
 ``finetune.py``; ``--fp32`` computes in fp32. It runs on the card unless
 ``--cpu`` is given. The data comes from ``--config``'s data section (its
@@ -63,11 +65,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--checkpoint", default=None,
-                        help="pretrained encoder (.pth or a pretraining .pt); 'none' loads "
-                             "nothing; default: the config's checkpoint_path")
+                        help="pretrained encoder (.pth, a pretraining .pt or a JAX .msgpack); "
+                             "'none' loads nothing; default: the config's checkpoint_path")
     parser.add_argument("--resume", default=None, metavar="CKPT",
-                        help="continue a full-state .pt checkpoint this driver wrote; "
-                             "excludes --checkpoint")
+                        help="continue a full-state .pt checkpoint this driver wrote, or a JAX "
+                             "finetuner's .msgpack; excludes --checkpoint")
     parser.add_argument("--models-dir", default="models", help="where checkpoints go")
     parser.add_argument("--fp32", action="store_true",
                         help="fp32 compute (default: bf16 compute, fp32 parameters)")

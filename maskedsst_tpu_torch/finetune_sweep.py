@@ -11,14 +11,14 @@ agent's ``wandb.config`` (when the ``Tracker``'s wandb gate opens, see
 Then the controller's string booleans are coerced and ``checkpoint_path``
 "none" becomes None (``verify_sweep_params``), and the derived fields are
 recomputed (``rederive_finetune_config``). The encoder comes from
-``checkpoint_path`` (a reference ``.pth`` or this package's ``.pt``, a
-fresh classification head) through ``factory.load_pretrained_params``; a
-path that does not exist trains from scratch. ``method_name=li`` (with
-``pixelwise=true``) trains the DeepHyperX 3-D CNN by its recipe; a method
-the factory does not know raises its error. bf16
-compute (fp32 parameters) is the default; ``--fp32`` computes in fp32. It
-runs on the card unless ``--cpu`` is given. Prints ``best val acc: ...``
-at the end.
+``checkpoint_path`` (a reference ``.pth``, this package's ``.pt`` or the
+JAX package's ``.msgpack``, a fresh classification head) through
+``factory.load_pretrained_params``; a path that does not exist trains from
+scratch. ``method_name=li`` (with ``pixelwise=true``) trains the
+DeepHyperX 3-D CNN by its recipe; a method the factory does not know
+raises its error. bf16 compute (fp32 parameters) is the default;
+``--fp32`` computes in fp32. It runs on the card unless ``--cpu`` is
+given. Prints ``best val acc: ...`` at the end.
 
     python -m maskedsst_tpu_torch.finetune_sweep enmap --synthetic --steps 20 \\
         --set lr=0.001 --set linear_eval=false

@@ -71,7 +71,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--model", required=True)
-    parser.add_argument("--checkpoint", required=True)
+    parser.add_argument("--checkpoint", required=True,
+                        help="a .pt of the port's HyperX trainer or the JAX trainer's .msgpack")
     parser.add_argument("--image", required=True,
                         help=".mat/.tif/.hdr scene or .npy array [H,W,B]")
     parser.add_argument("--mat-key", default=None)

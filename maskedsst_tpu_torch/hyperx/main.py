@@ -121,7 +121,8 @@ def main(argv=None) -> list:
     parser.add_argument("--cpu", action="store_true", help="run on the CPU")
     parser.add_argument(
         "--restore", default=None,
-        help="model checkpoint (.pt, written by a run's --checkpoint-dir) loaded before training "
+        help="model checkpoint loaded before training: a .pt written by a run's "
+        "--checkpoint-dir, or the JAX trainer's .msgpack (params and batch_stats) "
         "(reference --restore, DeepHyperX/main.py:98,401-402)",
     )
     parser.add_argument(

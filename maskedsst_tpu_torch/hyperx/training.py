@@ -25,7 +25,8 @@ It runs where the model's parameters are: the card by default
 (0 by default, the JAX trainer's fixed init key); dropout masks come from
 ``self.rng``, a CPU generator seeded by ``hyperparams["seed"]``.
 Checkpoints are ``.pt`` files of the model's ``state_dict`` (parameters
-and BatchNorm statistics) through ``train/checkpoint.py``; they restore
+and BatchNorm statistics) through ``train/checkpoint.py``, or the JAX
+trainer's ``.msgpack`` of ``params`` and ``batch_stats``; they restore
 the weights, not the run (no optimizer state), so the trainer keeps cuDNN's
 default algorithms, whose sums may differ in their last bits from run to
 run (the Finetuner, whose resume is exact, selects the deterministic ones).
@@ -41,7 +42,7 @@ import torch
 
 from maskedsst_tpu_torch.data.pipeline import DataLoader
 from maskedsst_tpu_torch.hyperx.utils import grouper, sliding_window
-from maskedsst_tpu_torch.train.checkpoint import restore_params, save_checkpoint
+from maskedsst_tpu_torch.train.checkpoint import is_flax, restore_params, save_checkpoint
 from maskedsst_tpu_torch.train.losses import cross_entropy
 from maskedsst_tpu_torch.train.optim import MultiStepLR, build_optimizer, plateau_scheduler
 from maskedsst_tpu_torch.utils.tracking import Tracker
@@ -123,13 +124,21 @@ class HyperXTrainer:
     # --- checkpoints ----------------------------------------------------------
     def save(self, path: str) -> None:
         """The model's ``state_dict`` (parameters and BatchNorm running
-        statistics) as a ``.pt`` with its sidecar; :meth:`restore` loads it."""
-        save_checkpoint(path, {k: v.detach().cpu() for k, v in self.model.state_dict().items()})
+        statistics) as a ``.pt`` with its sidecar, or, for a ``.msgpack``
+        path, as the JAX trainer saves it (``{"params", "batch_stats"}``);
+        :meth:`restore` loads either."""
+        save_checkpoint(path, self.model if is_flax(path) else
+                        {k: v.detach().cpu() for k, v in self.model.state_dict().items()})
 
     def restore(self, path: str) -> None:
         """Load a ``.pt`` written by :meth:`save` (or a full-state checkpoint's
-        model) into the model."""
-        self.model.load_state_dict(restore_params(path, self.device))
+        model) into the model; or the JAX trainer's ``.msgpack`` of params
+        and ``batch_stats``, or of bare params, which keep the model's own
+        BatchNorm statistics (``maskedsst_tpu/hyperx/training.py:153-170``)."""
+        state = restore_params(path, self.device, self.model)
+        if is_flax(path):
+            state = {**self.model.state_dict(), **state}
+        self.model.load_state_dict(state)
 
     # --- loops ----------------------------------------------------------------
     def train(self, dataset, epochs: Optional[int] = None, val_dataset=None,

@@ -6,10 +6,11 @@ and its notebook, on one CUDA card).
         [--tiles N] [--plots DIR] [--cpu]
 
 Builds ViTSpatialSpectral from the finetune config in fp32, loads its
-weights through ``factory.load_pretrained_params`` (a reference ``.pth`` or
-this package's ``.pt``; like the JAX example, the loader gives every
-checkpoint a fresh classification head, so the accuracies are those of the
-loaded encoder under an untrained head), or keeps the fresh weights when
+weights through ``factory.load_pretrained_params`` (a reference ``.pth``,
+this package's ``.pt`` or the JAX package's ``.msgpack``; like the JAX
+example, the loader gives every checkpoint a fresh classification head, so
+the accuracies are those of the loaded encoder under an untrained head),
+or keeps the fresh weights when
 there is none. Each of the first ``--tiles`` 64x64 tiles is cut into
 windows at stride == window, which go through ``serve.Predictor`` (the
 serving path: the fused kernels on the card) with an argmax on the card,

@@ -29,12 +29,21 @@ The DeepHyperX zoo's variables (``params`` and ``batch_stats``) map through
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layers_(\d+)$")
+
+
+def _tensor(leaf) -> torch.Tensor:
+    """A flax leaf as a CPU tensor of its own (a bf16 leaf of
+    ``io/flax_msgpack.py`` is a tensor already; numpy leaves may be
+    read-only)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().clone()
+    return torch.tensor(np.asarray(leaf))
 
 
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -47,13 +56,13 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 m = _LAYER.match(key)
                 walk(child, path + (["layers", m.group(1)] if m else [key]))
             return
-        arr = np.asarray(node)
+        t = _tensor(node)
         name = path[-1]
-        if name == "kernel" and arr.ndim == 2:  # Dense [in, out] → Linear.weight [out, in]
-            path, arr = path[:-1] + ["weight"], arr.T
+        if name == "kernel" and t.dim() == 2:  # Dense [in, out] → Linear.weight [out, in]
+            path, t = path[:-1] + ["weight"], t.t().contiguous()
         elif name == "scale":
             path = path[:-1] + ["weight"]
-        out[".".join(path)] = torch.tensor(arr)  # a copy: flax leaves may be read-only
+        out[".".join(path)] = t
 
     walk(tree, [])
     return out
@@ -66,30 +75,35 @@ def grads_to_flax(model: torch.nn.Module) -> Dict[str, Any]:
     )
 
 
+def flax_path(key: str, ndim: int) -> Tuple[Tuple[str, ...], bool]:
+    """The flax path of this package's ``state_dict`` key ``key`` (a tensor
+    of ``ndim`` dimensions), and whether its flax leaf is the transpose."""
+    parts = key.split(".")
+    path = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            path.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            path.append(parts[i])
+            i += 1
+    if path[-1] == "weight":  # Linear.weight [out, in] → Dense kernel [in, out]
+        path[-1] = "kernel" if ndim == 2 else "scale"
+    return tuple(path), path[-1] == "kernel" and ndim == 2 and parts[-1] == "weight"
+
+
 def flax_from_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """This package's ``state_dict`` → flax ``params`` tree (numpy leaves)."""
     tree: Dict[str, Any] = {}
     for key, value in state_dict.items():
         arr = value.detach().cpu().numpy()
-        parts = key.split(".")
-        path = []
-        i = 0
-        while i < len(parts):
-            if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
-                path.append(f"layers_{parts[i + 1]}")
-                i += 2
-            else:
-                path.append(parts[i])
-                i += 1
-        if path[-1] == "weight":
-            if arr.ndim == 2:  # Linear.weight [out, in] → Dense kernel [in, out]
-                path[-1], arr = "kernel", arr.T
-            else:
-                path[-1] = "scale"
+        path, transposed = flax_path(key, arr.ndim)
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.array(arr, order="C")  # a copy: never the tensor's memory
+        # a copy: never the tensor's memory
+        node[path[-1]] = np.array(arr.T if transposed else arr, order="C")
     return tree
 
 
@@ -124,18 +138,18 @@ def zoo_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             if isinstance(child, Mapping):
                 walk(child, path if _WRAPPER.match(key) else path + [_zoo_module_name(key)], stats)
                 continue
-            arr = np.asarray(child)
+            t = _tensor(child)
             if stats:
                 name = {"mean": "running_mean", "var": "running_var"}[key]
             elif key in _GRU:
-                name, arr = _GRU[key], arr.T if arr.ndim == 2 else arr
+                name, t = _GRU[key], t.t() if t.dim() == 2 else t
             elif key == "kernel":
                 name = "weight"
-                arr = arr.T if arr.ndim == 2 else np.transpose(
-                    arr, (arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2)))
+                t = t.t() if t.dim() == 2 else t.permute(t.dim() - 1, t.dim() - 2,
+                                                         *range(t.dim() - 2))
             else:
                 name = "weight" if key == "scale" else key
-            out[".".join(path + [name])] = torch.tensor(np.ascontiguousarray(arr))
+            out[".".join(path + [name])] = t.contiguous()
 
     walk(variables["params"], [], False)
     walk(variables.get("batch_stats", {}), [], True)
@@ -176,3 +190,22 @@ def zoo_flax_from_state(state_dict: Mapping[str, torch.Tensor],
             tree = tree.setdefault(p, {})
         tree[name] = np.array(arr, order="C")
     return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def zoo_flax_skeleton(model: torch.nn.Module) -> Dict[str, Any]:
+    """The nesting of a port zoo net's JAX variables, as ``like`` for
+    :func:`zoo_flax_from_state` where no JAX tree is at hand: every module
+    of the net, with a ``Conv_0`` child under the convolutions that the JAX
+    net wraps (``type(model).flax_conv_wrappers``)."""
+    wrapped = set(getattr(model, "flax_conv_wrappers", ()))
+    tree: Dict[str, Any] = {}
+    for key in model.state_dict():
+        mods = key.split(".")[:-1]
+        if mods[:1] == ["encoder"]:
+            mods = [f"encoder_{mods[1]}"] + mods[2:]
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        if ".".join(key.split(".")[:-1]) in wrapped:
+            node.setdefault("Conv_0", {})
+    return tree

@@ -202,9 +202,11 @@ class ViTSpatialSpectral(ViTBase):
 
         # pixelwise: one logit vector per image from all tokens; otherwise
         # num_classes per patch pixel (spectral_mlp_head from the
-        # concatenated per-block tokens)
+        # concatenated per-block tokens, which takes precedence over
+        # pixelwise, as in logits_shape and forward)
         num_out_pixels = self.patch_height * self.patch_width
-        width = num_classes if pixelwise else num_classes * num_out_pixels
+        width = (num_classes if (pixelwise and not spectral_mlp_head)
+                 else num_classes * num_out_pixels)
         if spectral_mlp_head:
             norm_dim = in_dim = self.num_spectral_patches * dim
         elif pixelwise:

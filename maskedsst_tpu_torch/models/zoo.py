@@ -118,6 +118,9 @@ class ZooNet(nn.Module):
     #: JAX initializer of every conv / linear weight, and per-module overrides
     init_kind = "kaiming_normal"
     init_overrides: Dict[str, str] = {}
+    #: convolutions that the JAX net wraps in a Conv3d / Conv2d module (their
+    #: kernel one level down, under ``Conv_0``; io/flax_params.py)
+    flax_conv_wrappers: Tuple[str, ...] = ()
     n_classes: int
 
     @property
@@ -246,6 +249,8 @@ class _Cube3d(ZooNet):
 class HamidaEtAl(_Cube3d):
     """3-D CNN (DeepHyperX/models.py:297-383)."""
 
+    flax_conv_wrappers = ("conv1", "pool1", "conv2", "pool2", "conv3", "conv4")
+
     def __init__(self, input_channels: int, n_classes: int, patch_size: int = 5,
                  dilation: int = 1):
         super().__init__()
@@ -276,6 +281,7 @@ class LeeEtAl(_Cube3d):
     W]. ``patch_size`` only sets ``logits_shape`` and ``input_shape``."""
 
     init_kind = "kaiming_uniform"
+    flax_conv_wrappers = ("conv_3x3", "conv_1x1", *(f"conv{i}" for i in range(1, 9)))
 
     def __init__(self, in_channels: int, n_classes: int, patch_size: int = 5):
         super().__init__()
@@ -308,6 +314,7 @@ class ChenEtAl(_Cube3d):
     """3-D CNN (DeepHyperX/models.py:471-529); needs >= 94 bands at 27x27."""
 
     init_kind = "normal:0.001"
+    flax_conv_wrappers = ("conv1", "conv2", "conv3")
 
     def __init__(self, input_channels: int, n_classes: int, patch_size: int = 27,
                  n_planes: int = 32):
@@ -356,6 +363,8 @@ class HeEtAl(_Cube3d):
     """Multi-scale 3-D CNN (DeepHyperX/models.py:589-667)."""
 
     init_kind = "kaiming_uniform"
+    flax_conv_wrappers = ("conv1", *(f"conv{s}_{j}" for s in (2, 3) for j in range(1, 5)),
+                          "conv4")
 
     def __init__(self, input_channels: int, n_classes: int, patch_size: int = 7):
         super().__init__()
@@ -384,6 +393,7 @@ class LuoEtAl(_Cube3d):
     """HSI-CNN (DeepHyperX/models.py:670-727)."""
 
     init_kind = "kaiming_uniform"
+    flax_conv_wrappers = ("conv1",)
 
     def __init__(self, input_channels: int, n_classes: int, patch_size: int = 3,
                  n_planes: int = 90):
@@ -414,6 +424,8 @@ def _merge_feature_into_depth(t: torch.Tensor) -> torch.Tensor:
 
 class SharmaEtAl(_Cube3d):
     """S-CNN with batch norm (DeepHyperX/models.py:730-807), 64x64 patches."""
+
+    flax_conv_wrappers = ("conv1", "conv2", "conv3")
 
     def __init__(self, input_channels: int, n_classes: int, patch_size: int = 64):
         super().__init__()

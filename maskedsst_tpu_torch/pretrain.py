@@ -28,7 +28,10 @@ name (``utils/tracking.py``: stdout, wandb only when its gate opens, and
 window's mean gradient norm to them. Full-state checkpoints go to
 ``models_dir/run_id/`` (``model_{encoder}_ep{N}.pt`` by
 ``model_save_freq``, ``model_{encoder}_at_step{S}.pt`` at a ``--steps``
-break, each with a ``.json`` sidecar); ``--resume`` continues one exactly.
+break, each with a ``.json`` sidecar); ``--resume`` continues one exactly,
+or a JAX pretrainer's ``.msgpack`` (weights, AdamW moments, step,
+scheduler; its crops, masks and dropout drawn from a generator seeded by
+the file's JAX key).
 Prints ``FINAL train_loss=...`` at the end when an epoch completed.
 """
 
@@ -64,7 +67,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
     parser.add_argument("--models-dir", default="models", help="where checkpoints go")
     parser.add_argument("--resume", default=None, metavar="CKPT",
-                        help="continue from a full-state .pt checkpoint this driver wrote")
+                        help="continue from a full-state .pt checkpoint this driver wrote, or "
+                             "a JAX pretrainer's .msgpack")
     parser.add_argument("--jsonl", default=None, metavar="PATH",
                         help="also append the logged rows to PATH as JSON lines")
     parser.add_argument("--log-grad-norm", action="store_true",

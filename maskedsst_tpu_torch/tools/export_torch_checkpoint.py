@@ -1,7 +1,12 @@
-"""Export a checkpoint of this package to a reference-loadable ``.pth``.
+"""Export a checkpoint of this package, or of the JAX package, to a
+reference-loadable ``.pth``.
 
     python -m maskedsst_tpu_torch.tools.export_torch_checkpoint --checkpoint RUN/X.pt
         --out exported.pth
+
+``--checkpoint`` may be a JAX run's ``.msgpack`` (full state or bare
+parameters, with the JAX trainers' ``.json`` sidecar), as
+``scripts/export_torch_checkpoint.py`` exports it.
 
 A pretraining checkpoint (``model_*.pt``: SimMIM, ``encoder.*`` keys) is
 written with the reference's SimMIM keys, which its finetuning (and
@@ -57,7 +62,8 @@ def export_checkpoint(path: str, out: str) -> int:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--checkpoint", required=True, help="a .pt checkpoint of this package")
+    ap.add_argument("--checkpoint", required=True,
+                    help="a .pt checkpoint of this package or a .msgpack of the JAX package")
     ap.add_argument("--out", required=True, help="the .pth to write")
     args = ap.parse_args(argv)
     print(f"wrote {args.out} ({export_checkpoint(args.checkpoint, args.out)} tensors)")

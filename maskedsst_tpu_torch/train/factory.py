@@ -98,9 +98,12 @@ def load_pretrained_params(path: str, config: Config, model: torch.nn.Module,
 
     ``.pth``: the reference format, through ``io/torch_import.py`` (for li
     a reference LiEtAl state dict, ``import_li_et_al``).
-    ``.pt``: this package's pretraining checkpoint; the ``encoder.*``
-    entries of its model, ``head_linear`` skipped, keys the model lacks
-    printed and skipped. Tensors come back on the CPU."""
+    ``.pt``: this package's pretraining checkpoint; ``.msgpack``: the JAX
+    package's (``maskedsst_tpu/train/factory.py:150-180``: a full state or
+    bare parameters, through ``io/flax_checkpoint.py``; for li the zoo's
+    converters). Both give the ``encoder.*`` entries of the model (all of
+    them where there is no encoder), ``head_linear`` skipped, keys the
+    model lacks printed and skipped. Tensors come back on the CPU."""
     if not os.path.exists(path):
         return None
     fresh = {k: v.detach().cpu().clone()
@@ -121,7 +124,7 @@ def load_pretrained_params(path: str, config: Config, model: torch.nn.Module,
 
     from maskedsst_tpu_torch.train.checkpoint import restore_params
 
-    params = restore_params(path)
+    params = restore_params(path, model=model)
     enc = {k[len("encoder."):]: v for k, v in params.items() if k.startswith("encoder.")} or params
     merged = dict(fresh)
     for key, val in enc.items():

@@ -384,7 +384,9 @@ class Finetuner:
         buffers), step and generator, then from the
         sidecar the plateau scheduler, ``best_val_acc`` and the last mean
         validation loss, which the next ``fit`` takes up once. Returns the
-        step."""
+        step. A JAX finetuner's ``.msgpack`` restores the same (Adam only;
+        the generator seeded from the file's JAX key,
+        ``io/flax_checkpoint.py``)."""
         restore_checkpoint(path, self.state)
         try:
             extra = load_metadata(path).get("extra", {})

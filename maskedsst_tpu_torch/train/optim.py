@@ -200,7 +200,11 @@ class CosineAnnealingLR:
         return {"epoch": self.epoch, "bases": list(self.bases)}
 
     def load_state_dict(self, state: dict) -> None:
-        self.epoch, self.bases = int(state["epoch"]), [float(b) for b in state["bases"]]
+        """``bases`` None (a JAX scheduler before its first epoch) keeps the
+        groups' rates at construction."""
+        self.epoch = int(state["epoch"])
+        if state.get("bases") is not None:
+            self.bases = [float(b) for b in state["bases"]]
 
 
 class MultiStepLR:

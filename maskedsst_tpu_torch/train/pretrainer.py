@@ -266,8 +266,10 @@ class Pretrainer:
     # --- checkpoints ----------------------------------------------------------
     def resume(self, path: str) -> int:
         """Restore the full train state (parameters, AdamW moments, step,
-        generator) from a checkpoint this trainer wrote, and the scheduler
-        from its sidecar; returns the step."""
+        generator) from a checkpoint this trainer wrote, or from the JAX
+        pretrainer's ``.msgpack`` (its generator seeded from the file's JAX
+        key, ``io/flax_checkpoint.py``), and the scheduler from its
+        sidecar; returns the step."""
         restore_checkpoint(path, self.state)
         try:
             sched = load_metadata(path).get("extra", {}).get("scheduler")

@@ -30,6 +30,7 @@ import maskedsst_tpu.config as jax_config_mod
 from maskedsst_tpu.config import get_finetune_config as jax_finetune_config
 from maskedsst_tpu.config import rederive_finetune_config as jax_rederive
 from maskedsst_tpu.config import verify_sweep_params as jax_verify
+from maskedsst_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
 from maskedsst_tpu.train.factory import build_finetune_model as jax_build
 from maskedsst_tpu_torch import config as config_mod
 from maskedsst_tpu_torch import finetune_sweep, inference_example
@@ -41,7 +42,7 @@ from maskedsst_tpu_torch.config import (
 )
 from maskedsst_tpu_torch.data import resolve
 from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
-from maskedsst_tpu_torch.io.flax_params import params_from_flax
+from maskedsst_tpu_torch.io.flax_params import flax_from_params, params_from_flax
 from maskedsst_tpu_torch.io.torch_import import export_vit_spatial_spectral
 from maskedsst_tpu_torch.train import factory
 from maskedsst_tpu_torch.train.checkpoint import save_checkpoint
@@ -208,16 +209,19 @@ def _capture_trainer(monkeypatch):
     return captured
 
 
-@pytest.mark.parametrize("fmt", ["pt", "pth"])
+@pytest.mark.parametrize("fmt", ["pt", "pth", "msgpack"])
 def test_sweep_loads_the_encoder(tmp_path, monkeypatch, capsys, fmt):
     """A checkpoint whose every tensor is 0.123 gives the encoder (and,
     from the reference format, the head's LayerNorm); the classification
-    head stays fresh."""
+    head stays fresh. ``msgpack``: bare params written by the JAX
+    package's ``save_checkpoint``."""
     cfg, model = _tiny_finetune_model()
     marked = {k: torch.full_like(v, 0.123) for k, v in model.state_dict().items()}
     path = str(tmp_path / f"marked.{fmt}")
     if fmt == "pt":
         save_checkpoint(path, marked)
+    elif fmt == "msgpack":
+        jax_save_checkpoint(path, flax_from_params(marked))
     else:
         sd = export_vit_spatial_spectral(marked, model)
         torch.save({"model_state_dict": {f"encoder.{k}": v for k, v in sd.items()}}, path)

@@ -12,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "maskedsst_tpu_torch"
-FORBIDDEN = ("jax", "flax", "maskedsst_tpu")
+FORBIDDEN = ("jax", "flax", "maskedsst_tpu", "optax", "msgpack")
 SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")) + [
     "chip_smoke.py", "tests/quiet_tracker.py"]
 

@@ -128,3 +128,23 @@ def test_stack_seeds_layer_i_with_base_plus_i():
     seeds = model.dropout_seeds(torch.Generator().manual_seed(3))
     assert len(seeds) == 3 and len(set(seeds)) == 3
     assert model.eval().dropout_seeds(None) == (0, 0, 0)
+
+
+def test_spectral_mlp_head_takes_precedence_over_pixelwise():
+    """With both ``spectral_mlp_head`` and ``pixelwise``, the per-pixel
+    spectral head wins (the reference's precedence, and the port's own
+    ``logits_shape``): the logits equal the ``spectral_mlp_head``-only
+    model's on the same state dict. The JAX model crashes on this input, so
+    the port is held to its own contract."""
+    geo = dict(image_size=8, spatial_patch_size=2, spectral_patch_size=10, num_classes=6,
+               dim=24, depth=1, heads=2, dim_head=8, mlp_dim=16, channels=40)
+    both = ViTSpatialSpectral(**geo, spectral_mlp_head=True, pixelwise=True).init_weights(0)
+    alone = ViTSpatialSpectral(**geo, spectral_mlp_head=True)
+    alone.load_state_dict(both.state_dict())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 40, 8, 8))
+                         .astype(np.float32))
+    with torch.inference_mode():
+        got, want = both.eval()(x), alone.eval()(x)
+    assert both.logits_shape == (6, 8, 8)
+    assert tuple(got.shape) == (2, *both.logits_shape)
+    assert torch.equal(got, want)

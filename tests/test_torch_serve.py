@@ -102,6 +102,32 @@ def test_bf16_model_serves_finite_float32_logits():
     assert out.shape == (3, 8, 8, 8) and out.dtype == np.float32 and np.isfinite(out).all()
 
 
+@pytest.mark.parametrize("n", [0, 1, 3, 10])
+def test_predictor_over_two_devices_equals_one(slice_models, n):
+    """Each padded batch of 6 split over two devices (``"cpu:0"`` is a
+    device of its own, so the second gets a copy of the model) gives the
+    bits of one device at batch 3, on ragged N (0, 1, k, 3k + 1), the
+    argmax postprocess too."""
+    _, _, model = slice_models
+    x = _cubes(n, 4)
+    two = Predictor(model, batch_size=6, devices=["cpu", "cpu:0"])
+    assert two.replicas[1] is not two.replicas[0] and two.per_device == 3
+    one = Predictor(model, batch_size=3, device="cpu")
+    got, want = two(x), one(x)
+    assert got.shape == want.shape == (n, 8, 8, 8) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    post = dict(postprocess=lambda t: t.argmax(1))
+    np.testing.assert_array_equal(Predictor(model, 6, devices=["cpu", "cpu"], **post)(x),
+                                  Predictor(model, 3, device="cpu", **post)(x))
+
+
+def test_predictor_batch_must_split_evenly_over_devices(slice_models):
+    _, _, model = slice_models
+    with pytest.raises(ValueError, match="not divisible by the 2 devices"):
+        Predictor(model, batch_size=5, devices=["cpu", "cpu"])
+    assert Predictor(model, batch_size=5, device="cpu").devices == [torch.device("cpu")]
+
+
 @pytest.mark.parametrize("method", ["li", "ViTRGB"])
 def test_unported_methods_raise(method):
     """Both methods the factory once refused now build and serve: li, the

@@ -35,7 +35,11 @@ from maskedsst_tpu.train.finetuner import Finetuner as JaxFinetuner
 from maskedsst_tpu.train.finetuner import make_head_label_fn as jax_head_label_fn
 from maskedsst_tpu.train.metrics import classification_report as jax_report
 from maskedsst_tpu_torch.config import get_finetune_config
-from maskedsst_tpu_torch.io.flax_params import zoo_flax_from_state, zoo_state_from_flax
+from maskedsst_tpu_torch.io.flax_params import (
+    zoo_flax_from_state,
+    zoo_flax_skeleton,
+    zoo_state_from_flax,
+)
 from maskedsst_tpu_torch.io.torch_import import (
     export_li_et_al,
     export_zoo,
@@ -233,6 +237,18 @@ def test_gradients_match_jax(name):
     if name in BN_NETS:
         stats = zoo_flax_from_state(dict(model.named_buffers()), variables)
         _close_per_tensor(_leaves(stats["batch_stats"]), _leaves(res["stats"]), 1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(PARITY))
+def test_flax_skeleton_nests_as_the_jax_variables(name):
+    """Without a JAX tree at hand (writing a ``.msgpack``), the net's own
+    ``flax_conv_wrappers`` nest its variables as the JAX net's init does."""
+    model, variables, _, _, _ = _case(name)
+    got = zoo_flax_from_state(model.state_dict(), zoo_flax_skeleton(model))
+    want = jax.tree_util.tree_flatten_with_path(variables)[0]
+    assert _leaves(got).keys() == {jax.tree_util.keystr(p) for p, _ in want}
+    for key, value in _leaves(variables).items():
+        np.testing.assert_array_equal(_leaves(got)[key], value)
 
 
 @pytest.mark.parametrize("name", sorted(PARITY))
