@@ -7,7 +7,8 @@ Run from the repo root on a machine with a CUDA card and nvcc:
 
 Phases:
   0. build: compiles every CUDA kernel (layer, embed and SimMIM decode,
-     forward and backward, the layer's weight gradients) from csrc/ with
+     forward and backward, the layer's weight gradients, the dropout
+     sample) from csrc/ with
      nvcc for sm_90a into build/kernels/ (one nvcc per source, in
      parallel);
   1. forward kernels vs plain: each forward kernel against its plain
@@ -234,7 +235,35 @@ Phases:
      the launches of #1 and #3 ("launches_multi_device"), cubes/s of both
      beside phase 2's; (d) liu and sharma with seeded BatchNorm statistics
      through HyperXTrainer.save / restore as .msgpack (params and
-     batch_stats): eval logits equal bit for bit.
+     batch_stats): eval logits equal bit for bit;
+ 13. tensor parallelism over attention heads (parallel/mesh.py's grid,
+     parallel/sharding_rules.py, ops/tp_layer.py, the tensor_parallel case
+     of tools/dist_worker.py), each run held against its one-process run
+     in this process: (a) tp = 2, dp = 1, two Gloo ranks sharing cuda:0 on
+     the EnMAP pretraining recipe at full width (batch 64), 3 steps in
+     bf16 at dropout 0.1 and in fp32 (TF32 off) at dropout 0: the whole
+     (replicated) leaves bit-equal on both ranks, each rank's launches at
+     every step (#1, #2, layer_wgrad 0; #3-#6 1; #7 32 at dropout 0.1,
+     four sites a layer), the loss and gradients of every fp32 step and the
+     first bf16 step within dp_hold_steps' limits of the one-process step
+     on the fused kernels (a bf16 leaf above TOL_STEP held by its distance
+     from the one-process fp32 step, phase 5's rule), the parameters too in
+     fp32 (printed in bf16), each rank's shards bit-equal to their slices
+     of every rank's gathered tensors, steps/s beside one process's and
+     phase 4's;
+     (b) a 2 x 2 grid of four Gloo ranks on cuda:0, 2 bf16 steps at
+     dropout 0 held as (a); (c) tp = 2 over NCCL where there are two cards
+     (else one line says why not); (d) kernel #7's strided form at the
+     attention site's local heads [1280, 4, 64, 64] and the GELU site's
+     columns [81920, 32]: bit for bit against its plain version and the
+     slice of dropout_mask, device ms beside its bound; (e) the gathered
+     state of (a) through .pt and .msgpack into one-process models: the
+     parameters bit for bit, the two eval losses equal; (f) a Pretrainer
+     and a Finetuner on a grid of model size 2 raise; (g) a li finetune
+     state (SGD momentum, head / rest groups) written as .msgpack after 2
+     steps and resumed on the card for 2 more: parameters, momentum
+     buffers, step and the float32 rates equal the 4-step control bit for
+     bit.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -1211,7 +1240,7 @@ def phase_pretrain(card: str):
               f"the card) on {card}", flush=True)
         del trainer
         torch.cuda.empty_cache()
-    return main_counts, seen[0]
+    return main_counts, seen[0], rates
 
 
 def states_equal(a, b) -> list:
@@ -2381,7 +2410,7 @@ def ranks_equal(ranks: list, name: str) -> bool:
 
 
 def dp_hold_steps(label: str, name: str, ranks: list, arrays: dict, one: tuple, dtype: str,
-                  lr_of) -> None:
+                  lr_of, same_launches: bool = True, ref32=None) -> None:
     """Case ``name`` of the ranks against its one-process run: each step's
     loss relative to |one| within TOL_LOSS, its metrics within TOL_METRIC
     and its launches equal; each gradient relative to its max |one| within
@@ -2390,18 +2419,28 @@ def dp_hold_steps(label: str, name: str, ranks: list, arrays: dict, one: tuple, 
     step either way: at most 2 x lr), at every step in fp32 and at the
     first in bf16. Later bf16 steps start from parameters that differ by
     that first step's roundings, which TOL_STEP was not set for: their
-    distances are printed."""
+    distances are printed. ``same_launches=False``: the ranks take another
+    route (the head-split layer), whose launches are checked apart.
+    ``ref32``, the one-process run of the same case in fp32, for a bf16
+    step on another route (the head-split layer's PyTorch products against
+    the kernels): a leaf above TOL_STEP is held instead by its distance from
+    that fp32 step, no further than NEARER_FP32 x the one-process bf16
+    step's (phase 5's rule: the L1's sign flips land whole in d
+    pos_embedding), and the parameters are printed, not held (Adam's first
+    step turns a gradient's bf16-level difference near zero into up to
+    2 x lr)."""
     scalars, ref = one
     for r, rank in enumerate(ranks):
         for k, (got, want) in enumerate(zip(rank[name]["steps"], scalars["steps"]), 1):
             rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
             metrics = {m: abs(got[m] - want[m]) for m in ("acc", "macro_acc") if m in want}
+            launches = not same_launches or got["launches"] == want["launches"]
             check(rel <= TOL_LOSS[dtype] and all(v <= TOL_METRIC[dtype] for v in metrics.values())
-                  and got["launches"] == want["launches"],
+                  and launches,
                   f"{label} rank {r} step {k}: loss {got['loss']:.8e} vs one process "
                   f"{want['loss']:.8e} (rel {rel:.3e} <= {TOL_LOSS[dtype]:.0e}), metrics "
-                  f"|d| {metrics} <= {TOL_METRIC[dtype]:.0e}, launches {got['launches']} == "
-                  "one process's")
+                  f"|d| {metrics} <= {TOL_METRIC[dtype]:.0e}"
+                  + (f", launches {got['launches']} == one process's" if same_launches else ""))
     steps = len(scalars["steps"])
     held = steps if dtype == "float32" else 1
     for k in range(1, steps + 1):
@@ -2422,7 +2461,22 @@ def dp_hold_steps(label: str, name: str, ranks: list, arrays: dict, one: tuple, 
         msg = (f"{label} step {k}: each of {len(errs)} gradients vs one process, worst {worst} "
                f"max|d|/max|ref| {errs[worst]:.3e}; parameters: {far} of {total} elements "
                f"beyond 1e-2 x lr, worst {worst_lr:.3e} x lr")
-        if k <= held:
+        if k <= held and ref32 is not None:
+            over = {n: e for n, e in errs.items() if e > TOL_STEP[dtype]}
+            for n, e in over.items():
+                w32 = ref32[1][f"{name}/grads{k}/{n}"]
+                scale = max(float(np.abs(w32).max()), 1e-30)
+                k32 = float(np.abs(arrays[f"{name}/grads{k}/{n}"] - w32).max()) / scale
+                p32 = max(float(np.abs(grads[n] - w32).max()) / scale, 1e-30)
+                check(k32 <= NEARER_FP32 * p32,
+                      f"{label} step {k}: {n} reads {e:.3e} vs one process (> "
+                      f"{TOL_STEP[dtype]:.1e}); from the fp32 one-process step it reads "
+                      f"{k32:.3e} <= {NEARER_FP32} x the bf16 one-process step's {p32:.3e}")
+            rest = max((e for n, e in errs.items() if n not in over), default=0.0)
+            check(rest <= TOL_STEP[dtype],
+                  f"{msg}; {len(errs) - len(over)} gradients <= {TOL_STEP[dtype]:.1e} (worst "
+                  f"{rest:.3e}), {len(over)} held by the fp32 step above; parameters printed")
+        elif k <= held:
             check(errs[worst] <= TOL_STEP[dtype] and far <= 5e-3 * total and worst_lr <= 2.0,
                   f"{msg} (<= {TOL_STEP[dtype]:.1e}, 0.5 %, 2)")
         else:
@@ -3531,6 +3585,322 @@ def phase_flax_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step:
     return out
 
 
+TP_KERNELS = ("fused_layer_fwd", "fused_layer_bwd", "layer_wgrad", "fused_embed_fwd",
+              "fused_embed_bwd", "fused_simmim_fwd", "fused_simmim_bwd", "dropout_sample")
+
+
+def tp_launches_want(depth: int, dropout: bool) -> dict:
+    """A head-split SimMIM step's launches on one rank: no layer kernel
+    (#1, #2, layer_wgrad), the embed and decode kernels once each, kernel
+    #7 four sites a layer at dropout > 0."""
+    return {"fused_layer_fwd": 0, "fused_layer_bwd": 0, "layer_wgrad": 0, "fused_embed_fwd": 1,
+            "fused_embed_bwd": 1, "fused_simmim_fwd": 1, "fused_simmim_bwd": 1,
+            "dropout_sample": 4 * 2 * depth if dropout else 0}
+
+
+def tp_ranks_hold(label: str, name: str, ranks: list, want: dict) -> None:
+    """The ranks of case ``name``: the whole (replicated) leaves bit-equal
+    on every rank after every step, the local shards across the data ranks
+    of one model index, and each rank's launches at every step ``want``."""
+    grids = [r[name]["grid"] for r in ranks]
+    steps = len(ranks[0][name]["steps"])
+    whole = all(len({r[name]["steps"][k]["whole_digest"] for r in ranks}) == 1
+                for k in range(steps))
+    local = all(len({r[name]["steps"][k][key] for r, g in zip(ranks, grids) if g[2] == m}) == 1
+                for k in range(steps) for m in range(grids[0][3])
+                for key in ("params_digest", "grads_digest"))
+    launches = [s["launches"] for r in ranks for s in r[name]["steps"]]
+    check(whole and local and all(got == want for got in launches),
+          f"{label}: grid {grids} (data, data size, model, model size; row-major); the whole "
+          f"leaves' parameters and gradients bit-equal on every rank after each of {steps} "
+          f"steps, the local shards across data ranks; each rank launched {want} at every "
+          "step" + ("" if all(got == want for got in launches) else f" (got {launches})"))
+
+
+def tp_shards_hold(label: str, name: str, spec_out: str, n_ranks: int, steps: int, heads: int,
+                   mlp: int) -> None:
+    """Each rank's local shard of every split weight bit-equal to the same
+    slice of every other rank's gathered tensor."""
+    from maskedsst_tpu_torch.parallel.sharding_rules import head_split, shard_index
+    from maskedsst_tpu_torch.tools import dist_worker
+
+    arrays = [dist_worker.load_arrays(spec_out, r) for r in range(n_ranks)]
+    bad, checked = [], 0
+    for r in range(n_ranks):
+        m = r % 2
+        split = head_split(heads, mlp, 2, m)
+        for key, local in arrays[r].items():
+            if not key.startswith(f"{name}/local{steps}/"):
+                continue
+            leaf_name = key.split("/", 2)[2]
+            idx = shard_index(".".join(leaf_name.split(".")[-3:]), split, 64)
+            idx = idx.numpy() if hasattr(idx, "numpy") else idx
+            for other in range(n_ranks):
+                whole = arrays[other][f"{name}/params{steps}/{leaf_name}"]
+                checked += 1
+                if not same_bits(whole[idx], local):
+                    bad.append((r, other, leaf_name))
+    check(checked > 0 and not bad,
+          f"{label}: {checked} local shards after step {steps}, each bit-equal to its slice of "
+          f"each rank's gathered tensor" + (f" (differ: {bad[:4]})" if bad else ""))
+
+
+def phase_tensor_parallel(card: str, pretrain_rate: float) -> dict:
+    """Phase 13, tensor parallelism over attention heads (parallel/mesh.py's
+    grid, parallel/sharding_rules.py, ops/tp_layer.py) through
+    tools/dist_worker.py's tensor_parallel case, each run held against its
+    one-process run (the fused kernels) in this process: (a) tp = 2 on the
+    card over Gloo, bf16 at dropout 0.1 and fp32 at dropout 0; (b) a 2 x 2
+    grid in bf16; (c) NCCL over two cards where there are two; (d) kernel
+    #7's strided form against its plain version; (e) the gathered state
+    through .pt and .msgpack; (f) the trainers' guard; (g) a li finetune
+    state through .msgpack resumed on the card."""
+    import torch
+
+    from maskedsst_tpu_torch.config import get_finetune_config, get_pretrain_config
+    from maskedsst_tpu_torch.data.device_store import DeviceTileStore
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+    from maskedsst_tpu_torch.io.flax_checkpoint import read_flax_checkpoint
+    from maskedsst_tpu_torch.ops import dropout_sample, fused_layer
+    from maskedsst_tpu_torch.parallel.mesh import DataWorld, Grid
+    from maskedsst_tpu_torch.tools import dist_worker
+    from maskedsst_tpu_torch.tools.kernel_check import dropout_sample_cost
+    from maskedsst_tpu_torch.train.checkpoint import restore_params, save_checkpoint
+    from maskedsst_tpu_torch.train.factory import build_finetune_model
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer, build_pretrain_model
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    out: dict = {"cases": []}
+    pcfg = get_pretrain_config(*PRE_CONFIGS, seed=SEED)
+    depth, heads, mlp = pcfg.transformer_depth, pcfg.transformer_n_heads, pcfg.transformer_mlp_dim
+    world1 = DataWorld(device=torch.device("cuda", 0))
+    try:
+        # --- (a) tp = 2, dp = 1: two ranks sharing the card over gloo ---------
+        pt, mp = os.path.join(tmp, "gathered.pt"), os.path.join(tmp, "gathered.msgpack")
+        base = dict(kind="tensor_parallel", configs=PRE_CONFIGS, tiles=TRAIN_BATCH,
+                    data_seed=SEED, model=2, arrays=True, all_ranks_arrays=True)
+        cases = [dict(base, name="tp_bf16", dtype="bfloat16", steps=3, set=dict(seed=SEED),
+                      timed=2, save=[pt, mp]),
+                 dict(base, name="tp_fp32", dtype="float32", steps=3,
+                      set=dict(seed=SEED, transformer_dropout=0.0))]
+        one = {c["name"]: dist_worker.run_case(dict(c, model=1, save=[], out=tmp), world1, {})
+               for c in cases}
+        # a bf16 case's one-process step in fp32 (same weights, masks, seeds)
+        ref32 = {c["name"]: dist_worker.run_case(dict(c, model=1, save=[], timed=0,
+                                                      dtype="float32", out=tmp), world1, {})
+                 for c in cases if c["dtype"] == "bfloat16"}
+        torch.cuda.empty_cache()
+        spec = dict(out=os.path.join(tmp, "tp2"), device="cuda", backend="gloo", cases=cases)
+        t0 = time.perf_counter()
+        results = dist_worker.launch(spec, 2, timeout_s=600)
+        ranks = [r["cases"] for r in results]
+        arrays = dist_worker.load_arrays(spec["out"])
+        print(f"     tensor-parallel tp = 2: 2 ranks over gloo on {[r['device'] for r in results]} "
+              f"ran {len(cases)} cases in {time.perf_counter() - t0:.1f} s (start-up included)",
+              flush=True)
+        for name, dtype, dropout in (("tp_bf16", "bfloat16", True),
+                                     ("tp_fp32", "float32", False)):
+            check(all(r[name]["round_trip"] for r in ranks),
+                  f"tensor-parallel {name}: gather_params of place_params is the one-process "
+                  "state bit for bit on both ranks")
+            tp_ranks_hold(f"tensor-parallel {name}", name, ranks, tp_launches_want(depth, dropout))
+            dp_hold_steps(f"tensor-parallel {name}", name, ranks, arrays, one[name], dtype,
+                          lambda n: pcfg.lr, same_launches=False, ref32=ref32.get(name))
+            tp_shards_hold(f"tensor-parallel {name}", name, spec["out"], 2, 3, heads, mlp)
+        out["launches"] = [{n: sum(s["launches"][n] for s in r["tp_bf16"]["steps"])
+                            for n in TP_KERNELS} for r in ranks]
+        out["rate_tp2"] = [r["tp_bf16"]["steps_per_s"] for r in ranks]
+        one_rate = one["tp_bf16"][0]["steps_per_s"]
+        for r, rate in enumerate(out["rate_tp2"]):
+            print(f"     tensor-parallel tp = 2 bf16 (dropout 0.1), rank {r} of 2 sharing the "
+                  f"card over gloo: {rate:.3f} steps/s of the global batch {TRAIN_BATCH} (4 of "
+                  f"8 heads and 32 of 64 MLP columns a rank; one process on the fused kernels "
+                  f"in this phase: {one_rate:.3f} steps/s; phase 4: {pretrain_rate:.3f} steps/s; "
+                  "2 steps, host clock, synchronized; two ranks on one card are not a scaling "
+                  f"figure) on {card}", flush=True)
+
+        # --- (e) the gathered state through .pt and .msgpack ------------------
+        gathered = {n[len("tp_bf16/params3/"):]: v for n, v in arrays.items()
+                    if n.startswith("tp_bf16/params3/")}
+        losses, same = {}, {}
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        img = torch.randn((TRAIN_BATCH, pcfg.n_bands, pcfg.image_size, pcfg.image_size),
+                          generator=gen, device="cuda")
+        for path in (pt, mp):
+            model = build_pretrain_model(pcfg, torch.bfloat16, "cuda")
+            model.load_state_dict(restore_params(path, "cuda", model), strict=True)
+            same[path] = all(same_bits(v.float().cpu().numpy(), gathered[k])
+                             for k, v in model.state_dict().items()) and (
+                model.state_dict().keys() == gathered.keys())
+            mask = model.sample_mask(TRAIN_BATCH, "cuda", torch.Generator().manual_seed(SEED))
+            with torch.no_grad():
+                losses[path] = float(model.eval()(img, bool_mask=mask))
+            del model
+        ext = {os.path.splitext(p)[1]: same[p] for p in same}
+        check(all(same.values()) and losses[pt] == losses[mp] and math.isfinite(losses[pt]),
+              f"tensor-parallel round trip: gather_params after (a) written as .pt and .msgpack, "
+              f"a one-process model restored from each holds the gathered parameters bit for bit "
+              f"{ext}, both give the eval loss {losses[pt]:.8e} == {losses[mp]:.8e}")
+
+        # --- (b) a 2 x 2 grid: four ranks sharing the card -----------------------
+        grid_case = dict(base, name="grid_bf16", dtype="bfloat16", steps=2, timed=2,
+                         set=dict(seed=SEED, transformer_dropout=0.0))
+        one_grid = dist_worker.run_case(dict(grid_case, model=1, out=tmp), world1, {})
+        grid32 = dist_worker.run_case(dict(grid_case, model=1, timed=0, dtype="float32",
+                                           out=tmp), world1, {})
+        torch.cuda.empty_cache()
+        spec = dict(out=os.path.join(tmp, "grid"), device="cuda", backend="gloo",
+                    cases=[grid_case])
+        t0 = time.perf_counter()
+        results = dist_worker.launch(spec, 4, timeout_s=600)
+        ranks4 = [r["cases"] for r in results]
+        print(f"     tensor-parallel 2 x 2: 4 ranks over gloo ran in "
+              f"{time.perf_counter() - t0:.1f} s (start-up included)", flush=True)
+        tp_ranks_hold("tensor-parallel 2 x 2 grid_bf16", "grid_bf16", ranks4,
+                      tp_launches_want(depth, False))
+        arrays4 = dist_worker.load_arrays(spec["out"])
+        dp_hold_steps("tensor-parallel 2 x 2 grid_bf16", "grid_bf16", ranks4, arrays4, one_grid,
+                      "bfloat16", lambda n: pcfg.lr, same_launches=False, ref32=grid32)
+        tp_shards_hold("tensor-parallel 2 x 2 grid_bf16", "grid_bf16", spec["out"], 4, 2, heads,
+                       mlp)
+        out["rate_grid"] = [r["grid_bf16"]["steps_per_s"] for r in ranks4]
+        print(f"     tensor-parallel 2 x 2 bf16 (dropout 0): {out['rate_grid'][0]:.3f} steps/s "
+              f"of the global batch {TRAIN_BATCH} on rank 0 (4 ranks sharing the card; one "
+              f"process: {one_grid[0]['steps_per_s']:.3f}; phase 4: {pretrain_rate:.3f}; 2 "
+              f"steps, host clock) on {card}", flush=True)
+
+        # --- (c) a second card ----------------------------------------------
+        if torch.cuda.device_count() >= 2:
+            nccl = dict(base, name="nccl", dtype="bfloat16", steps=2, arrays=False,
+                        all_ranks_arrays=False, set=dict(seed=SEED, transformer_dropout=0.0))
+            spec = dict(out=os.path.join(tmp, "nccl"), device="cuda", backend="nccl",
+                        cases=[nccl])
+            res = [r["cases"] for r in dist_worker.launch(spec, 2, timeout_s=300)]
+            tp_ranks_hold("tensor-parallel tp = 2 over nccl on 2 cards", "nccl", res,
+                          tp_launches_want(depth, False))
+            want = one_grid[0]["steps"]
+            check(all(abs(s["loss"] - w["loss"]) <= TOL_LOSS["bfloat16"] * abs(w["loss"])
+                      for s, w in zip(res[0]["nccl"]["steps"], want)),
+                  "tensor-parallel over nccl: the losses of 2 steps within TOL_LOSS of one "
+                  "process's")
+        else:
+            print(f"     tensor-parallel over nccl on two cards: not run, this machine has "
+                  f"{torch.cuda.device_count()} card (NCCL refuses two ranks on one card)",
+                  flush=True)
+
+        # --- (d) kernel #7's strided form ------------------------------------
+        s_sp = pcfg.image_size ** 2
+        rows_sp = TRAIN_BATCH * (pcfg.n_bands // pcfg.band_patch_size)
+        strided = (
+            ("strided_attention", fused_layer.SITE_ATTN, (rows_sp, heads, s_sp, s_sp),
+             (rows_sp, heads // 2, s_sp, s_sp), heads // 2 * s_sp * s_sp, heads * s_sp * s_sp),
+            ("strided_ff_mid", fused_layer.SITE_FF_MID, (rows_sp * s_sp, mlp),
+             (rows_sp * s_sp, mlp // 2), mlp // 2, mlp),
+        )
+        for label, site, full_shape, shape, base_idx, stride in strided:
+            o = torch.empty(shape, device="cuda")
+            before = dropout_sample.launches
+            got = dropout_sample.dropout_sample(o, 1064, site, 0.1, base_idx, stride).clone()
+            launched = dropout_sample.launches - before
+            width = o.numel() // shape[0]
+            plain = dropout_sample.dropout_sample_reference(o.numel(), 1064, site, 0.1, base_idx,
+                                                            "cuda", width, stride)
+            full = fused_layer.dropout_mask(full_shape, 1064, site, 0.1, "cuda").reshape(
+                shape[0], -1)[:, base_idx:base_idx + width]
+            exact = torch.equal(got.reshape(-1), plain) and torch.equal(
+                got.reshape(shape[0], -1), full)
+            ms = device_ms(lambda: dropout_sample._launch(o, 1064, site, 0.1, base_idx, stride),
+                           names=("dropout_sample",))
+            plain_ms = device_ms(lambda: dropout_sample.dropout_sample_reference(
+                o.numel(), 1064, site, 0.1, base_idx, "cuda", width, stride))
+            nbytes, flops = dropout_sample_cost(o.numel())
+            bms, by = bound_ms(nbytes, flops, "float32")
+            err = float((got.reshape(-1) - plain).abs().max())
+            out["cases"].append(dict(shape=label, dims=list(shape), dtype="float32",
+                                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                     bound_by=by, bytes=nbytes, base=base_idx,
+                                     row_stride=stride))
+            check(exact and launched == 1,
+                  f"dropout_sample {label} {list(shape)} (base {base_idx}, row stride {stride}): "
+                  f"the kernel equals its plain version and the slice of dropout_mask "
+                  f"{list(full_shape)} bit for bit; device ms {ms:.4f}, plain {plain_ms:.4f}, "
+                  f"bound {bms:.4f} ({by}), share of bound {bms / ms:.1%}")
+            del o, got, plain, full
+
+        # --- (f) the guard -----------------------------------------------------
+        grid2 = Grid(device=torch.device("cuda", 0), model_size=2)
+        refused = []
+        try:
+            Pretrainer(pcfg.copy(), dtype=torch.bfloat16, device="cuda", world=grid2)
+        except ValueError as exc:
+            refused.append("data parallelism only" in str(exc))
+        fcfg = get_finetune_config(*FINE_CONFIGS, seed=SEED)
+        model, kw = build_finetune_model(fcfg, dtype=torch.bfloat16, device="cuda")
+        try:
+            Finetuner(fcfg, model, world=grid2, **kw)
+        except ValueError as exc:
+            refused.append("data parallelism only" in str(exc))
+        check(refused == [True, True],
+              "tensor-parallel guard: a Pretrainer and a Finetuner on a grid of model size 2 "
+              "raise ValueError (data parallelism only)")
+        del model
+
+        # --- (g) a li finetune state through .msgpack, resumed on the card -----
+        lcfg = get_finetune_config(*FINE_CONFIGS, seed=SEED)
+        lcfg.method_name, lcfg.pixelwise, lcfg.patch_sub = "li", True, 1
+        lcfg.batch_size = TRAIN_BATCH
+        data = SyntheticCubeDataset(num_tiles=TRAIN_BATCH, n_bands=lcfg.n_bands,
+                                    n_classes=lcfg.n_classes, seed=SEED)
+        store = DeviceTileStore(data, "cuda")
+
+        def li_trainer():
+            m, k = build_finetune_model(lcfg, device="cuda")
+            return Finetuner(lcfg, m, tile_size=64, **k)
+
+        batches = [np.random.default_rng(60 + k).permutation(TRAIN_BATCH) for k in range(4)]
+        xys = [(k, 2 * k) for k in range(4)]
+        control, first = li_trainer(), li_trainer()
+        for k in range(4):
+            control.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k],
+                                   xy=xys[k])
+        for k in range(2):
+            first.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k],
+                                 xy=xys[k])
+        lpath = os.path.join(tmp, "li_at_step2.msgpack")
+        save_checkpoint(lpath, first.state, lcfg, extra={"epoch": 0, "step": 2})
+        opt_tree = read_flax_checkpoint(lpath)["opt_state"]
+        resumed = li_trainer()
+        at = resumed.resume(lpath)
+        for k in range(2, 4):
+            resumed.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k],
+                                   xy=xys[k])
+        # optax keeps a rate in float32: the resumed groups hold the rounded rates
+        diff = [d for d in states_equal(control.state, resumed.state)
+                if d not in ("rng", "optimizer param_groups")]
+        groups = [dict(g, params=None) for g in control.state.optimizer.state_dict()["param_groups"]]
+        for g in groups:
+            g["lr"] = float(np.float32(g["lr"]))
+        if groups != [dict(g, params=None)
+                      for g in resumed.state.optimizer.state_dict()["param_groups"]]:
+            diff.append("optimizer param_groups")
+        check(at == 2 and not diff and resumed.state.step == 4 and "inner_states" in opt_tree
+              and any("momentum_buffer" in v for v in resumed.state.optimizer.state.values()),
+              f"li .msgpack resume: 2 steps, the full state as .msgpack (optax SGD trace in "
+              f"head / rest groups), a new Finetuner resumed at step {at} for 2 more: "
+              f"parameters, SGD momentum buffers, step and rates equal the 4-step control bit "
+              f"for bit (the generator is seeded from the file's key, and the crops are given)"
+              + (f" (differ: {diff[:5]})" if diff else ""))
+        del control, first, resumed, store
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"     phase 13 wall time {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
@@ -3593,7 +3963,7 @@ def main() -> int:
                                    "classifier", phase_main, card)
     counts, per_step = timed("phase 3 training path: Finetuner over the EnMAP-DFC classifier",
                              phase_train, card)
-    pre_counts, per_step["pretrain"] = timed(
+    pre_counts, per_step["pretrain"], pre_rates = timed(
         "phase 4 pretraining path: SimMIM Pretrainer on the EnMAP pretrain recipe",
         phase_pretrain, card)
     (drop_launches, drop_model_paths, drop_cases, houston_counts,
@@ -3624,6 +3994,15 @@ def main() -> int:
                  "resumed, the encoder loaded, BatchNorm zoo nets; serving over several devices",
                  phase_flax_checkpoint, card, per_step["pretrain"], per_step["emb_dropout_0"],
                  serving_rates["bfloat16"])
+    tp = timed("phase 13 tensor parallelism: the head-split layer on 2 and 2 x 2 ranks over "
+               "gloo, kernel #7's strided form, the gathered state through .pt and .msgpack, "
+               "the trainers' guard, a li .msgpack resume", phase_tensor_parallel, card,
+               pre_rates["bfloat16"])
+    for r, got in enumerate(tp["launches"]):
+        for kname in ("fused_embed_fwd", "fused_embed_bwd", "fused_simmim_fwd",
+                      "fused_simmim_bwd", "dropout_sample"):
+            check(got[kname] > 0, f"phase 13 tensor-parallel path rank {r}: {kname} launched "
+                                  f"{got[kname]} times")
     for kname in ("fused_layer_fwd", "fused_layer_bwd", "layer_wgrad", "fused_embed_fwd",
                   "fused_embed_bwd", "fused_simmim_fwd", "fused_simmim_bwd"):
         check(flax["launches"][kname] > 0,
@@ -3682,6 +4061,7 @@ def main() -> int:
         entry["launches_zoo"] = zoo["launches"][entry["name"]]
         entry["launches_flax_checkpoint"] = flax["launches"][entry["name"]]
         entry["launches_multi_device"] = flax["multi_device"][entry["name"]]
+        entry["launches_tensor_parallel"] = [got[entry["name"]] for got in tp["launches"]]
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",
@@ -3690,10 +4070,11 @@ def main() -> int:
         launches_zoo=zoo["drop_launches"],
         launches_flax_checkpoint=flax["launches"]["dropout_sample"],
         launches_multi_device=flax["multi_device"]["dropout_sample"],
-        max_abs_err=max(c["max_abs_err"] for c in drop_cases),
+        launches_tensor_parallel=[got["dropout_sample"] for got in tp["launches"]],
+        max_abs_err=max(c["max_abs_err"] for c in drop_cases + tp["cases"]),
         ms=attn["ms"], plain_ms=attn["plain_ms"], bound_ms=attn["bound_ms"],
         bound_by=attn["bound_by"], library_ms=None, library_note=LIBRARY_NONE["dropout_sample"],
-        cases=drop_cases))
+        cases=drop_cases + tp["cases"]))
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
         for msg in failures:

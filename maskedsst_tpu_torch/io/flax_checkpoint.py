@@ -23,11 +23,28 @@ optax chain of the JAX trainers' recipes
   tree whose other group's leaves are empty dicts (optax's ``MaskedNode``);
   linear eval's ``rest`` holds no state.
 
-optax's ``count`` is torch's per-parameter ``step``, ``mu`` ``exp_avg``,
-``nu`` ``exp_avg_sq``, each group's ``hyperparams.learning_rate`` its
-``lr`` (optax keeps it in float32, so a port rate written and read back
-is rounded to float32). The zoo's other optimizers (SGD, Adagrad, Adadelta) are not mapped
-and raise ``NotImplementedError``.
+* the DeepHyperX recipes (``inject_hyperparams(chain(add_decayed_weights,
+  <optimizer>))``, hyperparameters ``learning_rate`` and ``wd``), in the
+  same groups: SGD keeps optax ``trace`` (with momentum; none without),
+  Adagrad ``sum_of_squares``, Adadelta ``e_g`` and ``e_x``.
+
+optax's ``count`` is torch's per-parameter ``step`` where torch keeps one
+(Adam, Adadelta), each group's ``hyperparams.learning_rate`` its ``lr``
+(optax keeps it in float32, so a port rate written and read back is
+rounded to float32), and the moments map by name:
+
+==========  =======================  ===============================
+optimizer   optax                    torch
+==========  =======================  ===============================
+Adam(W)     ``mu``, ``nu``           ``exp_avg``, ``exp_avg_sq``
+SGD         ``trace``                ``momentum_buffer``
+Adagrad     ``sum_of_squares``       ``sum`` (``train/optim.py``)
+Adadelta    ``e_g``, ``e_x``         ``square_avg``, ``acc_delta``
+==========  =======================  ===============================
+
+A zoo net's trees go through ``zoo_state_from_flax`` /
+``zoo_flax_from_state`` (its full state adds ``batch_stats`` where the net
+has BatchNorm statistics).
 
 A JAX key cannot become a torch generator's state: a resume seeds the
 trainer's generator from the key's two words (the same file always gives
@@ -99,22 +116,49 @@ def _inject_states(node) -> List[Mapping[str, Any]]:
     return [s for key in sorted(node) for s in _inject_states(node[key])]
 
 
-def _adam_state(inject: Mapping[str, Any]) -> Mapping[str, Any]:
-    inner = inject["inner_state"]
-    found = [v for v in (inner.values() if isinstance(inner, Mapping) else ())
-             if isinstance(v, Mapping) and {"count", "mu", "nu"} <= set(v)]
-    if len(found) != 1:
-        raise NotImplementedError(
-            "the optax state holds no Adam moments (mu, nu): only the Adam and AdamW recipes' "
-            "states map onto torch's")
-    return found[0]
+# torch state key ← optax moment key, per optimizer
+MOMENTS = {
+    "adam": {"exp_avg": "mu", "exp_avg_sq": "nu"},
+    "sgd": {"momentum_buffer": "trace"},
+    "adagrad": {"sum": "sum_of_squares"},
+    "adadelta": {"square_avg": "e_g", "acc_delta": "e_x"},
+}
+# where torch keeps a per-parameter step
+COUNTED = ("adam", "adadelta")
 
 
-def _check_adam(optimizer: torch.optim.Optimizer) -> None:
-    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
-        raise NotImplementedError(
-            f"the .msgpack optimizer state of a {type(optimizer).__name__} is not mapped: only "
-            "Adam (finetuning) and AdamW (pretraining) states are (ROADMAP.md)")
+def _kind(optimizer: torch.optim.Optimizer) -> str:
+    from maskedsst_tpu_torch.train.optim import Adagrad
+
+    for cls, kind in ((torch.optim.Adam, "adam"), (torch.optim.AdamW, "adam"),
+                      (torch.optim.SGD, "sgd"), (Adagrad, "adagrad"),
+                      (torch.optim.Adadelta, "adadelta")):
+        if type(optimizer) is cls:
+            return kind
+    raise NotImplementedError(
+        f"the .msgpack optimizer state of a {type(optimizer).__name__} is not mapped: Adam, "
+        "AdamW, SGD, Adagrad (train/optim.py) and Adadelta states are")
+
+
+def _moment_state(inject: Mapping[str, Any], kind: str) -> Optional[Mapping[str, Any]]:
+    """The optax state holding ``kind``'s moments in an inject state's
+    chain (None for SGD without momentum, which keeps none)."""
+    want = set(MOMENTS[kind].values())
+    found = []
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            if want <= set(node):
+                found.append(node)
+            else:
+                for v in node.values():
+                    walk(v)
+
+    walk(inject["inner_state"])
+    if len(found) > 1 or (not found and kind != "sgd"):
+        raise ValueError(f"the optax state holds {len(found)} {sorted(want)} states: not the "
+                         f"{kind} recipe's chain")
+    return found[0] if found else None
 
 
 def _param_names(model: torch.nn.Module) -> Dict[int, str]:
@@ -153,6 +197,14 @@ def _ravel(tensors: Mapping[str, torch.Tensor], model: torch.nn.Module) -> np.nd
     return torch.cat(parts).numpy()
 
 
+def _tree_to_named(tree, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A params-shaped optax tree (``{}`` at another group's leaves) → port
+    tensors by parameter name."""
+    if _is_zoo(model):
+        return zoo_state_from_flax({"params": tree})
+    return params_from_flax(tree)
+
+
 def optimizer_state_from_optax(tree: Mapping[str, Any], model: torch.nn.Module,
                                optimizer: torch.optim.Optimizer,
                                recipe: Optional[str] = None) -> Dict[str, Any]:
@@ -161,7 +213,7 @@ def optimizer_state_from_optax(tree: Mapping[str, Any], model: torch.nn.Module,
     ``tree``: moments, counts and each group's rate. ``recipe``:
     ``"pretrain"`` (flat moments) or ``"finetune"`` (moment trees); None
     tells them apart by the moments' form."""
-    _check_adam(optimizer)
+    kind = _kind(optimizer)
     injects = _inject_states(tree["opt_state"])
     template = optimizer.state_dict()
     groups = optimizer.param_groups
@@ -169,7 +221,9 @@ def optimizer_state_from_optax(tree: Mapping[str, Any], model: torch.nn.Module,
         raise ValueError(f"the optax state has {len(injects)} optimized group(s), the "
                          f"optimizer {len(groups)}: build the trainer with the config that "
                          "wrote the checkpoint")
-    flat = isinstance(_adam_state(injects[0])["mu"], (np.ndarray, torch.Tensor))
+    first = _moment_state(injects[0], kind)
+    flat = first is not None and isinstance(first[next(iter(MOMENTS[kind].values()))],
+                                            (np.ndarray, torch.Tensor))
     if recipe is not None:
         if recipe not in RECIPES:
             raise ValueError(f"unknown recipe {recipe!r}: {RECIPES}")
@@ -181,20 +235,23 @@ def optimizer_state_from_optax(tree: Mapping[str, Any], model: torch.nn.Module,
     state: Dict[int, Dict[str, torch.Tensor]] = {}
     param_groups = []
     for inject, group, saved in zip(injects, groups, template["param_groups"]):
-        adam = _adam_state(inject)
-        if flat:
-            mu, nu = _unravel(adam["mu"], model), _unravel(adam["nu"], model)
-        else:
-            mu, nu = params_from_flax(adam["mu"]), params_from_flax(adam["nu"])
+        held = _moment_state(inject, kind) or {}
+        moments = {key: _unravel(held[okey], model) if flat else _tree_to_named(held[okey], model)
+                   for key, okey in MOMENTS[kind].items() if okey in held}
         want = {names[id(p)] for p in group["params"]}
-        if not flat and set(mu) != want:
-            raise ValueError(f"the optax group's moments cover {sorted(set(mu) ^ want)[:4]} "
-                             "unlike the optimizer's group")
-        step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+        for key, got in moments.items():
+            if not flat and set(got) != want:
+                raise ValueError(f"the optax group's {key} covers {sorted(set(got) ^ want)[:4]} "
+                                 "unlike the optimizer's group")
+        count = held["count"] if kind == "adam" else inject["count"]
+        step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
         for p in group["params"]:
             name = names[id(p)]
-            state[index[id(p)]] = {"step": step.clone(), "exp_avg": mu[name],
-                                   "exp_avg_sq": nu[name]}
+            st = {key: got[name] for key, got in moments.items()}
+            if kind in COUNTED:
+                st["step"] = step.clone()
+            if st:
+                state[index[id(p)]] = st
         param_groups.append({**saved, "lr": float(np.asarray(inject["hyperparams"]
                                                              ["learning_rate"]))})
     return {"state": state, "param_groups": param_groups}
@@ -242,16 +299,26 @@ def scheduler_to_jax(sched: Optional[Mapping[str, Any]]) -> Optional[Dict[str, A
 
 # --- writing -------------------------------------------------------------------
 
-def _optax_group(inject_count: int, lr: float, wd: float, adam: Dict[str, Any],
-                 adam_at: int) -> Dict[str, Any]:
-    """One ``inject_hyperparams`` state around a three-link chain with the
-    Adam moments at ``adam_at``."""
-    chain = {str(i): {} for i in range(3)}
-    chain[str(adam_at)] = adam
-    return {"count": np.asarray(inject_count, np.int32),
+def _chain(kind: str, held: Dict[str, Any], adamw: bool) -> Dict[str, Any]:
+    """The recipe's chain state with the moments ``held`` at their link."""
+    if kind == "adam":  # adamw: (scale_by_adam, decay, lr); Adam L2: (decay, adam, lr)
+        chain = {str(i): {} for i in range(3)}
+        chain["0" if adamw else "1"] = held
+        return chain
+    # chain(add_decayed_weights, <optax optimizer>), the latter a chain itself
+    inner = {"sgd": {"0": held, "1": {}}, "adagrad": {"0": held, "1": {}},
+             "adadelta": {"0": {}, "1": held, "2": {}}}[kind]
+    return {"0": {}, "1": inner}
+
+
+def _optax_group(kind: str, count: int, lr: float, wd: float, held: Dict[str, Any],
+                 adamw: bool) -> Dict[str, Any]:
+    """One ``inject_hyperparams`` state around the recipe's chain."""
+    return {"count": np.asarray(count, np.int32),
             "hyperparams": {"learning_rate": np.asarray(lr, np.float32),
-                            "weight_decay": np.asarray(wd, np.float32)},
-            "hyperparams_states": {}, "inner_state": chain}
+                            "weight_decay" if kind == "adam" else "wd":
+                                np.asarray(wd, np.float32)},
+            "hyperparams_states": {}, "inner_state": _chain(kind, held, adamw)}
 
 
 def _moments(optimizer, p, key) -> torch.Tensor:
@@ -259,55 +326,64 @@ def _moments(optimizer, p, key) -> torch.Tensor:
     return st[key] if key in st else torch.zeros_like(p, dtype=torch.float32)
 
 
+def _masked(full: Mapping[str, Any], mine: Mapping[str, Any]) -> Dict[str, Any]:
+    """``full``'s nesting with ``mine``'s leaves, ``{}`` (optax's MaskedNode)
+    where ``mine`` has none."""
+    return {k: (_masked(v, mine.get(k, {})) if isinstance(v, Mapping) else mine.get(k, {}))
+            for k, v in full.items()}
+
+
 def optax_from_optimizer(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                         recipe: str, clip: bool = True) -> Dict[str, Any]:
+                         recipe: str, clip: bool = True, step: int = 0) -> Dict[str, Any]:
     """The optax state (as flax serializes it) of a port optimizer: the
     inverse of :func:`optimizer_state_from_optax`. ``clip``: the pretraining
-    chain starts with ``optax.clip`` (``clip_grad_norm``)."""
-    _check_adam(optimizer)
+    chain starts with ``optax.clip`` (``clip_grad_norm``); ``step``: the
+    count of an optimizer that keeps none (SGD, Adagrad)."""
+    kind = _kind(optimizer)
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}: {RECIPES}")
-    adam_at = 0 if isinstance(optimizer, torch.optim.AdamW) else 1
+    adamw = isinstance(optimizer, torch.optim.AdamW)
+    keys = MOMENTS[kind]
+    if kind == "sgd" and not all(g["momentum"] for g in optimizer.param_groups):
+        keys = {}  # optax sgd without momentum keeps no trace
 
     def count_of(group) -> int:
+        if kind not in COUNTED:
+            return step
         steps = [optimizer.state[p]["step"] for p in group["params"] if p in optimizer.state]
         return int(steps[0]) if steps else 0
 
     if recipe == "pretrain":
+        if kind != "adam":
+            raise NotImplementedError(f"the pretraining recipe's flat state of a {kind} "
+                                      "optimizer is not mapped")
         (group,) = optimizer.param_groups
         n = count_of(group)
         params = dict(model.named_parameters())
-        adam = {"count": np.asarray(n, np.int32),
-                "mu": _ravel({k: _moments(optimizer, p, "exp_avg") for k, p in params.items()},
-                             model),
-                "nu": _ravel({k: _moments(optimizer, p, "exp_avg_sq")
-                              for k, p in params.items()}, model)}
-        inject = _optax_group(n, group["lr"], group["weight_decay"], adam, adam_at)
+        held = {"count": np.asarray(n, np.int32),
+                **{okey: _ravel({k: _moments(optimizer, p, key) for k, p in params.items()},
+                                model) for key, okey in keys.items()}}
+        inject = _optax_group(kind, n, group["lr"], group["weight_decay"], held, adamw)
         return {"0": {}, "1": inject} if clip else inject
 
-    def masked_tree(group, key):
-        """The params tree with this group's moments, the other leaves {}
-        (optax's MaskedNode)."""
-        mine = {id(p) for p in group["params"]}
-        named = list(model.named_parameters())
-        tree = flax_from_params({n: _moments(optimizer, p, key) for n, p in named
-                                 if id(p) in mine})
-        for n, p in named:
-            if id(p) not in mine:
-                path, _ = flax_path(n, p.dim())
-                node = tree
-                for part in path[:-1]:
-                    node = node.setdefault(part, {})
-                node[path[-1]] = {}
-        return tree
+    def tree_of(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        if _is_zoo(model):
+            return zoo_flax_from_state(named, zoo_flax_skeleton(model))["params"]
+        return flax_from_params(named)
 
-    groups = optimizer.param_groups
+    named = list(model.named_parameters())
+    full = tree_of({n: p for n, p in named})
     injects = []
-    for group in groups:
+    for group in optimizer.param_groups:
         n = count_of(group)
-        adam = {"count": np.asarray(n, np.int32), "mu": masked_tree(group, "exp_avg"),
-                "nu": masked_tree(group, "exp_avg_sq")}
-        injects.append(_optax_group(n, group["lr"], group["weight_decay"], adam, adam_at))
+        mine = {id(p) for p in group["params"]}
+        held = {okey: _masked(full, tree_of({k: _moments(optimizer, p, key) for k, p in named
+                                             if id(p) in mine}))
+                for key, okey in keys.items()}
+        if kind == "adam":
+            held = {"count": np.asarray(n, np.int32), **held}
+        injects.append(_optax_group(kind, n, group["lr"], group["weight_decay"], held, adamw))
+    groups = optimizer.param_groups
     if len(groups) == 1 and all(id(p) in {id(q) for q in groups[0]["params"]}
                                 for p in model.parameters()):
         return injects[0]  # no groups: one inject state over the whole tree
@@ -332,14 +408,13 @@ def flax_tree_of(state_or_params, config: Optional[Any] = None) -> Dict[str, Any
     if hasattr(state_or_params, "optimizer"):
         state = state_or_params
         model = state.model
-        if _is_zoo(model):
-            raise NotImplementedError("a zoo net's full train state is not written as .msgpack "
-                                      "(its optimizer's state is not mapped)")
         recipe = "pretrain" if isinstance(model, (SimMIM, SimMIMSpatialSpectral)) else "finetune"
         clip = bool(config.get("clip_grad_norm")) if config is not None else True
-        return {"step": np.asarray(state.step, np.int32),
-                "params": flax_from_params(model.state_dict()),
-                "opt_state": optax_from_optimizer(model, state.optimizer, recipe, clip),
+        variables = (zoo_flax_from_state(model.state_dict(), zoo_flax_skeleton(model))
+                     if _is_zoo(model) else {"params": flax_from_params(model.state_dict())})
+        return {"step": np.asarray(state.step, np.int32), **variables,
+                "opt_state": optax_from_optimizer(model, state.optimizer, recipe, clip,
+                                                  state.step),
                 "rng": _key_words(state.rng)}
     if isinstance(state_or_params, torch.nn.Module):
         model = state_or_params
@@ -359,7 +434,8 @@ def write_flax_checkpoint(path: str, state_or_params, config: Optional[Any] = No
     ``state_or_params``: a ``TrainState`` (the full state: the pretraining
     recipe's layout for a SimMIM model, its clip from
     ``config.clip_grad_norm``, present without a config; else the
-    finetuning recipe's), a model (a zoo net as ``{"params",
+    finetuning recipe's, a zoo net's with its ``batch_stats`` where it has
+    BatchNorm statistics), a model (a zoo net as ``{"params",
     "batch_stats"}``, the HyperX layout; any other as ``{"params"}``) or a
     ``state_dict`` (``{"params"}``)."""
     from maskedsst_tpu_torch.train.checkpoint import write_files

@@ -9,7 +9,11 @@ Parameter layout mirrors the JAX package's flax modules name for name
 dtype of the fused ops (None = fp32).
 
 Every layer runs as one call of ``ops.fused_layer.fused_transformer_layer``
-and the fused embedding as one call of ``ops.fused_embed.fused_embed_mask``:
+(or, once ``parallel/sharding_rules.py::place_params`` has split its heads
+over a grid's model axis, of ``ops.tp_layer.tp_transformer_layer``, the
+head-split layer in PyTorch operations, as JAX's tensor parallelism runs
+on the unfused transformer) and the fused embedding as one call of
+``ops.fused_embed.fused_embed_mask``:
 the CUDA kernels for tensors on the card, their plain versions on the CPU,
 forward and backward. ``BlockwisePatchEmbedding.embed_pn`` is the same
 embedding in plain ops, for the route where embedding dropout is active.
@@ -31,6 +35,7 @@ from torch import nn
 
 from maskedsst_tpu_torch.ops.fused_embed import fused_embed_mask
 from maskedsst_tpu_torch.ops.fused_layer import LayerParams, fused_transformer_layer
+from maskedsst_tpu_torch.ops.tp_layer import tp_transformer_layer
 
 # torch nn.LayerNorm epsilon
 LN_EPS = 1e-5
@@ -101,13 +106,16 @@ class Attention(nn.Module):
 
 class TransformerBlock(nn.Module):
     """Pre-norm residual block x + Attn(LN(x)); x + FF(LN(x)), run as one
-    fused layer call."""
+    fused layer call, or as the head-split layer once placed (``tp``, an
+    ``ops.tp_layer.HeadSplit``: this process's heads and MLP columns, its
+    split weights holding only those)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
                  dropout: float = 0.0, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.heads, self.dim_head, self.dropout = heads, dim_head, dropout
         self.dtype = dtype
+        self.tp = None
         self.attn_norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, heads, dim_head)
         self.ff_norm = nn.LayerNorm(dim, eps=LN_EPS)
@@ -133,6 +141,10 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, seed: int = 0) -> torch.Tensor:
         """x [B, S, D] → [B, S, D]; ``seed`` drives dropout in training."""
+        if self.tp is not None:
+            return tp_transformer_layer(x, self.layer_params(), self.tp, self.dim_head,
+                                        self.dtype or torch.float32, self.dropout,
+                                        self.training, seed)
         return fused_transformer_layer(
             x, self.layer_params(), self.heads, self.dim_head,
             self.dtype or torch.float32, self.dropout, self.training, seed,

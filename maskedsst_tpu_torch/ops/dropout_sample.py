@@ -6,7 +6,11 @@ version.
 logical indices ``base, base + 1, ...`` of a site keyed by (seed, site):
 the masks the layer kernels apply (:func:`~maskedsst_tpu_torch.ops.
 fused_layer.dropout_mask` at ``base = 0``), counted by ``out``'s
-row-major index. A CPU tensor takes the plain version
+row-major index. With ``row_stride``, ``out`` is ``[rows, ...]``, each of
+its rows ``width`` elements, and receives the multipliers of ``base + r ·
+row_stride + c``: a slice of a site's tensor, as the head-split layer
+(``ops/tp_layer.py``) draws its local heads and columns; ``row_stride ==
+width`` is the contiguous form. A CPU tensor takes the plain version
 (:func:`dropout_sample_reference`, the int64 hash of
 ``ops/fused_layer.py``); a CUDA tensor launches ``csrc/dropout_sample.cu``,
 which calls the ``drop_mult`` of ``csrc/common.cuh`` that the layer kernels
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,35 +47,53 @@ launches = 0
 
 
 def dropout_sample(out: torch.Tensor, seed: int, site: int, rate: float,
-                   base: int = 0) -> torch.Tensor:
+                   base: int = 0, row_stride: Optional[int] = None) -> torch.Tensor:
     """Fills ``out`` (fp32, contiguous) with the site's multipliers at the
-    logical indices ``base + arange(out.numel())``; returns ``out``."""
+    logical indices ``base + arange(out.numel())``, or with ``row_stride``
+    at ``base + r · row_stride + c`` for row r of ``out.shape[0]`` and c
+    within it; returns ``out``."""
+    width, row_stride = _check(out, rate, base, row_stride)
     if out.device.type == "cpu":
-        _check(out, rate, base)
-        out.copy_(dropout_sample_reference(out.numel(), seed, site, rate, base).view(out.shape))
+        out.copy_(dropout_sample_reference(out.numel(), seed, site, rate, base, width=width,
+                                           row_stride=row_stride).view(out.shape))
         return out
-    return _launch(out, seed, site, rate, base)
+    return _launch(out, seed, site, rate, base, row_stride)
 
 
 def dropout_sample_reference(numel: int, seed: int, site: int, rate: float, base: int = 0,
-                             device=None) -> torch.Tensor:
-    """Plain version: fp32 [numel] multipliers of the indices base..base+numel-1."""
-    idx = torch.arange(numel, dtype=torch.int64, device=device) + base
-    keep = hash_bits(idx, seed, site) >= dropout_threshold(rate)
+                             device=None, width: Optional[int] = None,
+                             row_stride: Optional[int] = None) -> torch.Tensor:
+    """Plain version: fp32 [numel] multipliers of the indices base..base+numel-1,
+    or, with ``width`` and ``row_stride``, of ``base + r · row_stride + c``
+    for element ``r · width + c``."""
+    idx = torch.arange(numel, dtype=torch.int64, device=device)
+    if width is not None and row_stride is not None and row_stride != width:
+        idx = idx // width * row_stride + idx % width
+    keep = hash_bits(idx + base, seed, site) >= dropout_threshold(rate)
     return keep.to(torch.float32) * dropout_scale(rate)
 
 
-def _check(out: torch.Tensor, rate: float, base: int) -> None:
+def _check(out: torch.Tensor, rate: float, base: int,
+           row_stride: Optional[int] = None) -> Tuple[int, int]:
+    """Refuses what the kernel cannot take; returns (width, row_stride)."""
     if out.dtype != torch.float32:
         raise TypeError(f"{_KERNEL} writes fp32, got out {out.dtype}")
     if not out.is_contiguous():
         raise ValueError(f"{_KERNEL}: out must be contiguous")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    if not 0 <= base < 2**63 - out.numel():
-        raise ValueError(f"{_KERNEL}: base {base} out of the int64 index range")
     if out.numel() >= 2**31:
         raise ValueError(f"{_KERNEL}: {out.numel()} elements exceed one launch (2^31 - 1)")
+    rows = out.shape[0] if out.dim() and out.numel() else 1
+    width = out.numel() // rows
+    if row_stride is None:
+        row_stride = width
+    if row_stride < width:
+        raise ValueError(f"{_KERNEL}: row_stride {row_stride} < the row's {width} elements")
+    last = base + (rows - 1) * row_stride + width
+    if base < 0 or last >= 2**63:
+        raise ValueError(f"{_KERNEL}: base {base} out of the int64 index range")
+    return width, row_stride
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,22 +101,23 @@ def _bind():
     from maskedsst_tpu_torch.ops import _build
 
     lib = _build.load(_KERNEL)
-    return lib, _build.bind(lib, _KERNEL, n_pointers=1, n_ints=6, n_floats=1)
+    return lib, _build.bind(lib, _KERNEL, n_pointers=1, n_ints=9, n_floats=1)
 
 
-def _launch(out: torch.Tensor, seed: int, site: int, rate: float, base: int = 0) -> torch.Tensor:
+def _launch(out: torch.Tensor, seed: int, site: int, rate: float, base: int = 0,
+            row_stride: Optional[int] = None) -> torch.Tensor:
     global launches
     from maskedsst_tpu_torch.ops import _build
 
     if out.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: out must be a CUDA tensor, got {out.device}")
-    _check(out, rate, base)
+    width, row_stride = _check(out, rate, base, row_stride)
     lib, fn = _bind()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        code = fn(out.data_ptr(), out.numel(), _i32(base), _i32(base >> 32), _i32(seed),
-                  _i32(site), _i32(dropout_threshold(rate)), dropout_scale(rate),
-                  ctypes.c_void_p(stream))
+        code = fn(out.data_ptr(), out.numel(), max(width, 1), _i32(base), _i32(base >> 32),
+                  _i32(row_stride), _i32(row_stride >> 32), _i32(seed), _i32(site),
+                  _i32(dropout_threshold(rate)), dropout_scale(rate), ctypes.c_void_p(stream))
     _build.check(lib, _KERNEL, code)
     launches += 1
     return out

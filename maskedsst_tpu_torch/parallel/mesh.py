@@ -1,5 +1,6 @@
-"""Data parallelism across processes, the JAX package's ``parallel/mesh.py``
-on ``torch.distributed``.
+"""Data parallelism across processes, and the ``data × model`` grid of
+tensor parallelism: the JAX package's ``parallel/mesh.py`` on
+``torch.distributed``.
 
 The JAX package trains data-parallel over a 1-D ``data`` mesh: the batch
 sharded on axis 0, parameters and optimizer state replicated, and the
@@ -12,6 +13,16 @@ equal bit for bit.
 * ``DataWorld`` (rank, size, local rank, device, group) takes the place of
   ``get_mesh``. Without a process group it is rank 0 of 1, and every
   collective here is the identity.
+* ``Grid``, the counterpart of ``get_mesh(..., model_axis=T)``: ``data ×
+  model`` processes laid out row-major as JAX reshapes its devices (process
+  r has data index r // T and model index r % T). A ``Grid`` is the
+  ``DataWorld`` of its data axis (rank, size and group are the data
+  axis's), so every data-parallel call below works on it unchanged, plus
+  its model index, size and group; with model size 1 it is a
+  ``DataWorld``. ``make_grid`` builds one from a joined world and
+  ``initialize_multihost(model_axis=T)`` returns one.
+  ``parallel/sharding_rules.py`` splits a model's heads over its model
+  axis.
 * ``initialize_multihost`` joins the process group (``nccl`` on the card,
   ``gloo`` on the CPU, or ``gloo`` on the card when several processes share
   one: NCCL refuses two ranks on one card).
@@ -26,9 +37,10 @@ equal bit for bit.
 Not ported: ``data_axis_or_warn``, which exists only because GSPMD may
 gather a batch whose rows do not divide the data axis onto every chip;
 here each process always takes its own rows, and the trainers pad
-(finetuning) or raise (pretraining, streamed batches) instead. The GSPMD
+(finetuning) or raise (pretraining, streamed batches) instead. The batch
 shardings (``batch_sharding``, ``replicate``, ``shard_batch``) have no
-counterpart.
+counterpart: a process holds its own rows. The parameters' tensor-parallel
+shardings are ``parallel/sharding_rules.py``'s.
 """
 
 from __future__ import annotations
@@ -85,10 +97,63 @@ class DataWorld:
         return slice(self.rank * per, (self.rank + 1) * per)
 
 
+@dataclass(frozen=True)
+class Grid(DataWorld):
+    """This process's place in a ``data × model`` grid: the ``DataWorld``
+    of its data axis (``rank`` its data index of ``size``, ``group`` the
+    processes that share its model index), plus its ``model_rank`` of
+    ``model_size`` and the ``model_group`` of the processes that share its
+    data index (None when the model size is 1)."""
+
+    model_rank: int = 0
+    model_size: int = 1
+    model_group: Optional[Any] = None
+
+    @property
+    def global_rank(self) -> int:
+        """The process's rank in the whole group: data index · model size +
+        model index."""
+        return self.rank * self.model_size + self.model_rank
+
+
+def make_grid(world: DataWorld, model_axis: int = 1, data_axis: Optional[int] = None) -> Grid:
+    """The grid of ``data_axis × model_axis`` processes over a joined
+    ``world`` (its rank and size global), row-major as ``get_mesh``
+    reshapes its devices; ``data_axis`` defaults to the world size over
+    ``model_axis``, and their product must be the world size. Every
+    process of the world must call it (it creates the subgroups, on the
+    world's backend)."""
+    if model_axis < 1:
+        raise ValueError(f"model_axis must be >= 1, got {model_axis}")
+    if data_axis is None:
+        data_axis = world.size // model_axis
+    if data_axis * model_axis != world.size:
+        raise ValueError(f"data_axis={data_axis} * model_axis={model_axis} != the world size "
+                         f"{world.size}")
+    d, m = divmod(world.rank, model_axis)
+    data_group = model_group = None
+    if world.group is not None:
+        # every rank creates every group, in one order (torch.distributed's rule)
+        if data_axis > 1:
+            for mi in range(model_axis):
+                g = dist.new_group([di * model_axis + mi for di in range(data_axis)])
+                if mi == m:
+                    data_group = g
+        if model_axis > 1:
+            for di in range(data_axis):
+                g = dist.new_group([di * model_axis + mi for mi in range(model_axis)])
+                if di == d:
+                    model_group = g
+    return Grid(d, data_axis, world.local_rank, world.device, data_group, m, model_axis,
+                model_group)
+
+
 def initialize_multihost(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
                          process_id: Optional[int] = None, *, device: str = "cuda",
-                         backend: Optional[str] = None) -> DataWorld:
-    """Join the process group and return this process's ``DataWorld``.
+                         backend: Optional[str] = None, model_axis: int = 1) -> DataWorld:
+    """Join the process group and return this process's ``DataWorld``, or
+    with ``model_axis`` above 1 its ``Grid`` (``make_grid``: the data and
+    model subgroups on the group's backend).
 
     The rank, the world size and the rendezvous come from the arguments
     (``coordinator`` "host:port") or else from torchrun's environment
@@ -102,7 +167,8 @@ def initialize_multihost(coordinator: Optional[str] = None, num_processes: Optio
     of the group already joined."""
     dev_type = torch.device(device).type
     if dist.is_initialized():
-        return _joined_world(dev_type)
+        world = _joined_world(dev_type)
+        return make_grid(world, model_axis) if model_axis > 1 else world
     env = os.environ
     try:
         rank = process_id if process_id is not None else int(env["RANK"])
@@ -140,7 +206,7 @@ def initialize_multihost(coordinator: Optional[str] = None, num_processes: Optio
         if local_rank == 0:
             _build.build()
         dist.barrier()
-    return world
+    return make_grid(world, model_axis) if model_axis > 1 else world
 
 
 def add_multihost_args(parser) -> None:

@@ -31,6 +31,30 @@ null | "gloo" | "nccl", "threads": N | null, "inputs": NPZ | null,
   the store's index batches of the sizes ``store.batches``), validation
   over ``val_batch``-sized host batches (inputs ``val_img``,
   ``val_label``) or, with the store, over its tiles;
+- ``tensor_parallel``: the dp × tp SimMIM step (the JAX package's
+  ``_dryrun_tensor_parallel``): the pretraining model of ``configs`` (with
+  ``set``, in ``dtype``; weights from the inputs' ``params`` prefix,
+  "params/" by default, else seeded) placed on a ``model`` × (world /
+  ``model``) grid
+  (``parallel/sharding_rules.py``), AdamW with the elementwise clamp at
+  1.0, ``steps`` steps on global batches (the inputs ``{img}{k}``, or with
+  ``tiles`` = N the top-left ``image_size`` crops of N seeded synthetic
+  tiles, ``batch_size`` a step), masks from the inputs ``{mask}{k}`` or
+  drawn from the case's generator over the global batch, each data rank
+  taking its rows; ``timed`` more steps timed. Per step the launches of
+  all seven kernels (kernel #7's too), the
+  digests of this rank's local parameters, gradients and state, and of its
+  whole (replicated) leaves; with ``arrays`` the gathered gradients and
+  parameters, with ``all_ranks_arrays`` every rank's, plus its local
+  shards of the split weights; with ``record_masks`` the seed, site, shape,
+  index base, row stride and digest of every dropout mask the head-split
+  layers draw, with ``record_seeds`` the fused layers' seeds; with
+  ``save`` (paths) the gathered parameters written after the steps, by
+  ``train/checkpoint.py::save_checkpoint`` (``.pt`` or ``.msgpack``);
+- ``tp_logits``: the eval logits of a ``ViTSpatialSpectral(**vit)`` with
+  the inputs' ``params`` weights placed on a ``model`` × (world /
+  ``model``) grid, on the inputs' ``img`` (each data rank its rows), as the
+  array ``{name}/logits`` (the data ranks' rows together on rank 0);
 - ``pretrain_resume``: a ``fit`` of ``steps`` steps over ``tiles``
   synthetic tiles of seed ``data_seed`` (the control, writing a tracker
   JSONL) against a ``fit`` stopped at ``stop`` and a new ``Pretrainer``
@@ -385,7 +409,161 @@ def _pretrain_resume(case: dict, world: DataWorld, inputs) -> Tuple[dict, dict]:
     return got, {}
 
 
-CASES = {"pretrain": _pretrain, "finetune": _finetune, "pretrain_resume": _pretrain_resume}
+@contextlib.contextmanager
+def _recording_masks(masks: list):
+    """Collects what the head-split layers draw: each site's seed, site,
+    shape, base, row stride and the digest of its multipliers."""
+    from maskedsst_tpu_torch.ops import tp_layer
+
+    real = tp_layer.dropout_sample
+
+    def spy(out, seed, site, rate, base=0, row_stride=None):
+        got = real(out, seed, site, rate, base, row_stride)
+        masks.append({"seed": int(seed), "site": int(site), "shape": list(out.shape),
+                      "base": int(base), "row_stride": row_stride, "digest": digest([got])})
+        return got
+
+    tp_layer.dropout_sample = spy
+    try:
+        yield
+    finally:
+        tp_layer.dropout_sample = real
+
+
+def _all_counts() -> Dict[str, int]:
+    """``launch_counts`` and kernel #7's (the head-split layers' masks)."""
+    from maskedsst_tpu_torch.ops import dropout_sample
+
+    return {**launch_counts(), "dropout_sample": dropout_sample.launches}
+
+
+def _tensor_parallel(case: dict, world: DataWorld, inputs) -> Tuple[dict, dict]:
+    from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
+    from maskedsst_tpu_torch.parallel.mesh import all_reduce_grads_, make_grid, sum_across
+    from maskedsst_tpu_torch.parallel.sharding_rules import (
+        gather_params,
+        place_params,
+        split_axis,
+    )
+    from maskedsst_tpu_torch.train.optim import build_pretrain_optimizer, clamp_gradients_
+    from maskedsst_tpu_torch.train.pretrainer import build_pretrain_model
+    from maskedsst_tpu_torch.train.train_state import TrainState
+
+    cfg = _config(case, "pretrain")
+    grid = make_grid(world, case.get("model", 1))
+    model = build_pretrain_model(cfg, DTYPES[case.get("dtype", "float32")], world.device)
+    params = _params(inputs, case.get("params", "params/"))
+    if params:
+        model.load_state_dict(params, strict=True)
+    unplaced = {k: v.clone() for k, v in model.state_dict().items()}
+    place_params(model, grid)
+    back = gather_params(model, grid)
+    round_trip = back.keys() == unplaced.keys() and all(torch.equal(back[k], v)
+                                                        for k, v in unplaced.items())
+    optimizer = build_pretrain_optimizer(model, "AdamW", cfg.lr, cfg.weight_decay)
+    state = TrainState(model, optimizer, torch.Generator().manual_seed(int(cfg.seed)))
+    name, s, bs = case["name"], cfg.image_size, cfg.batch_size
+    tiles = None
+    if "tiles" in case:
+        data = SyntheticCubeDataset(num_tiles=case["tiles"], n_bands=cfg.n_bands, labeled=False,
+                                    seed=case.get("data_seed", 0))
+        tiles = torch.from_numpy(np.stack([data[i]["img"][:, :s, :s]
+                                           for i in range(case["tiles"])]))
+
+    def batch(k: int):
+        if tiles is None:
+            img = torch.from_numpy(inputs[f"{case.get('img', 'img')}{k}"])
+        else:
+            img = tiles[(torch.arange(bs) + (k - 1) * bs) % len(tiles)]
+        return img[grid.rows(bs)].to(world.device, torch.float32)
+
+    def step(k: int) -> torch.Tensor:
+        img = batch(k)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        mask = case.get("mask")
+        if mask is not None:
+            mask = torch.from_numpy(inputs[f"{mask}{k}"])[grid.rows(bs)].to(world.device)
+        else:
+            mask = model.sample_mask(img.shape[0], img.device, state.rng, grid.shard)
+        loss = model(img, rng=state.rng, bool_mask=mask, shard=grid.shard)
+        loss.backward()
+        all_reduce_grads_(model.parameters(), grid, 1.0 / grid.size)
+        clamp_gradients_(model.parameters(), 1.0)
+        state.apply_gradients()
+        return sum_across({"loss": loss.detach()}, grid)["loss"] / grid.size
+
+    scalars: Dict[str, Any] = {"steps": [], "round_trip": round_trip,
+                               "grid": [grid.rank, grid.size, grid.model_rank, grid.model_size]}
+    arrays: Dict[str, np.ndarray] = {}
+    masks: list = []
+    seeds: list = []
+    whole = [n for n, _ in model.named_parameters() if split_axis(n) is None]
+    with contextlib.ExitStack() as stack:
+        if case.get("record_masks"):
+            stack.enter_context(_recording_masks(masks))
+        if case.get("record_seeds"):
+            stack.enter_context(_recording_seeds(seeds))
+        for k in range(1, case["steps"] + 1):
+            before = _all_counts()
+            loss = step(k)
+            _sync(world.device)
+            after = _all_counts()
+            named = dict(model.named_parameters())
+            grads = {n: p.grad for n, p in named.items() if p.grad is not None}
+            scalars["steps"].append({
+                "loss": float(loss),
+                "launches": {n: after[n] - before[n] for n in after},
+                "params_digest": digest(model.state_dict().values()),
+                "grads_digest": digest(grads.values()),
+                "state_digest": state_digest(state),
+                "whole_digest": digest([*(named[n] for n in whole), *(grads[n] for n in whole)]),
+            })
+            if not case.get("arrays"):
+                continue
+            full = {"grads": gather_params(model, grid, grads), "params": gather_params(model, grid)}
+            if grid.global_rank == 0 or case.get("all_ranks_arrays"):
+                for kind, tensors in full.items():
+                    for n, t in tensors.items():
+                        arrays[f"{name}/{kind}{k}/{n}"] = t.float().cpu().numpy().copy()
+                if case.get("all_ranks_arrays"):
+                    for n, p in named.items():
+                        if split_axis(n) is not None:
+                            arrays[f"{name}/local{k}/{n}"] = p.detach().cpu().numpy().copy()
+    scalars["masks"], scalars["seeds"] = masks, seeds
+    if case.get("save"):  # the one-process state, as a tensor-parallel run saves it
+        from maskedsst_tpu_torch.train.checkpoint import save_checkpoint
+
+        whole_state = gather_params(model, grid)
+        for path in case["save"]:
+            save_checkpoint(path, whole_state, cfg)
+    if case.get("timed"):
+        scalars["steps_per_s"] = _timed(step, case["steps"], case["timed"], world.device)
+    return scalars, arrays
+
+
+def _tp_logits(case: dict, world: DataWorld, inputs) -> Tuple[dict, dict]:
+    from maskedsst_tpu_torch.models import ViTSpatialSpectral
+    from maskedsst_tpu_torch.parallel.mesh import make_grid
+    from maskedsst_tpu_torch.parallel.sharding_rules import place_params
+
+    grid = make_grid(world, case.get("model", 1))
+    model = ViTSpatialSpectral(**case["vit"]).to(world.device)
+    model.load_state_dict(_params(inputs, case.get("params", "params/")), strict=True)
+    place_params(model, grid).eval()
+    img = torch.from_numpy(inputs["img"])
+    with torch.no_grad():
+        logits = model(img[grid.rows(img.shape[0])].to(world.device))
+    if grid.group is not None:
+        parts = [torch.empty_like(logits) for _ in range(grid.size)]
+        torch.distributed.all_gather(parts, logits.contiguous(), group=grid.group)
+        logits = torch.cat(parts)
+    return {"grid": [grid.rank, grid.size, grid.model_rank, grid.model_size]}, {
+        f"{case['name']}/logits": logits.float().cpu().numpy()}
+
+
+CASES = {"pretrain": _pretrain, "finetune": _finetune, "pretrain_resume": _pretrain_resume,
+         "tensor_parallel": _tensor_parallel, "tp_logits": _tp_logits}
 
 
 def run_case(case: dict, world: DataWorld, inputs: Dict[str, np.ndarray]) -> Tuple[dict, dict]:

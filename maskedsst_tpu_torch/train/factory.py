@@ -18,6 +18,20 @@ from maskedsst_tpu_torch.models import ViTRGB, ViTSpatialSpectral
 from maskedsst_tpu_torch.models.zoo import LiEtAl, get_model as zoo_get_model
 
 
+def check_fused_mesh(world) -> None:
+    """The trainers run the fused layer kernels, which take data parallelism
+    only: a grid whose model axis is above 1 raises (JAX's
+    ``check_fused_mesh`` for ``fused=True``). The port has no unfused
+    trainer, so JAX's one accepted combination, ``fused=False`` with a model
+    axis (parameters left whole, the model axis idle), raises here too; a
+    head-split step is ``tools/dist_worker.py``'s ``tensor_parallel`` case."""
+    if getattr(world, "model_size", 1) > 1:
+        raise ValueError(
+            f"a grid with a model axis of {world.model_size} cannot train: the fused kernels "
+            "support data parallelism only. Use a pure data grid, or place the model "
+            "(parallel/sharding_rules.py) for the head-split layer outside the trainers.")
+
+
 def build_finetune_model(
     config: Config, dtype: Optional[torch.dtype] = None, device: str = "cuda"
 ) -> Tuple[Union[ViTSpatialSpectral, ViTRGB, LiEtAl], Dict[str, Any]]:

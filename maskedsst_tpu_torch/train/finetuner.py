@@ -76,6 +76,7 @@ from maskedsst_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from maskedsst_tpu_torch.train.factory import check_fused_mesh
 from maskedsst_tpu_torch.train.losses import cross_entropy_sums
 from maskedsst_tpu_torch.train.metrics import confusion_matrix, macro_from_cm, micro_from_counts
 from maskedsst_tpu_torch.train.optim import (
@@ -126,6 +127,7 @@ class Finetuner:
         class_weights=None,
     ):
         self.config = config
+        check_fused_mesh(world)
         self.model = model
         self.world = world or DataWorld()
         self.device = next(model.parameters()).device

@@ -65,6 +65,7 @@ from maskedsst_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from maskedsst_tpu_torch.train.factory import check_fused_mesh
 from maskedsst_tpu_torch.train.optim import (
     CosineAnnealingLR,
     build_pretrain_optimizer,
@@ -151,6 +152,7 @@ class Pretrainer:
                  tile_size: int = 64, device: str = "cuda",
                  world: Optional[DataWorld] = None):
         self.config = config
+        check_fused_mesh(world)
         self.world = world or DataWorld()
         if config.batch_size % self.world.size:
             raise ValueError(f"batch_size {config.batch_size} is not divisible by the world size "

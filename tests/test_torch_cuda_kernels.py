@@ -701,6 +701,29 @@ def test_dropout_sample_kernel_matches_plain_bitwise(cuda, shape, seed, site, ra
         assert torch.equal(got, fused_layer.dropout_mask(shape, seed, site, rate, cuda))
 
 
+@pytest.mark.parametrize("site,full_shape,shape,base,row_stride", [
+    # the head-split layer at batch 64, tp = 2: rank 1's four heads of the
+    # spatial attention site, rank 0's of the spectral one; rank 1's 32 of
+    # 64 GELU columns, an uneven 11 of 21
+    (fused_layer.SITE_ATTN, (1280, 8, 64, 64), (1280, 4, 64, 64), 4 * 64 * 64, 8 * 64 * 64),
+    (fused_layer.SITE_ATTN, (4096, 8, 20, 20), (4096, 4, 20, 20), 0, 8 * 20 * 20),
+    (fused_layer.SITE_FF_MID, (81920, 64), (81920, 32), 32, 64),
+    (fused_layer.SITE_FF_MID, (999, 21), (999, 11), 10, 21),
+])
+def test_dropout_sample_strided_kernel_matches_plain_bitwise(cuda, site, full_shape, shape, base,
+                                                             row_stride):
+    got = dropout_sample.dropout_sample(torch.empty(shape, device=cuda), 1064, site, 0.1, base,
+                                        row_stride)
+    torch.cuda.synchronize()
+    width = got.numel() // shape[0]
+    want = dropout_sample.dropout_sample_reference(got.numel(), 1064, site, 0.1, base, cuda,
+                                                   width, row_stride)
+    assert torch.equal(got.reshape(-1), want)
+    full = fused_layer.dropout_mask(full_shape, 1064, site, 0.1, cuda).reshape(shape[0], -1)
+    start = base
+    assert torch.equal(got.reshape(shape[0], -1), full[:, start:start + width])
+
+
 def test_dropout_sample_kernel_is_deterministic_and_counted(cuda):
     before = dropout_sample.launches
     a = dropout_sample.dropout_sample(torch.empty(4096, device=cuda), 9, 3, 0.25, 2**33)

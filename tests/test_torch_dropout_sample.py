@@ -148,3 +148,28 @@ def test_cpu_wrapper_takes_the_plain_version_and_refuses():
         dropout_sample._launch(torch.empty(8), 1, 1, 0.1)
     with pytest.raises(ValueError, match="int64 index range"):
         dropout_sample.dropout_sample(torch.empty(8), 1, 1, 0.1, -1)
+
+
+@pytest.mark.parametrize("site", ["attention_heads", "ff_mid_columns"])
+def test_strided_plain_version_is_the_slice_of_dropout_mask(site):
+    """The head-split layer's draws: the attention site's local heads [1, 3)
+    of [B, 4, S, S] (rows B, row stride 4·S², base 1·S²) and the GELU site's
+    columns [5, 12) of [B·S, 21] (row stride 21, base 5) equal those slices
+    of ``dropout_mask`` bit for bit; row_stride == width is the contiguous
+    form."""
+    seed, s = 1234, 6
+    if site == "attention_heads":
+        full = fused_layer.dropout_mask((3, 4, s, s), seed, fused_layer.SITE_ATTN, RATE)
+        want, out = full[:, 1:3], torch.empty(3, 2, s, s)
+        dropout_sample.dropout_sample(out, seed, fused_layer.SITE_ATTN, RATE, s * s, 4 * s * s)
+    else:
+        full = fused_layer.dropout_mask((3 * s, 21), seed, fused_layer.SITE_FF_MID, RATE)
+        want, out = full[:, 5:12], torch.empty(3 * s, 7)
+        dropout_sample.dropout_sample(out, seed, fused_layer.SITE_FF_MID, RATE, 5, 21)
+    assert torch.equal(out.view(torch.int32), want.contiguous().view(torch.int32))
+    same = torch.empty_like(full)
+    dropout_sample.dropout_sample(same, seed, 1 if site == "attention_heads" else 5, RATE, 0,
+                                  full.numel() // full.shape[0])
+    assert torch.equal(same, full)
+    with pytest.raises(ValueError, match="row_stride"):
+        dropout_sample.dropout_sample(torch.empty(4, 8), seed, 1, RATE, 0, 7)

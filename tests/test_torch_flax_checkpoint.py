@@ -44,7 +44,13 @@ from maskedsst_tpu_torch.config import get_finetune_config, get_pretrain_config
 from maskedsst_tpu_torch.hyperx.inference import predict_scene
 from maskedsst_tpu_torch.hyperx.training import HyperXTrainer
 from maskedsst_tpu_torch.io import flax_checkpoint, flax_msgpack
-from maskedsst_tpu_torch.io.flax_params import flax_from_params, params_from_flax
+from maskedsst_tpu_torch.io.flax_params import (
+    flax_from_params,
+    params_from_flax,
+    zoo_flax_from_state,
+    zoo_flax_skeleton,
+    zoo_state_from_flax,
+)
 from maskedsst_tpu_torch.models.zoo import get_model
 from maskedsst_tpu_torch.train.checkpoint import load_metadata, save_checkpoint
 from maskedsst_tpu_torch.train.factory import build_finetune_model, load_pretrained_params
@@ -237,7 +243,7 @@ def _adam_leaves(opt_state):
     injects = flax_checkpoint._inject_states(tree)
     out = []
     for inject in injects:
-        adam = flax_checkpoint._adam_state(inject)
+        adam = flax_checkpoint._moment_state(inject, "adam")
         out.append((adam["count"], adam["mu"], adam["nu"],
                     inject["hyperparams"]["learning_rate"]))
     return out
@@ -401,13 +407,135 @@ def test_cosine_scheduler_state_maps_group_bases(tmp_path):
         assert sched.epoch == 7 and sched.bases == want
 
 
-def test_zoo_optimizer_states_are_not_mapped(tmp_path):
-    cfg = _pretrain_cfg()
-    trainer = Pretrainer(cfg, tile_size=32, device="cpu")
-    trainer.state.optimizer = torch.optim.SGD(trainer.model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="SGD"):
-        flax_checkpoint.optimizer_state_from_optax({"opt_state": {}}, trainer.model,
-                                                   trainer.state.optimizer)
+# the DeepHyperX recipes (maskedsst_tpu/models/zoo.py): li's SGD, he's Adagrad,
+# mou's Adadelta, each over li's net in the finetuner's head / rest groups
+ZOO_RECIPES = {
+    "SGD": dict(name="SGD", learning_rate=0.01, weight_decay=0.0005, momentum=0.9),
+    "Adagrad": dict(name="Adagrad", learning_rate=0.01, weight_decay=0.01),
+    "Adadelta": dict(name="Adadelta", learning_rate=1.0, weight_decay=0.0),
+}
+# optax's moments by torch's name
+ZOO_MOMENTS = {"SGD": {"momentum_buffer": "trace"}, "Adagrad": {"sum": "sum_of_squares"},
+               "Adadelta": {"square_avg": "e_g", "acc_delta": "e_x"}}
+
+
+def _li_trainer(recipe):
+    cfg = _finetune_cfg("groups")
+    cfg.method_name, cfg.pixelwise = "li", True
+    model, kw = build_finetune_model(cfg, device="cpu")
+    kw["optimizer_override"] = dict(ZOO_RECIPES[recipe])
+    return cfg, Finetuner(cfg, model, tile_size=32, **kw)
+
+
+def _jax_zoo_tx(cfg, recipe):
+    opt = dict(ZOO_RECIPES[recipe])
+    return jax_optimizer(opt.pop("name"), opt.pop("learning_rate"), opt.pop("weight_decay"),
+                         head_lr=cfg.mlp_head_lr, head_label_fn=jax_head_label_fn("li"), **opt)
+
+
+def _zoo_tree(model):
+    return zoo_flax_from_state(model.state_dict(), zoo_flax_skeleton(model))["params"]
+
+
+def _zoo_named(tree):
+    return zoo_state_from_flax({"params": tree})
+
+
+def _zoo_port_step(trainer, grads):
+    g = _zoo_named(grads)
+    for name, p in trainer.model.named_parameters():
+        p.grad = g[name].clone()
+    trainer.state.apply_gradients()
+
+
+def _zoo_moments(opt_state, recipe):
+    """[(count, {torch key: tensors by name}, learning rate)] per optax group."""
+    tree = serialization.msgpack_restore(serialization.to_bytes(opt_state))
+    out = []
+    for inject in flax_checkpoint._inject_states(tree):
+        held = flax_checkpoint._moment_state(inject, recipe.lower())
+        out.append((inject["count"], {k: _zoo_named(held[v])
+                                      for k, v in ZOO_MOMENTS[recipe].items()},
+                    inject["hyperparams"]["learning_rate"]))
+    return out
+
+
+@pytest.mark.parametrize("recipe", sorted(ZOO_RECIPES))
+def test_zoo_optimizer_resume_from_a_jax_msgpack(tmp_path, recipe):
+    """Two optax updates of a zoo recipe over li's weights, saved by the JAX
+    package: the port's Finetuner resumes them with optax's moments (SGD
+    trace, Adagrad sum_of_squares, Adadelta e_g / e_x) and counts bit for
+    bit in both groups, the rates in float32, and its next update stays
+    within 1e-6 of max|param| and 1e-2·lr of optax's."""
+    cfg, trainer = _li_trainer(recipe)
+    params = _zoo_tree(trainer.model)
+    tx = _jax_zoo_tx(cfg, recipe)
+    grads = _grads(params, 7)
+    jparams, opt_state = _jax_run(params, tx, grads, 2)
+    path = tmp_path / "li_at_ep2.msgpack"
+    _jax_save(path, jparams, opt_state, 2, {"epoch": 2, "step": 2, "best_val_acc": 0.25},
+              cfg)
+
+    assert trainer.resume(str(path)) == 2
+    groups = trainer.state.optimizer.param_groups
+    want = _zoo_moments(opt_state, recipe)
+    assert len(groups) == len(want) == 2
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    for group, (count, moments, lr) in zip(groups, want):
+        assert group["lr"] == float(lr) and int(count) == 2
+        for p in group["params"]:
+            st = trainer.state.optimizer.state[p]
+            for key, by_name in moments.items():
+                assert torch.equal(st[key], by_name[names[id(p)]]), (names[id(p)], key)
+            if recipe == "Adadelta":
+                assert float(st["step"]) == 2
+    want_params = _zoo_named(jparams)
+    for name, p in trainer.model.named_parameters():
+        assert torch.equal(p.detach(), want_params[name]), name
+
+    _zoo_port_step(trainer, grads)
+    updates, _ = tx.update(grads, opt_state, jparams)
+    want = _zoo_named(optax.apply_updates(jparams, updates))
+    lr = ZOO_RECIPES[recipe]["learning_rate"]
+    for name, p in trainer.model.named_parameters():
+        err = float((p.detach() - want[name]).abs().max())
+        scale = float(want[name].abs().max())
+        assert err <= 1e-6 * max(scale, 1.0) and err <= 1e-2 * lr, (name, err, scale)
+
+
+def test_the_jax_package_restores_a_li_finetune_state(tmp_path):
+    """li's SGD recipe after two port updates, written as .msgpack: the JAX
+    package restores it into the JAX Finetuner's TrainState template (the
+    trees match key for key, every leaf equal), and the port resumes the
+    same state back bit for bit."""
+    cfg, trainer = _li_trainer("SGD")
+    params = _zoo_tree(trainer.model)
+    grads = _grads(params, 8)
+    for _ in range(2):
+        _zoo_port_step(trainer, grads)
+    path = tmp_path / "li_at_ep2.msgpack"
+    save_checkpoint(str(path), trainer.state, cfg, extra={"epoch": 2, "step": 2})
+    template = JaxTrainState.create(params, _jax_zoo_tx(cfg, "SGD"), jax.random.PRNGKey(0))
+    restored = jax_checkpoint.restore_checkpoint(str(path), template)
+    assert int(restored.step) == 2
+    written = flax_checkpoint.read_flax_checkpoint(str(path))
+    _assert_same_tree(
+        flax_msgpack.unpackb(serialization.to_bytes(
+            {"step": restored.step, "params": restored.params,
+             "opt_state": restored.opt_state, "rng": restored.rng})),
+        {k: written[k] for k in ("step", "params", "opt_state", "rng")}, ordered=False)
+    got = _zoo_named(restored.params)
+    for name, p in trainer.model.named_parameters():
+        assert torch.equal(got[name], p.detach()), name
+
+    _, back = _li_trainer("SGD")
+    back.resume(str(path))
+    a, b = trainer.state, back.state
+    assert a.step == b.step == 2
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+        assert torch.equal(a.optimizer.state[p]["momentum_buffer"],
+                           b.optimizer.state[q]["momentum_buffer"]), name
 
 
 # --- pretrained encoders and the HyperX nets -------------------------------------
