@@ -263,7 +263,27 @@ Phases:
      state (SGD momentum, head / rest groups) written as .msgpack after 2
      steps and resumed on the card for 2 more: parameters, momentum
      buffers, step and the float32 rates equal the 4-step control bit for
-     bit.
+     bit;
+  14. the trainers' superstep (train/superstep.py: steps_per_call store
+     steps as one CUDA graph, replayed once a chunk), each graphed run
+     held to the same run in single steps from one seed, bit for bit
+     (every parameter, AdamW moment and step, state.step, the generator,
+     every step's metrics), with each step's launches (a replay counted by
+     its capture) equal to eager's: (a) the EnMAP SimMIM pretraining
+     recipe in bf16 at batch 64, dropout 0.1, 1,024 train tiles of 64 x 64
+     in the store, 48 steps at k 16 (the first chunk eager, then a capture
+     and replays); (b) EnMAP-DFC finetuning in bf16 at batch 64,
+     embedding dropout 0.1, k 8, 3 epochs of 16 steps with the plateau
+     scheduler cutting the rates at every epoch end, so that each epoch
+     captures anew; (c) fp32 pretraining (the FMA forms) at k 4, two
+     chunks; (d) a k-16 run saved at step 24 as .pt and .msgpack and
+     resumed to 48 (the .pt against (a)'s run, the .msgpack against the
+     .pt's resume under the .msgpack's generator and float32 rates); (e)
+     eager single steps against graphed chunks in turns (eager, graph,
+     graph, eager) on EnMAP pretraining, Houston2018 pretraining and
+     EnMAP-DFC finetuning, windows of 16 steps: steps/s, device busy,
+     span and idle share (torch.profiler), the capture's time, its pool's
+     memory, the peak allocated memory of each route.
 
 Prints every check and measurement as it goes, the card's name and power
 limit, a JSON line of the kernels, and as its last line {"ok": true,
@@ -1263,22 +1283,42 @@ def states_equal(a, b) -> list:
     return diff
 
 
+def chunk_steps(before: dict, after: dict, out: dict, chunk: bool):
+    """One call's launches and metrics as per-step entries: a step's, or a
+    superstep chunk's (``train_chunk_idx``: [k] metric vectors) split into k
+    steps, its launches shared evenly (a remainder, which no chunk of equal
+    steps leaves, stays on its first step, where a per-step check sees it)."""
+    delta = {n: after[n] - before[n] for n in after}
+    if not chunk:
+        return [delta], [out]
+    k = next(iter(out.values())).shape[0]
+    steps = [{n: d // k for n, d in delta.items()} for _ in range(k)]
+    for n, d in delta.items():
+        steps[0][n] += d % k
+    return steps, [{name: v[i] for name, v in out.items()} for i in range(k)]
+
+
+def step_methods(name: str):
+    """(method, is a chunk) pairs to wrap for a step method ``name``: the
+    store path's single step goes with its superstep chunk."""
+    return [(name, False)] + ([("train_chunk_idx", True)] if name == "train_step_idx" else [])
+
+
 def counting_steps(trainer, name: str, seen: list):
-    """Wraps the trainer's step method ``name`` so that each call records
-    its launches (a synchronize after each step; the numbers are unchanged)."""
+    """Wraps the trainer's step method ``name`` (with ``train_step_idx`` its
+    chunk method too) so that each step records its launches (a synchronize
+    after each call; the numbers are unchanged)."""
     import torch
 
-    step = getattr(trainer, name)
+    for method, chunk in step_methods(name):
+        def counted(*args, _step=getattr(trainer, method), _chunk=chunk, **kwargs):
+            before = launch_counts()
+            out = _step(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen.extend(chunk_steps(before, launch_counts(), out, _chunk)[0])
+            return out
 
-    def counted(*args, **kwargs):
-        before = launch_counts()
-        out = step(*args, **kwargs)
-        torch.cuda.synchronize()
-        after = launch_counts()
-        seen.append({n: after[n] - before[n] for n in after})
-        return out
-
-    setattr(trainer, name, counted)
+        setattr(trainer, method, counted)
 
 
 def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict):
@@ -1487,20 +1527,21 @@ def phase_checkpoint(card: str, pretrain_per_step: dict, finetune_per_step: dict
 
 
 def recording_steps(trainer, name: str, seen: list, metrics: list):
-    """Wraps the trainer's step method ``name`` so that each call records
-    its launches (counted on the host as they are made) and its metrics,
-    with no synchronize: the trainer's own epoch timing stays as it is."""
-    step = getattr(trainer, name)
+    """Wraps the trainer's step method ``name`` (with ``train_step_idx`` its
+    chunk method too) so that each step records its launches (counted on
+    the host as they are made, a chunk's split by ``chunk_steps``) and its
+    metrics, with no synchronize: the trainer's own epoch timing stays as
+    it is."""
+    for method, chunk in step_methods(name):
+        def recorded(*args, _step=getattr(trainer, method), _chunk=chunk, **kwargs):
+            before = launch_counts()
+            out = _step(*args, **kwargs)
+            steps, outs = chunk_steps(before, launch_counts(), out, _chunk)
+            seen.extend(steps)
+            metrics.extend(outs)
+            return out
 
-    def recorded(*args, **kwargs):
-        before = launch_counts()
-        out = step(*args, **kwargs)
-        after = launch_counts()
-        seen.append({n: after[n] - before[n] for n in after})
-        metrics.append(out)
-        return out
-
-    setattr(trainer, name, recorded)
+        setattr(trainer, method, recorded)
 
 
 def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
@@ -2005,22 +2046,23 @@ def phase_tools(card: str):
 @contextlib.contextmanager
 def class_recording(cls, name: str, seen: list, metrics: list):
     """``recording_steps`` for every instance of ``cls``: the drivers make
-    their trainers themselves. Restores the method on exit."""
-    step = getattr(cls, name)
+    their trainers themselves. Restores the methods on exit."""
+    saved = {method: getattr(cls, method) for method, _ in step_methods(name)}
+    for method, chunk in step_methods(name):
+        def recorded(self, *args, _step=saved[method], _chunk=chunk, **kwargs):
+            before = launch_counts()
+            out = _step(self, *args, **kwargs)
+            steps, outs = chunk_steps(before, launch_counts(), out, _chunk)
+            seen.extend(steps)
+            metrics.extend(outs)
+            return out
 
-    def recorded(self, *args, **kwargs):
-        before = launch_counts()
-        out = step(self, *args, **kwargs)
-        after = launch_counts()
-        seen.append({n: after[n] - before[n] for n in after})
-        metrics.append(out)
-        return out
-
-    setattr(cls, name, recorded)
+        setattr(cls, method, recorded)
     try:
         yield
     finally:
-        setattr(cls, name, step)
+        for method, step in saved.items():
+            setattr(cls, method, step)
 
 
 class PerSampleReads:
@@ -3213,14 +3255,25 @@ def phase_zoo(card: str) -> dict:
 
         batches = [np.random.default_rng(40 + k).permutation(len(store))[:TRAIN_BATCH]
                    for k in range(10)]
+        process_flag = torch.backends.cudnn.deterministic
         control, repeat, first = li_trainer(), li_trainer(), li_trainer()
+        flags, update = [], control._update  # the flag each of control's steps ran with
+
+        def flagged(*args, **kw):
+            flags.append(torch.backends.cudnn.deterministic)
+            return update(*args, **kw)
+
+        control._update = flagged
         for k in range(10):
             control.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k])
             repeat.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k])
         diff = states_equal(control.state, repeat.state)
-        check(not diff and torch.backends.cudnn.deterministic,
+        check(not diff and flags == [True] * 10
+              and torch.backends.cudnn.deterministic == process_flag,
               "li determinism: 10 store steps repeated from the same seed equal bit for bit "
-              "(cuDNN's deterministic algorithms, selected by the Finetuner for a zoo net)"
+              f"(each step ran with cuDNN's deterministic algorithms: {flags.count(True)} of "
+              f"{len(flags)}, selected by the Finetuner for a zoo net's steps; the process's "
+              f"flag {torch.backends.cudnn.deterministic} as before them)"
               + (f" (differ: {diff[:5]})" if diff else ""))
         for k in range(5):
             first.train_step_idx(store.arrays["img"], store.arrays["label"], batches[k])
@@ -3901,6 +3954,301 @@ def phase_tensor_parallel(card: str, pretrain_rate: float) -> dict:
     return out
 
 
+class ArrayTiles:
+    """A map-style dataset over tiles made in one numpy call: ``img`` [N, C,
+    T, T] and, when given, ``label`` [N, T, T]."""
+
+    def __init__(self, img: np.ndarray, label=None):
+        self.img, self.label = img, label
+
+    def __len__(self) -> int:
+        return self.img.shape[0]
+
+    def __getitem__(self, i: int) -> dict:
+        sample = {"img": self.img[i]}
+        if self.label is not None:
+            sample["label"] = self.label[i]
+        return sample
+
+
+def superstep_tiles(n: int, bands: int, labeled: bool, n_classes: int = 8, tile: int = 64,
+                    seed: int = SEED) -> ArrayTiles:
+    """n seeded tiles: 64 normal draws, tile i the (i mod 64)-th plus i / n,
+    so that no two are alike (drawing all n took 30 s on the card's host)."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((64, bands, tile, tile), dtype=np.float32)
+    img = np.empty((n, bands, tile, tile), np.float32)
+    for i in range(n):
+        np.add(base[i % 64], np.float32(i / n), out=img[i])
+    return ArrayTiles(img, rng.integers(-1, n_classes, (n, tile, tile)) if labeled else None)
+
+
+# the eager per-step launches of the recipe's bf16 training step (depth 4 +
+# 4): the layer forward, row kernel and layer_wgrad once per layer, the
+# embed and SimMIM kernels once
+PRETRAIN_STEP = {"fused_layer_fwd": 8, "fused_layer_bwd": 8, "layer_wgrad": 8,
+                 "fused_embed_fwd": 1, "fused_embed_bwd": 1, "fused_simmim_fwd": 1,
+                 "fused_simmim_bwd": 1}
+
+
+def phase_superstep(card: str, per_step: dict) -> dict:
+    """Phase 14, the trainers' superstep (train/superstep.py): k store-path
+    steps a host dispatch as one CUDA graph, held to k single steps from
+    one seed: (a) the EnMAP SimMIM pretraining recipe (bf16, batch 64,
+    dropout 0.1), 48 steps at steps_per_call 16 against 48 single steps;
+    (b) EnMAP-DFC finetuning (bf16, batch 64, embedding dropout 0.1) at k
+    8 with a plateau cut of the rate at every epoch end, so every epoch
+    captures anew; (c) fp32 pretraining at k 4, two chunks; (d) a k-16 run
+    saved at step 24 as .pt and .msgpack and resumed to 48; (e) eager
+    against graphed steps in turns on three workloads: steps/s, device
+    busy, span and idle share, capture time, the graph pool's memory."""
+    import torch
+
+    from maskedsst_tpu_torch.config import get_finetune_config, get_pretrain_config
+    from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
+    from maskedsst_tpu_torch.data.pipeline import split_dataset
+    from maskedsst_tpu_torch.tools import bench_geometries
+    from maskedsst_tpu_torch.train.checkpoint import save_checkpoint
+    from maskedsst_tpu_torch.train.factory import build_finetune_model
+    from maskedsst_tpu_torch.train.finetuner import Finetuner
+    from maskedsst_tpu_torch.train.optim import get_learning_rates, set_learning_rates
+    from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+    from maskedsst_tpu_torch.utils.profiling import parse_device_trace, trace
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_superstep_")
+    out: dict = {"launches": {}}
+    try:
+        # 1138 tiles, train_fraction 0.9: 1024 train tiles, 16 steps an epoch
+        t0 = time.perf_counter()
+        pcfg = get_pretrain_config(*PRE_CONFIGS, seed=SEED)
+        pcfg.skip_val = True
+        pdata = superstep_tiles(1138, pcfg.n_bands, labeled=False)
+        fcfg = get_finetune_config(*FINE_CONFIGS, seed=SEED)
+        fcfg.batch_size = fcfg.val_batch_size = TRAIN_BATCH
+        ftrain = superstep_tiles(16 * TRAIN_BATCH, fcfg.n_bands, True, fcfg.n_classes, seed=1)
+        fval = superstep_tiles(TRAIN_BATCH, fcfg.n_bands, True, fcfg.n_classes, seed=2)
+        print(f"     phase 14 tiles made in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        def single(trainer):
+            """The trainer's fit in single steps: built for chunks of k (its
+            optimizer capturable, as the graph route builds it), run at 1."""
+            trainer.steps_per_call = 1
+            return trainer
+
+        def pretrainer(k, dtype=torch.bfloat16):
+            cfg = pcfg.copy()
+            cfg.steps_per_call = k
+            return Pretrainer(cfg, dtype=dtype, device="cuda")
+
+        def fit(trainer, label, max_steps, *data, **kw):
+            seen, metrics = [], []
+            recording_steps(trainer, "train_step_idx", seen, metrics)
+            reset_counts()
+            trainer.fit(*data, epochs=kw.pop("epochs", 10), max_steps=max_steps,
+                        tracker=QuietTracker(kw.pop("run", None)),
+                        save_checkpoints=kw.pop("save", False), models_dir=tmp, **kw)
+            torch.cuda.synchronize()
+            out["launches"][label] = launch_counts()
+            return seen, metrics
+
+        def held(label, graphed, eager, seen_g, seen_e, met_g, met_e, want, names=("loss",)):
+            diff = states_equal(graphed.state, eager.state)
+            same = {n: torch.equal(torch.stack([m[n] for m in met_g]),
+                                   torch.stack([m[n] for m in met_e])) for n in names}
+            sup = graphed.superstep
+            check(graphed.route.graph and sup.replays > 0 and not diff and all(same.values())
+                  and len(met_g) == len(met_e),
+                  f"superstep {label}: {len(met_g)} steps by {sup.replays} graph replays "
+                  f"({len(sup.captures)} captures) == {len(met_e)} single steps bit for bit: "
+                  f"per-step {', '.join(names)} {same}, every parameter, AdamW moment and "
+                  f"step, state.step, the generator (differ: {diff[:6] or 'none'}); route: "
+                  f"{graphed.route.reason}")
+            check(len(seen_g) == len(met_g) and all(c == want for c in seen_g)
+                  and all(c == want for c in seen_e),
+                  f"superstep {label}: launches at every step, replays counted by their "
+                  f"captures, == eager's {want} (first graphed step {seen_g[:1]})")
+
+        # --- (a) the EnMAP SimMIM pretraining recipe, k 16 vs 1 ---------------
+        t0 = time.perf_counter()
+        want = per_step["pretrain"]
+        check(want == PRETRAIN_STEP, f"superstep: phase 4's eager launches per step {want} == "
+                                     f"{PRETRAIN_STEP}")
+        graphed, eager = pretrainer(16), single(pretrainer(16))
+        sg, mg = fit(graphed, "pretrain_k16", 48, pdata)
+        se, me = fit(eager, "pretrain_k1", 48, pdata)
+        held("(a) EnMAP pretraining bf16 k 16", graphed, eager, sg, se, mg, me, want)
+        out["pretrain_captures"] = graphed.superstep.captures
+        control = graphed
+        del eager
+        print(f"     phase 14 (a) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # --- (b) EnMAP-DFC finetuning, k 8 vs 1, a rate cut every epoch -------
+        t0 = time.perf_counter()
+
+        def finetuner(k):
+            cfg = fcfg.copy()
+            cfg.steps_per_call = k
+            model, kw = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
+            trainer = Finetuner(cfg, model, tile_size=64, **kw)
+            # every epoch end cuts the rates: no loss can beat a best of -1
+            trainer.scheduler.patience, trainer.scheduler.best = 0, -1.0
+            return trainer
+
+        fg, fe = finetuner(8), single(finetuner(8))
+        lr0 = get_learning_rates(fg.state.optimizer)
+        sfg, mfg = fit(fg, "finetune_k8", 48, ftrain, fval, epochs=3)
+        sfe, mfe = fit(fe, "finetune_k1", 48, ftrain, fval, epochs=3)
+        rates = [c["k"] for c in fg.superstep.captures]
+        check(len(fg.superstep.captures) == 3 and get_learning_rates(fg.state.optimizer) != lr0,
+              f"superstep (b): the plateau scheduler cut the rates at every epoch end ({lr0} -> "
+              f"{get_learning_rates(fg.state.optimizer)}): {len(rates)} captures of k {rates}, "
+              "one an epoch")
+        held("(b) EnMAP-DFC finetuning bf16 k 8, the rates cut", fg, fe, sfg, sfe, mfg, mfe,
+             per_step["recipe"], names=("loss", "acc", "macro_acc"))
+        out["finetune_captures"] = fg.superstep.captures
+        del fg, fe
+        print(f"     phase 14 (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # --- (c) fp32 pretraining, k 4, two chunks ----------------------------
+        t0 = time.perf_counter()
+        graphed32, eager32 = pretrainer(4, None), single(pretrainer(4, None))
+        sg, mg = fit(graphed32, "pretrain_fp32_k4", 8, pdata)
+        se, me = fit(eager32, "pretrain_fp32_k1", 8, pdata)
+        held("(c) EnMAP pretraining fp32 k 4", graphed32, eager32, sg, se, mg, me, se[0])
+        del graphed32, eager32
+        print(f"     phase 14 (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # --- (d) a k-16 run saved at step 24, resumed to 48 --------------------
+        t0 = time.perf_counter()
+        cut = pretrainer(16)
+        fit(cut, "pretrain_cut", 24, pdata, run="cut", save=True)
+        pt = os.path.join(tmp, "cut", f"model_{pcfg.encoder_name}_at_step24.pt")
+        mp = os.path.join(tmp, "cut_at_step24.msgpack")
+        save_checkpoint(mp, cut.state, cut.config, extra={"epoch": 1, **cut._scheduler_extra()})
+        del cut
+        from_pt, from_mp, pt_as_mp = pretrainer(16), pretrainer(16), pretrainer(16)
+        at = [from_pt.resume(pt), from_mp.resume(mp), pt_as_mp.resume(pt)]
+        # a .msgpack holds a JAX key and float32 rates: the .pt-resumed twin
+        # takes the generator and rates the .msgpack gave
+        pt_as_mp.state.rng.set_state(from_mp.state.rng.get_state())
+        set_learning_rates(pt_as_mp.state.optimizer, get_learning_rates(from_mp.state.optimizer))
+        for label, trainer in (("from_pt", from_pt), ("from_msgpack", from_mp),
+                               ("pt_as_msgpack", pt_as_mp)):
+            fit(trainer, f"resume_{label}", 48, pdata)
+        d_pt = states_equal(control.state, from_pt.state)
+        d_mp = states_equal(pt_as_mp.state, from_mp.state)
+        check(at == [24, 24, 24] and not d_pt and not d_mp,
+              f"superstep (d): a k-16 run saved at step 24 (.pt and .msgpack) and resumed to "
+              f"48: from the .pt == the uninterrupted k-16 run of (a) bit for bit (differ: "
+              f"{d_pt[:6] or 'none'}); from the .msgpack == the .pt's resume under the "
+              f".msgpack's generator and float32 rates (differ: {d_mp[:6] or 'none'})")
+        del from_pt, from_mp, pt_as_mp, control
+        torch.cuda.empty_cache()
+        print(f"     phase 14 (d) took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # --- (e) eager against graphed steps, in turns --------------------------
+        t0 = time.perf_counter()
+        out["rates"] = {}
+
+        def profiled(fn, steps):
+            with trace() as info:
+                fn()
+            tr = parse_device_trace(info["events"])
+            if tr is None or tr.busy_ms <= 0:
+                return {"wall_ms": info["wall_s"] * 1e3 / steps}
+            return {"wall_ms": info["wall_s"] * 1e3 / steps, "busy_ms": tr.busy_ms / steps,
+                    "span_ms": tr.span_ms / steps, "idle_share": tr.idle_share,
+                    "overcounted": tr.overcounted}
+
+        def rates_of(name, trainer, single, chunk, batches, k):
+            """Windows of len(batches) steps: eager (single steps), graphed
+            (chunks of k), graphed, eager; each from its first call to a
+            synchronize after its last."""
+            n = len(batches)
+
+            def eager_window():
+                for b in batches:
+                    single(b)
+
+            def graph_window():
+                for i in range(0, n, k):
+                    chunk(batches[i : i + k])
+
+            graph_window()  # the first chunk runs eagerly, the second is captured
+            graph_window()
+            eager_window()
+            torch.cuda.synchronize()
+            walls = {"eager": [], "graph": []}
+            peak = {}
+            for route in ("eager", "graph", "graph", "eager"):
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                (eager_window if route == "eager" else graph_window)()
+                torch.cuda.synchronize()
+                walls[route].append(time.perf_counter() - t)
+                peak[route] = max(peak.get(route, 0), torch.cuda.max_memory_allocated())
+            rec = {"steps_per_s": {r: n * len(w) / sum(w) for r, w in walls.items()},
+                   "window_steps_per_s": {r: [n / x for x in w] for r, w in walls.items()},
+                   "eager": profiled(eager_window, n), "graph": profiled(graph_window, n),
+                   "peak_allocated_mib": {r: v / 2**20 for r, v in peak.items()},
+                   "reserved_mib": torch.cuda.memory_reserved() / 2**20,
+                   "captures": trainer.superstep.captures, "k": k, "steps": n}
+            cap = rec["captures"][-1]
+            out["rates"][name] = rec
+
+            def dev(r):
+                p = rec[r]
+                if "busy_ms" not in p:
+                    return f"{p['wall_ms']:.3f} ms wall a step, device time not measured"
+                return (f"{p['wall_ms']:.3f} ms wall, {p['busy_ms']:.3f} ms busy in a "
+                        f"{p['span_ms']:.3f} ms span a step, idle {p['idle_share']:.1%}")
+
+            sps = rec["steps_per_s"]
+            print(f"     superstep (e) {name} (k {k}, windows of {n} steps: eager, graph, "
+                  f"graph, eager): eager {sps['eager']:.2f} steps/s "
+                  f"{[round(x, 2) for x in rec['window_steps_per_s']['eager']]}, graphed "
+                  f"{sps['graph']:.2f} steps/s "
+                  f"{[round(x, 2) for x in rec['window_steps_per_s']['graph']]}; profiled "
+                  f"eager {dev('eager')}; graphed {dev('graph')}; capture of {cap['k']} steps "
+                  f"{cap['seconds']:.3f} s, its pool {cap['pool_bytes'] / 2**20:.1f} MiB; peak "
+                  f"allocated eager {rec['peak_allocated_mib']['eager']:.1f} MiB, graphed "
+                  f"{rec['peak_allocated_mib']['graph']:.1f} MiB, reserved "
+                  f"{rec['reserved_mib']:.1f} MiB, on {card}", flush=True)
+
+        trainer = pretrainer(16)
+        _, train = split_dataset(pdata, pcfg.train_fraction, pcfg.data_fraction, SEED)
+        store = DeviceTileStore(train, "cuda").arrays["img"]
+        batches = IndexBatcher(store.shape[0], TRAIN_BATCH, seed=SEED).take(16)
+        rates_of("enmap_pretrain_bf16_b64", trainer,
+                 lambda b: trainer.train_step_idx(store, b),
+                 lambda c: trainer.train_chunk_idx(store, c), list(batches), 16)
+        del trainer, store
+
+        trainer, store, idx = bench_geometries.houston_pretrainer(torch.bfloat16, "cuda", 16)
+        rates_of("houston_pretrain_bf16_b64", trainer,
+                 lambda b: trainer.train_step_idx(store, b),
+                 lambda c: trainer.train_chunk_idx(store, c), list(idx), 16)
+        del trainer, store
+
+        cfg = fcfg.copy()
+        model, kw = build_finetune_model(cfg, dtype=torch.bfloat16, device="cuda")
+        trainer = Finetuner(cfg, model, tile_size=64, **kw)
+        arrays = DeviceTileStore(ftrain, "cuda").arrays
+        batches = IndexBatcher(len(ftrain), TRAIN_BATCH, seed=SEED).take(16)
+        rates_of("enmap_dfc_finetune_bf16_b64", trainer,
+                 lambda b: trainer.train_step_idx(arrays["img"], arrays["label"], b),
+                 lambda c: trainer.train_chunk_idx(arrays["img"], arrays["label"], c),
+                 list(batches), 8)
+        del trainer, arrays
+        torch.cuda.empty_cache()
+        print(f"     phase 14 (e) took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"     phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, launches, **extra):
     """One kernel's JSON entry: times of one launch averaged over the main
     paths' bf16 shapes (the serving and training dtype; the layer backward
@@ -3998,6 +4346,12 @@ def main() -> int:
                "gloo, kernel #7's strided form, the gathered state through .pt and .msgpack, "
                "the trainers' guard, a li .msgpack resume", phase_tensor_parallel, card,
                pre_rates["bfloat16"])
+    sup = timed("phase 14 the trainers' superstep: k store steps as one CUDA graph against k "
+                "single steps, bit for bit; eager against graphed steps", phase_superstep, card,
+                per_step)
+    for route, got in sup["launches"].items():
+        for kname in ("fused_layer_fwd", "fused_layer_bwd"):
+            check(got[kname] > 0, f"phase 14 {route}: {kname} launched {got[kname]} times")
     for r, got in enumerate(tp["launches"]):
         for kname in ("fused_embed_fwd", "fused_embed_bwd", "fused_simmim_fwd",
                       "fused_simmim_bwd", "dropout_sample"):
@@ -4062,6 +4416,8 @@ def main() -> int:
         entry["launches_flax_checkpoint"] = flax["launches"][entry["name"]]
         entry["launches_multi_device"] = flax["multi_device"][entry["name"]]
         entry["launches_tensor_parallel"] = [got[entry["name"]] for got in tp["launches"]]
+        entry["launches_superstep"] = {route: got[entry["name"]]
+                                       for route, got in sup["launches"].items()}
     attn = next(c for c in drop_cases if c["shape"] == "attention_site")
     kernels.append(dict(
         name="dropout_sample", route="cuda", source="maskedsst_tpu_torch/csrc/dropout_sample.cu",

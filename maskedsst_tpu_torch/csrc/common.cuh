@@ -105,7 +105,16 @@ struct DropCfg {
   uint32_t seed;   // the layer's seed
   uint32_t thr;    // uint32(rate * 2^32)
   float scale;     // float32(1 / (1 - rate))
+  // when not null, the seed is read from here in the kernel's prologue
+  // instead: a replayed CUDA graph passes the arguments it captured, so a
+  // seed that changes from replay to replay lives in device memory
+  const uint32_t* seed_ptr = nullptr;
 };
+
+// a kernel's first statement: the seed from device memory when it is there
+__device__ __forceinline__ void load_seed(DropCfg& dc) {
+  if (dc.seed_ptr) dc.seed = *dc.seed_ptr;
+}
 
 enum DropSite : uint32_t { kSiteAttn = 1, kSiteProj = 3, kSiteFfMid = 5, kSiteFfOut = 7 };
 

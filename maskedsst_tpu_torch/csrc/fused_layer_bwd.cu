@@ -350,6 +350,7 @@ fused_layer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __r
                        const C* __restrict__ w2, const float* __restrict__ b2,
                        float* __restrict__ ws, float* __restrict__ scratch, int B, int S, int D,
                        int H, int dh, int F, int level, DropCfg dc) {
+  load_seed(dc);
   extern __shared__ float smem[];
   const BwdPlan plan(S, D, dh, F, FLEX ? level : 0);
   const int I = H * dh, ldh = plan.ldh;
@@ -810,6 +811,7 @@ fused_layer_bwd_tc_kernel(const T* __restrict__ x, const float* __restrict__ x1,
                           bf16* __restrict__ ops, float* __restrict__ ws,
                           unsigned char* __restrict__ scratch, int B, int S, int D, int H, int dh,
                           int F, int level, DropCfg dc) {
+  load_seed(dc);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid % 32, nwarps = nthr / 32;
@@ -1232,8 +1234,9 @@ cudaError_t launch_tc(const void* x, const void* x1, const void* dy, void* dx,
 }
 
 bool aligned(const void* ptr, uintptr_t n) { return reinterpret_cast<uintptr_t>(ptr) % n == 0; }
-DropCfg drop_cfg(int on, int proj, int seed, int thr, float scale) {
-  return DropCfg{on, proj, static_cast<uint32_t>(seed), static_cast<uint32_t>(thr), scale};
+DropCfg drop_cfg(int on, int proj, int seed, int thr, float scale, const void* seed_ptr) {
+  return DropCfg{on, proj, static_cast<uint32_t>(seed), static_cast<uint32_t>(thr), scale,
+                 static_cast<const uint32_t*>(seed_ptr)};
 }
 
 }  // namespace
@@ -1272,20 +1275,21 @@ extern "C" int fused_layer_bwd_plan(int S, int D, int dh, int F, int form, long 
 // is the grid (at most the number of row blocks); scratch: nparts x the
 // plan's scratch bytes (fused_layer_bwd_plan, form 0, at `level`; null when
 // those are 0); grads: the fp32 gradient vector in the order ln1s, ln1b,
-// wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2. Dropout arguments as for
-// fused_layer_fwd. Launches the block kernel and the reduction on `stream`;
-// returns cudaGetLastError().
+// wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2. Dropout arguments (the
+// seed's pointer among them) as for fused_layer_fwd. Launches the block
+// kernel and the reduction on `stream`; returns cudaGetLastError().
 extern "C" int fused_layer_bwd(const void* x, const void* dy, void* dx, const void* ln1s,
                                const void* ln1b, const void* wqkv, const void* wout,
                                const void* bout, const void* ln2s, const void* ln2b,
                                const void* w1, const void* b1, const void* w2, const void* b2,
-                               void* ws, void* scratch, void* grads, int B, int S, int D, int H,
-                               int dh, int F, int io_bf16, int compute_bf16, int nparts,
+                               void* ws, void* scratch, void* grads, const void* drop_seed_ptr,
+                               int B, int S, int D, int H, int dh, int F, int io_bf16,
+                               int compute_bf16, int nparts,
                                int level, int drop_on, int drop_proj, int drop_seed, int drop_thr,
                                float drop_scale, void* stream) {
   if (level < 0 || level >= kFmaLevels) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale);
+  const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale, drop_seed_ptr);
   cudaError_t err;
   if (io_bf16 && compute_bf16)
     err = launch<bf16, bf16>(x, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1, w2, b2,
@@ -1317,7 +1321,8 @@ extern "C" int fused_layer_bwd_tc(const void* x, const void* x1, const void* dy,
                                   const void* ln1b, const void* wqkv, const void* wout,
                                   const void* bout, const void* ln2s, const void* ln2b,
                                   const void* w1, const void* b1, const void* w2, const void* b2,
-                                  void* ops, void* ws, void* scratch, void* grads, int B, int S,
+                                  void* ops, void* ws, void* scratch, void* grads,
+                                  const void* drop_seed_ptr, int B, int S,
                                   int D, int H, int dh, int F, int io_bf16, int nparts, int level,
                                   int drop_on, int drop_proj, int drop_seed, int drop_thr,
                                   float drop_scale, void* stream) {
@@ -1327,7 +1332,7 @@ extern "C" int fused_layer_bwd_tc(const void* x, const void* x1, const void* dy,
       !aligned(scratch, 128))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale);
+  const DropCfg dc = drop_cfg(drop_on, drop_proj, drop_seed, drop_thr, drop_scale, drop_seed_ptr);
   const cudaError_t err =
       io_bf16 ? launch_tc<bf16>(x, x1, dy, dx, ln1s, ln1b, wqkv, wout, bout, ln2s, ln2b, w1, b1,
                                 w2, b2, ops, ws, scratch, grads, B, S, D, H, dh, F, nparts, level,

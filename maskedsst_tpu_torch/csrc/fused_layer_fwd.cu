@@ -200,6 +200,7 @@ fused_layer_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                        const C* __restrict__ w2, const float* __restrict__ b2,
                        float* __restrict__ scratch, int B, int S, int D, int H, int dh, int F,
                        int level, DropCfg dc) {
+  load_seed(dc);
   extern __shared__ float smem[];
   const int seqs = seqs_per_block(S);
   const int rcap = round_up(seqs * S, kRowTile);
@@ -523,6 +524,7 @@ fused_layer_fwd_tc_kernel(const T* __restrict__ x, T* __restrict__ y, float* __r
                           const bf16* __restrict__ w1, const float* __restrict__ b1,
                           const bf16* __restrict__ w2, const float* __restrict__ b2,
                           int B, int S, int D, int H, int dh, int F, DropCfg dc) {
+  load_seed(dc);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const TcPlan plan(S, D, dh, F);
   bf16* wa = reinterpret_cast<bf16*>(smem_raw + plan.wa);
@@ -845,7 +847,10 @@ extern "C" int fused_layer_fwd_plan(int S, int D, int dh, int F, long long* out)
 // biases in fp32. Dropout: drop_on (train and rate > 0), drop_proj (the
 // projection site is active), the layer seed, the keep threshold
 // uint32(rate * 2^32) and the scale 1 / (1 - rate); seed and threshold
-// arrive as the int bit patterns of their uint32 values. Launches on
+// arrive as the int bit patterns of their uint32 values. drop_seed_ptr:
+// null, or the uint32 seed in device memory, which the kernels read in
+// place of drop_seed (a replayed CUDA graph passes the arguments it
+// captured, so a seed that changes per replay lives there). Launches on
 // `stream`; returns cudaGetLastError(). bf16 compute takes the tensor-core
 // form at the widths tc_widths takes with 16-byte aligned weights, else the
 // FMA form, whose plan `level` (fused_layer_fwd_plan) places some buffers
@@ -858,13 +863,15 @@ extern "C" int fused_layer_fwd(const void* x, void* y, void* x1, const void* ln1
                                const void* wqkv, const void* wout, const void* bout,
                                const void* ln2s, const void* ln2b, const void* w1,
                                const void* b1, const void* w2, const void* b2, void* scratch,
-                               int B, int S, int D, int H, int dh, int F,
+                               const void* drop_seed_ptr, int B, int S, int D, int H, int dh,
+                               int F,
                                int io_bf16, int compute_bf16, int level, int drop_on,
                                int drop_proj, int drop_seed, int drop_thr, float drop_scale,
                                void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const DropCfg dc{drop_on, drop_proj, static_cast<uint32_t>(drop_seed),
-                   static_cast<uint32_t>(drop_thr), drop_scale};
+                   static_cast<uint32_t>(drop_thr), drop_scale,
+                   static_cast<const uint32_t*>(drop_seed_ptr)};
   const bool tc = compute_bf16 && tc_widths(S, D, dh, F) && aligned16(wqkv) &&
                   aligned16(wout) && aligned16(w1) && aligned16(w2);
   if ((x1 && !tc) || level < 0 || level >= kFwdLevels)

@@ -12,12 +12,31 @@ instead, as the JAX ``fit`` does.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple, Union
 
 import numpy as np
 import torch
 
 from maskedsst_tpu_torch.parallel.mesh import resolve_device
+
+
+def gather_crop(store: torch.Tensor, idx: torch.Tensor,
+                xy: Union[Tuple[int, int], torch.Tensor], s: int) -> torch.Tensor:
+    """The ``s`` x ``s`` windows at origin ``xy`` of the store's samples at
+    ``idx``: [N, C, T, T] → [B, C, s, s] (or labels [N, T, T] → [B, s, s]),
+    reading only the windows. ``xy``: two ints, or an int64 [2] on the
+    store's device, gathered by index arithmetic on the device (the route
+    of a step whose origin was drawn ahead, as a CUDA graph replays it);
+    the same values either way, since both are pure gathers."""
+    if not isinstance(xy, torch.Tensor):
+        x0, y0 = xy
+        return store[..., x0 : x0 + s, y0 : y0 + s][idx]
+    ar = torch.arange(s, device=store.device)
+    rows, cols = (xy[0] + ar)[:, None], (xy[1] + ar)[None, :]
+    if store.dim() == 3:
+        return store[idx[:, None, None], rows, cols]
+    ch = torch.arange(store.shape[1], device=store.device)[:, None, None]
+    return store[idx[:, None, None, None], ch, rows, cols]
 
 
 class DeviceTileStore:

@@ -23,12 +23,15 @@ embedding in plain ops, for the route where embedding dropout is active.
 Dropout seeds: a stack takes a per-call base seed and layer i uses
 base + i (mod 2**32), as the JAX ``FusedTransformer`` does; in a
 data-parallel run rank r folds that into ``fold_rank_seed(base + i, r)``,
-as the JAX layer folds each device's index along the data axis.
+as the JAX layer folds each device's index along the data axis. A stack
+also takes those seeds ready made, one int32 per layer in a device tensor
+(``StepDraws``: a step whose random values were drawn ahead of it, as a
+CUDA graph replay needs them).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -52,19 +55,45 @@ def fold_rank_seed(seed: int, rank: int) -> int:
     return (seed + rank * RANK_SEED_STRIDE) & 0xFFFFFFFF
 
 
+class StepDraws(NamedTuple):
+    """One training call's random values, drawn ahead of the call by the
+    model's ``draw_step`` (the trainers' superstep draws a chunk's steps
+    before it runs them, ``train/superstep.py``). ``seeds``: int32
+    [layers], each layer's rank-folded dropout seed (its uint32 bits) in
+    the order the model runs its layers; ``keep``: the embedding dropout's
+    keep mask of this process's rows, or None where none is drawn;
+    ``mask``: SimMIM's bool token mask of these rows, or None."""
+
+    seeds: torch.Tensor
+    keep: Optional[torch.Tensor] = None
+    mask: Optional[torch.Tensor] = None
+
+
+def token_keep(shape, rate: float, seed: int, device,
+               shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """The keep mask of :func:`token_dropout` for tokens of ``shape`` (this
+    process's rows): uniforms of the global batch from a generator on
+    ``device`` seeded with ``seed``, >= rate, rank's rows kept."""
+    rank, size = shard
+    b = shape[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keep = torch.rand((b * size, *shape[1:]), generator=gen, device=device) >= rate
+    return keep[rank * b : (rank + 1) * b]
+
+
 def token_dropout(x: torch.Tensor, rate: float, seed: int,
-                  shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+                  shard: Tuple[int, int] = (0, 1),
+                  keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dropout on tokens, its keep mask drawn from a generator on x's device
-    seeded with ``seed``: kept values divided by 1 - rate in x's dtype, as
-    flax ``nn.Dropout``. ``shard`` (rank, world size): x holds rank's rows
-    of the global batch, and the mask is those rows of the global draw."""
+    seeded with ``seed`` (or ``keep``, drawn so ahead of the call): kept
+    values divided by 1 - rate in x's dtype, as flax ``nn.Dropout``.
+    ``shard`` (rank, world size): x holds rank's rows of the global batch,
+    and the mask is those rows of the global draw."""
     if rate == 0.0:
         return x
-    rank, size = shard
-    b = x.shape[0]
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand((b * size, *x.shape[1:]), generator=gen, device=x.device) >= rate
-    return torch.where(keep[rank * b : (rank + 1) * b], x / (1.0 - rate), torch.zeros_like(x))
+    if keep is None:
+        keep = token_keep(x.shape, rate, seed, x.device, shard)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def layer_norm_to(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -139,9 +168,12 @@ class TransformerBlock(nn.Module):
             w2=self.ff.fc2.weight.t(), b2=self.ff.fc2.bias,
         )
 
-    def forward(self, x: torch.Tensor, seed: int = 0) -> torch.Tensor:
-        """x [B, S, D] → [B, S, D]; ``seed`` drives dropout in training."""
+    def forward(self, x: torch.Tensor, seed=0) -> torch.Tensor:
+        """x [B, S, D] → [B, S, D]; ``seed`` drives dropout in training: an
+        int, or (the fused layer) a 0-d int32 tensor on x's device."""
         if self.tp is not None:
+            if isinstance(seed, torch.Tensor):
+                raise TypeError("the head-split layer takes an int seed")
             return tp_transformer_layer(x, self.layer_params(), self.tp, self.dim_head,
                                         self.dtype or torch.float32, self.dropout,
                                         self.training, seed)
@@ -164,13 +196,16 @@ class Transformer(nn.Module):
             for _ in range(depth)
         )
 
-    def forward(self, x: torch.Tensor, seed: int = 0, rank: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: int = 0, rank: int = 0,
+                layer_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``seed``: the stack's base dropout seed; layer i uses seed + i,
-        folded by the data-parallel ``rank``."""
+        folded by the data-parallel ``rank``; or ``layer_seeds``, int32
+        [depth] on x's device, those seeds ready made."""
         lead = x.shape[:-2]
         xb = x.reshape(-1, x.shape[-2], x.shape[-1])
         for i, layer in enumerate(self.layers):
-            xb = layer(xb, fold_rank_seed(seed + i, rank))
+            xb = layer(xb, fold_rank_seed(seed + i, rank) if layer_seeds is None
+                       else layer_seeds[i])
         return xb.reshape(*lead, x.shape[-2], x.shape[-1])
 
 

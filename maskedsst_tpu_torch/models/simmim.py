@@ -29,6 +29,9 @@ device, then the stacks' dropout seeds. ``bool_mask`` overrides the
 sampler. In a data-parallel run ``shard`` = (rank, world size) names the
 rows of the global batch that a call holds: the mask is those rows of the
 global draw and the layers fold their seeds by the rank.
+``SimMIMSpatialSpectral.draw_step`` makes a training call's draws ahead of
+it (the mask, then the layers' seeds), which ``forward(..., draws=)``
+takes in place of ``rng``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
-from maskedsst_tpu_torch.models.layers import linear_to
+from maskedsst_tpu_torch.models.layers import StepDraws, linear_to
 from maskedsst_tpu_torch.models.vit_rgb import ViTRGB
 from maskedsst_tpu_torch.models.vit_spatial_spectral import ViTSpatialSpectral, lecun_normal_
 from maskedsst_tpu_torch.models.vit_spatial_spectral_v1 import ViTSpatialSpectralV1
@@ -182,6 +185,15 @@ class SimMIMSpatialSpectral(nn.Module):
                                                     self.tube_masking)
         return masks[rank * batch_size : (rank + 1) * batch_size]
 
+    def draw_step(self, rng: torch.Generator, img_shape, device,
+                  shard: Tuple[int, int] = (0, 1)) -> StepDraws:
+        """The draws of one training call on cubes of ``img_shape`` (this
+        process's rows), from ``rng`` in the order ``forward`` makes them:
+        the mask (on ``device``), then the encoder's dropout seeds."""
+        mask = self.sample_mask(img_shape[0], device, rng, shard)
+        seeds = self.encoder.layer_seeds(self.encoder.dropout_seeds(rng), shard[0])
+        return StepDraws(seeds, mask=mask)
+
     def _tokenize(self, img: torch.Tensor, bool_mask: torch.Tensor):
         """(tokens [B, g*n, d] with the masked ones replaced, the targets:
         [B, g, p, n] on the blockwise route, else [B, g, n, p])."""
@@ -204,19 +216,27 @@ class SimMIMSpatialSpectral(nn.Module):
 
     def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None,
                 bool_mask: Optional[torch.Tensor] = None,
-                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+                shard: Tuple[int, int] = (0, 1),
+                draws: Optional[StepDraws] = None) -> torch.Tensor:
         """Cubes [B, C, H, W] → the scalar reconstruction loss (fp32) of these
         rows. The mask is ``bool_mask`` [B, num_tokens] when given, else drawn
         with ``rng``; in training, dropout seeds are drawn from ``rng`` after
-        it. ``shard``: (rank, world size) of a data-parallel step."""
+        it. ``draws`` (``draw_step``): the mask and the seeds made ahead, in
+        place of both. ``shard``: (rank, world size) of a data-parallel
+        step."""
         enc = self.encoder
         b = img.shape[0]
         g, n = self.num_blocks, self.num_spatial
-        if bool_mask is None:
+        if draws is not None:
+            bool_mask = draws.mask
+        elif bool_mask is None:
             bool_mask = self.sample_mask(b, img.device, rng, shard)
         tokens, patches = self._tokenize(img, bool_mask)
-        encoded = enc.transformer_forward(tokens, seeds=enc.dropout_seeds(rng)[:2],
-                                          rank=shard[0])
+        if draws is None:
+            encoded = enc.transformer_forward(tokens, seeds=enc.dropout_seeds(rng)[:2],
+                                              rank=shard[0])
+        else:
+            encoded = enc.transformer_forward(tokens, rank=shard[0], layer_seeds=draws.seeds)
         if self.is_v1:
             encoded = encoded[0]  # V1's three representations are one
         encoded = encoded.reshape(b, g, n, enc.dim)

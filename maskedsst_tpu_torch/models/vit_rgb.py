@@ -23,6 +23,7 @@ from torch import nn
 
 from maskedsst_tpu_torch.models.layers import (
     LN_EPS,
+    StepDraws,
     Transformer,
     layer_norm_to,
     linear_to,
@@ -101,17 +102,27 @@ class _ClsViT(ViTBase):
     def embed(self, patches: torch.Tensor) -> torch.Tensor:
         return self.patch_chain(patches)
 
+    def stacks(self):
+        return [(0, len(self.transformer.layers))]
+
+    def token_shape(self, img_shape):
+        n = (img_shape[-2] // self.patch_height) * (img_shape[-1] // self.patch_width)
+        return (img_shape[0], n + 1, self.dim)
+
     def _encode_with_cls(self, img: torch.Tensor, rng: Optional[torch.Generator],
-                         shard: Tuple[int, int]) -> torch.Tensor:
+                         shard: Tuple[int, int],
+                         draws: Optional[StepDraws] = None) -> torch.Tensor:
         """Patches → chain → cls token prepended → + positions → embedding
-        dropout (training) → the transformer: [B, n + 1, dim]."""
-        seeds = self.dropout_seeds(rng)
+        dropout (training) → the transformer: [B, n + 1, dim]. ``draws``
+        (``draw_step``) in place of ``rng``."""
+        seeds = self.dropout_seeds(rng) if draws is None else (0, 0, 0)
         x = self.embed(self.to_patch(img))
         b, n, _ = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, self.dim), x], dim=1)
         x = x + self.pos_embedding[:, : n + 1].to(x.dtype)
-        x = token_dropout(x, self.emb_dropout if self.training else 0.0, seeds[2], shard)
-        return self.transformer(x, seeds[0], shard[0])
+        x = token_dropout(x, self.emb_dropout if self.training else 0.0, seeds[2], shard,
+                          None if draws is None else draws.keep)
+        return self.transformer(x, seeds[0], shard[0], None if draws is None else draws.seeds)
 
 
 class ViTOriginal(_ClsViT):
@@ -136,8 +147,9 @@ class ViTOriginal(_ClsViT):
         return (self.num_classes,)
 
     def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None,
-                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
-        x = self._encode_with_cls(img, rng, shard)
+                shard: Tuple[int, int] = (0, 1),
+                draws: Optional[StepDraws] = None) -> torch.Tensor:
+        x = self._encode_with_cls(img, rng, shard, draws)
         x = x.float().mean(dim=1).to(x.dtype) if self.pool == "mean" else x[:, 0]
         return self._head(x)
 
@@ -176,9 +188,10 @@ class ViTRGB(_ClsViT):
         return self.transformer(tokens, seed, rank)
 
     def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None,
-                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
-        """``rng`` and ``shard`` as for ``ViTSpatialSpectral.forward``."""
-        x = self._encode_with_cls(img, rng, shard)[:, 1:]
+                shard: Tuple[int, int] = (0, 1),
+                draws: Optional[StepDraws] = None) -> torch.Tensor:
+        """``rng``, ``shard`` and ``draws`` as for ``ViTSpatialSpectral.forward``."""
+        x = self._encode_with_cls(img, rng, shard, draws)[:, 1:]
         b = x.shape[0]
         x = self._head(x.reshape(b, self.num_patches_height, self.num_patches_width, self.dim))
         if self.pixelwise:

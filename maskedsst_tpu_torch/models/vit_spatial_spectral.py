@@ -23,7 +23,9 @@ spatial stack, the spectral stack and the embedding dropout. In a
 data-parallel run ``shard`` = (rank, world size) names the rows of the
 global batch that this call holds: the layers fold their seeds by the rank
 and the embedding dropout keeps those rows of the global draw, so every
-rank draws the same three seeds.
+rank draws the same three seeds. ``draw_step`` makes the same draws ahead
+of a call, as a ``StepDraws`` that ``forward(..., draws=)`` takes in place
+of ``rng``: the same values, so the same bits.
 """
 
 from __future__ import annotations
@@ -39,11 +41,15 @@ from maskedsst_tpu_torch.models.layers import (
     LN_EPS,
     BlockwisePatchEmbedding,
     PatchEmbed,
+    StepDraws,
     Transformer,
+    fold_rank_seed,
     layer_norm_to,
     linear_to,
     token_dropout,
+    token_keep,
 )
+from maskedsst_tpu_torch.ops.fused_layer import _i32
 from maskedsst_tpu_torch.ops.pos_embed import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed
 
 
@@ -84,6 +90,35 @@ class ViTBase(nn.Module):
                 "the model never draws from torch's global RNG"
             )
         return tuple(torch.randint(0, 2**31 - 1, (3,), generator=rng).tolist())
+
+    def stacks(self) -> Sequence[Tuple[int, int]]:
+        """(index into ``dropout_seeds``, depth) of each transformer stack,
+        in the order the model runs them."""
+        raise NotImplementedError
+
+    def token_shape(self, img_shape) -> Tuple[int, ...]:
+        """The shape of the tokens the embedding dropout sees for input
+        cubes of ``img_shape``."""
+        raise NotImplementedError
+
+    def draw_step(self, rng: Optional[torch.Generator], img_shape, device,
+                  shard: Tuple[int, int] = (0, 1)) -> StepDraws:
+        """The draws of one training call on cubes of ``img_shape`` (this
+        process's rows), from ``rng`` in the order ``forward`` makes them:
+        the three seeds, then the embedding dropout's keep mask on
+        ``device`` where one is applied. Seeds on the CPU, one per layer."""
+        s = self.dropout_seeds(rng)
+        keep = None
+        if self.training and self.emb_dropout > 0.0:
+            keep = token_keep(self.token_shape(img_shape), self.emb_dropout, s[2], device, shard)
+        return StepDraws(self.layer_seeds(s, shard[0]), keep)
+
+    def layer_seeds(self, seeds: Sequence[int], rank: int = 0) -> torch.Tensor:
+        """Every layer's seed of a call whose ``dropout_seeds`` are
+        ``seeds``, folded by ``rank``: int32 [layers] on the CPU."""
+        return torch.tensor([_i32(fold_rank_seed(seeds[k] + i, rank))
+                             for k, depth in self.stacks() for i in range(depth)],
+                            dtype=torch.int32)
 
     def _init_dense(self, gen: torch.Generator) -> None:
         """LeCun-normal (truncated at ±2σ) Linear weights, zero biases, unit
@@ -216,6 +251,15 @@ class ViTSpatialSpectral(ViTBase):
         self.head_norm = nn.LayerNorm(norm_dim, eps=LN_EPS)
         self.head_linear = nn.Linear(in_dim, width)
 
+    def stacks(self) -> Sequence[Tuple[int, int]]:
+        spectral = [(1, len(self.spectral_transformer.layers))]
+        if self.spectral_only:
+            return spectral
+        return [(0, len(self.spatial_transformer.layers))] + spectral
+
+    def token_shape(self, img_shape) -> Tuple[int, ...]:
+        return (img_shape[0], self.num_patches, self.dim)
+
     @property
     def logits_shape(self) -> tuple:
         """Trailing shape of the logits for one cube."""
@@ -256,21 +300,27 @@ class ViTSpatialSpectral(ViTBase):
         return self.pos_embedding[:, :num_tokens]
 
     def transformer_forward(self, x: torch.Tensor, spectral_layout_out: bool = False,
-                            seeds: Tuple[int, int] = (0, 0), rank: int = 0) -> torch.Tensor:
+                            seeds: Tuple[int, int] = (0, 0), rank: int = 0,
+                            layer_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Factorized transformer over block-major tokens [B, c*n, d]:
         spatial over n with (B, c) as batch, a swap, spectral over c with
         (B, n) as batch. ``spectral_layout_out=True`` returns the spectral
         stack's layout [B, n, c, d]; otherwise block-major [B, c*n, d].
         ``seeds``: the two stacks' base dropout seeds, folded by the
-        data-parallel ``rank``."""
+        data-parallel ``rank``; or ``layer_seeds``, every layer's seed
+        ready made (``StepDraws.seeds``)."""
         b, num_tokens, d = x.shape
         c, n = self.num_spectral_patches, self.num_spatial_patches
         assert num_tokens == c * n, f"{num_tokens=} != {c=}*{n=}"
+        spatial_seeds = spectral_seeds = None
+        if layer_seeds is not None:
+            split = 0 if self.spectral_only else len(self.spatial_transformer.layers)
+            spatial_seeds, spectral_seeds = layer_seeds[:split], layer_seeds[split:]
         x = x.reshape(b, c, n, d)
         if not self.spectral_only:
-            x = self.spatial_transformer(x, seeds[0], rank)
+            x = self.spatial_transformer(x, seeds[0], rank, spatial_seeds)
         x = x.transpose(1, 2).contiguous()  # [B, n, c, d]: the copy the TPU path did not pay
-        x = self.spectral_transformer(x, seeds[1], rank)
+        x = self.spectral_transformer(x, seeds[1], rank, spectral_seeds)
         if spectral_layout_out:
             return x
         return x.transpose(1, 2).reshape(b, c * n, d)
@@ -294,14 +344,16 @@ class ViTSpatialSpectral(ViTBase):
 
     def forward_features(self, img: torch.Tensor, spectral_layout_out: bool = False,
                          rng: Optional[torch.Generator] = None,
-                         shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+                         shard: Tuple[int, int] = (0, 1),
+                         draws: Optional[StepDraws] = None) -> torch.Tensor:
         """Tokenize (with positions) and run the factorized transformer.
 
         The fused embed runs on the blockwise route unless embedding
         dropout is active in training (the JAX routing, ``deterministic or
         emb_dropout == 0``); otherwise the plain embedding (``embed_pn``, or
-        ``PatchEmbed``) + positions + token dropout in training."""
-        seeds = self.dropout_seeds(rng)
+        ``PatchEmbed``) + positions + token dropout in training. ``draws``:
+        this call's draws made ahead (``draw_step``), in place of ``rng``."""
+        seeds = self.dropout_seeds(rng) if draws is None else (0, 0, 0)
         if self.blockwise_patch_embed and (not self.training or self.emb_dropout == 0.0):
             tokens, _ = self.tokenize_fused(img)
         else:
@@ -309,18 +361,21 @@ class ViTSpatialSpectral(ViTBase):
             x = emb.embed_pn(emb.to_patch_pn(img)) if self.blockwise_patch_embed else emb(img)
             x = x + self.pos_embedding_for(x.shape[1]).to(x.dtype)
             tokens = token_dropout(x, self.emb_dropout if self.training else 0.0, seeds[2],
-                                   shard)
+                                   shard, None if draws is None else draws.keep)
         return self.transformer_forward(tokens, spectral_layout_out=spectral_layout_out,
-                                        seeds=seeds[:2], rank=shard[0])
+                                        seeds=seeds[:2], rank=shard[0],
+                                        layer_seeds=None if draws is None else draws.seeds)
 
     def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None,
-                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+                shard: Tuple[int, int] = (0, 1),
+                draws: Optional[StepDraws] = None) -> torch.Tensor:
         """Cube [B, C, H, W] → logits: per patch pixel [B, num_classes, H, W]
         by default and with ``spectral_mlp_head``, or [B, num_classes] with
         ``pixelwise``. ``rng`` (a CPU generator) drives dropout in
-        training; ``shard``: (rank, world size) of a data-parallel step."""
+        training, or ``draws`` (``draw_step``); ``shard``: (rank, world
+        size) of a data-parallel step."""
         x = self.forward_features(img, spectral_layout_out=True, rng=rng,
-                                  shard=shard)  # [B, n, c, d]
+                                  shard=shard, draws=draws)  # [B, n, c, d]
         b = x.shape[0]
         c = self.num_spectral_patches
         hh = ww = self.num_spatial_patches_sqrt

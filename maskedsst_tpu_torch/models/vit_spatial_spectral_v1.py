@@ -24,6 +24,7 @@ from torch import nn
 
 from maskedsst_tpu_torch.models.layers import (
     LN_EPS,
+    StepDraws,
     Transformer,
     layer_norm_to,
     linear_to,
@@ -117,27 +118,41 @@ class ViTSpatialSpectralV1(ViTBase):
     def embed(self, patches: torch.Tensor) -> torch.Tensor:
         return self.embed_chain(patches)
 
+    def stacks(self):
+        return [(0, len(self.spatial_transformer.layers)),
+                (1, len(self.spectral_transformer.layers))]
+
+    def token_shape(self, img_shape):
+        return (img_shape[0], self.num_patches, self.dim)
+
     def transformer_forward(self, x: torch.Tensor, seeds: Tuple[int, int] = (0, 0),
-                            rank: int = 0):
+                            rank: int = 0, layer_seeds: Optional[torch.Tensor] = None):
         """The spatial → spectral stacks over block-major tokens [B, c*n, d];
         returns ``(x, x, x)``, the reference's three representations, which
-        are one."""
+        are one. ``layer_seeds``: every layer's seed ready made, in place of
+        ``seeds`` (``StepDraws.seeds``)."""
         b, _, d = x.shape
         c, n = self.num_spectral_patches, self.num_spatial_patches**2
-        x = self.spatial_transformer(x.reshape(b, c, n, d), seeds[0], rank)
-        x = self.spectral_transformer(x.transpose(1, 2).contiguous(), seeds[1], rank)
+        split = len(self.spatial_transformer.layers)
+        sp, spec = (None, None) if layer_seeds is None else (layer_seeds[:split],
+                                                              layer_seeds[split:])
+        x = self.spatial_transformer(x.reshape(b, c, n, d), seeds[0], rank, sp)
+        x = self.spectral_transformer(x.transpose(1, 2).contiguous(), seeds[1], rank, spec)
         x = x.transpose(1, 2).reshape(b, c * n, d)
         return x, x, x
 
     def forward(self, img: torch.Tensor, rng: Optional[torch.Generator] = None,
-                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+                shard: Tuple[int, int] = (0, 1),
+                draws: Optional[StepDraws] = None) -> torch.Tensor:
         """Cube [B, C, H, W] → per-pixel logits [B, num_classes, H, W];
-        ``rng`` and ``shard`` as for ``ViTSpatialSpectral.forward``."""
-        seeds = self.dropout_seeds(rng)
+        ``rng``, ``shard`` and ``draws`` as for ``ViTSpatialSpectral.forward``."""
+        seeds = self.dropout_seeds(rng) if draws is None else (0, 0, 0)
         x = self.embed(self.to_patch(img))
         x = x + self.pos_embedding[:, : x.shape[1]].to(x.dtype)
-        x = token_dropout(x, self.emb_dropout if self.training else 0.0, seeds[2], shard)
-        x, _, _ = self.transformer_forward(x, seeds[:2], shard[0])
+        x = token_dropout(x, self.emb_dropout if self.training else 0.0, seeds[2], shard,
+                          None if draws is None else draws.keep)
+        x, _, _ = self.transformer_forward(x, seeds[:2], shard[0],
+                                           None if draws is None else draws.seeds)
         b, c, side = x.shape[0], self.num_spectral_patches, self.num_spatial_patches
         x = x.reshape(b, c, side, side, self.dim).float().mean(dim=1).to(x.dtype)
         return _unfold_pixel_logits(self._head(x), self.patch_height, self.patch_width,

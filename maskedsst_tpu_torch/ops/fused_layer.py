@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -87,7 +87,7 @@ class LayerConfig(NamedTuple):
     compute_dtype: torch.dtype = torch.bfloat16
     dropout_rate: float = 0.0
     train: bool = False
-    seed: int = 0
+    seed: Union[int, torch.Tensor] = 0  # an int, or a 0-d integer tensor on x's device
     proj_dropout: bool = True
 
     @property
@@ -103,7 +103,7 @@ def fused_transformer_layer(
     compute_dtype: torch.dtype = torch.bfloat16,
     dropout_rate: float = 0.0,
     train: bool = False,
-    seed: int = 0,
+    seed: Union[int, torch.Tensor] = 0,
     proj_dropout: bool = True,
 ) -> torch.Tensor:
     """x [B, S, D] → layer output [B, S, D] (dtype of x), differentiable in x
@@ -111,8 +111,11 @@ def fused_transformer_layer(
 
     ``seed``: the layer's dropout seed (used only when ``train`` and
     ``dropout_rate > 0``; the model passes base + layer index, as the JAX
-    package does). ``proj_dropout=False`` skips the post-projection site
-    (no projection when heads == 1 and dim_head == dim)."""
+    package does): an int, or a 0-d int32 tensor on x's device holding the
+    seed's uint32 bits, which the kernels read from device memory (a
+    captured CUDA graph replays it with the values of each replay).
+    ``proj_dropout=False`` skips the post-projection site (no projection
+    when heads == 1 and dim_head == dim)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_transformer_layer: unsupported device {x.device}")
     cfg = _config(x, heads, dim_head, compute_dtype, dropout_rate, train, seed, proj_dropout)
@@ -138,8 +141,14 @@ def _config(x, heads, dim_head, compute_dtype, dropout_rate, train, seed, proj_d
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
     if x.shape[0] == 0:
         raise ValueError("fused_transformer_layer: empty batch (B == 0)")
+    if isinstance(seed, torch.Tensor):
+        if seed.dim() != 0 or seed.dtype != torch.int32 or seed.device != x.device:
+            raise ValueError(f"fused_transformer_layer: a tensor seed must be a 0-d int32 on "
+                             f"{x.device}, got {tuple(seed.shape)} {seed.dtype} on {seed.device}")
+    else:
+        seed = int(seed)
     return LayerConfig(heads, dim_head, compute_dtype, float(dropout_rate), bool(train),
-                       int(seed), bool(proj_dropout))
+                       seed, bool(proj_dropout))
 
 
 class _LayerFn(torch.autograd.Function):
@@ -183,20 +192,24 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def dropout_bits(numel: int, seed: int, site: int, device=None) -> torch.Tensor:
+def dropout_bits(numel: int, seed, site: int, device=None) -> torch.Tensor:
     """uint32 bits (as int64) of elements 0..numel-1 of a site's tensor:
     ``fmix32(fmix32(lo ^ key) + key)`` with ``key = fmix32(seed ^
     fmix32(site * 0x9E3779B9 + hi * 0x632BE5AB + 0x7F4A7C15))``, lo/hi the
     index's 32-bit halves — the arithmetic of ``drop_mult`` in
-    ``csrc/common.cuh``."""
+    ``csrc/common.cuh``. ``seed``: an int or a 0-d integer tensor (its
+    low 32 bits), the same bits either way."""
     return hash_bits(torch.arange(numel, dtype=torch.int64, device=device), seed, site)
 
 
-def hash_bits(idx: torch.Tensor, seed: int, site: int) -> torch.Tensor:
-    """The bits of :func:`dropout_bits` at the int64 logical indices idx."""
+def hash_bits(idx: torch.Tensor, seed, site: int) -> torch.Tensor:
+    """The bits of :func:`dropout_bits` at the int64 logical indices idx
+    (``seed`` as there)."""
     lo, hi = idx & _M32, idx >> 32
     inner = (_mul32(torch.full_like(idx, site & _M32), 0x9E3779B9)
              + _mul32(hi, 0x632BE5AB) + 0x7F4A7C15) & _M32
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(idx.device, torch.int64)  # an int32's negative bits mask to its uint32
     key = _fmix32((seed & _M32) ^ _fmix32(inner))
     return _fmix32((_fmix32(lo ^ key) + key) & _M32)
 
@@ -210,8 +223,9 @@ def dropout_threshold(rate: float) -> int:
     return int(rate * 2**32)
 
 
-def dropout_mask(shape, seed: int, site: int, rate: float, device=None) -> torch.Tensor:
-    """fp32 multiplier (0 or 1/(1-rate)) for a site's tensor of ``shape``."""
+def dropout_mask(shape, seed, site: int, rate: float, device=None) -> torch.Tensor:
+    """fp32 multiplier (0 or 1/(1-rate)) for a site's tensor of ``shape``;
+    ``seed`` an int or a 0-d integer tensor (:func:`dropout_bits`)."""
     numel = 1
     for n in shape:
         numel *= n
@@ -312,7 +326,7 @@ def reference_layer(
     compute_dtype: torch.dtype = torch.bfloat16,
     dropout_rate: float = 0.0,
     train: bool = False,
-    seed: int = 0,
+    seed: Union[int, torch.Tensor] = 0,
     proj_dropout: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch version of the layer forward: the kernel's math with
@@ -338,7 +352,7 @@ def reference_layer_bwd(
     compute_dtype: torch.dtype = torch.bfloat16,
     dropout_rate: float = 0.0,
     train: bool = False,
-    seed: int = 0,
+    seed: Union[int, torch.Tensor] = 0,
     proj_dropout: bool = True,
 ):
     """Plain PyTorch version of the layer backward, written out as the TPU
@@ -433,12 +447,12 @@ def _bind(name: str):
 
     lib = _build.load(name)
     if name == _FWD:
-        fn = _build.bind(lib, name, n_pointers=15, n_ints=13, n_floats=1)
+        fn = _build.bind(lib, name, n_pointers=16, n_ints=13, n_floats=1)
         plan = lib.fused_layer_fwd_plan
         plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     else:
-        fn = (_build.bind(lib, name, n_pointers=17, n_ints=14, n_floats=1),
-              _build.bind(lib, name + "_tc", n_pointers=19, n_ints=13, n_floats=1))
+        fn = (_build.bind(lib, name, n_pointers=18, n_ints=14, n_floats=1),
+              _build.bind(lib, name + "_tc", n_pointers=20, n_ints=13, n_floats=1))
         plan = lib.fused_layer_bwd_plan
         plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
     plan.restype = ctypes.c_int
@@ -509,9 +523,18 @@ def _i32(v: int) -> int:
     return v - 2**32 if v >= 2**31 else v
 
 
+def _seed_ptr(cfg: LayerConfig):
+    """The address of a tensor seed (the C entries' ``drop_seed_ptr``), null
+    for an int seed or with dropout off."""
+    return cfg.seed.data_ptr() if cfg.dropout_on and isinstance(cfg.seed, torch.Tensor) else None
+
+
 def _drop_args(cfg: LayerConfig):
+    """The C entries' dropout ints and scale; a tensor seed passes 0 here
+    and its address in ``_seed_ptr``."""
     on = cfg.dropout_on
-    return (int(on), int(cfg.proj_dropout), _i32(cfg.seed) if on else 0,
+    seed = cfg.seed if on and not isinstance(cfg.seed, torch.Tensor) else 0
+    return (int(on), int(cfg.proj_dropout), _i32(seed),
             _i32(dropout_threshold(cfg.dropout_rate)) if on else 0,
             dropout_scale(cfg.dropout_rate) if on else 1.0)
 
@@ -575,7 +598,7 @@ def _launch(x, params, *config, x1=None):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(
             x.data_ptr(), y.data_ptr(), None if x1 is None else x1.data_ptr(),
-            *(a.data_ptr() for a in args), _ptr(scratch),
+            *(a.data_ptr() for a in args), _ptr(scratch), _seed_ptr(cfg),
             b, s, d, cfg.heads, cfg.dim_head, f, *_flags(x, cfg), level, *_drop_args(cfg),
             ctypes.c_void_p(stream),
         )
@@ -665,7 +688,8 @@ def layer_bwd_rows(x, dy, params, *config, x1=None):
         code = fn(
             x.data_ptr(), x1.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             *(a.data_ptr() for a in args), ops.data_ptr(), ws.data_ptr(), _ptr(scratch),
-            grads.data_ptr(), b, s, d, cfg.heads, cfg.dim_head, f, _flags(x, cfg)[0], nparts,
+            grads.data_ptr(), _seed_ptr(cfg), b, s, d, cfg.heads, cfg.dim_head, f,
+            _flags(x, cfg)[0], nparts,
             plan.level, *_drop_args(cfg), ctypes.c_void_p(stream),
         )
     _build.check(lib, _BWD, code)
@@ -718,7 +742,7 @@ def _launch_bwd(x, dy, params, *config, x1=None):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(
             x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
-            ws.data_ptr(), _ptr(scratch), grads.data_ptr(),
+            ws.data_ptr(), _ptr(scratch), grads.data_ptr(), _seed_ptr(cfg),
             b, s, d, cfg.heads, cfg.dim_head, f, *_flags(x, cfg), nparts, plan.level,
             *_drop_args(cfg), ctypes.c_void_p(stream),
         )

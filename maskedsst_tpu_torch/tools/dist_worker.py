@@ -231,8 +231,8 @@ def _recording_emb_keep(keeps: list):
 
     real = vit.token_dropout
 
-    def spy(x, rate, seed, shard=(0, 1)):
-        out = real(x, rate, seed, shard)
+    def spy(x, rate, seed, shard=(0, 1), keep=None):
+        out = real(x, rate, seed, shard, keep)
         keeps.append((out != 0).cpu().numpy())
         return out
 
@@ -253,6 +253,9 @@ def _config(case: dict, kind: str):
 
     get = get_pretrain_config if kind == "pretrain" else get_finetune_config
     cfg = get(*case["configs"])
+    # the cases step one at a time: no superstep, so no graph and torch's
+    # default optimizer (train/superstep.py::choose_route)
+    cfg.steps_per_call = 1
     for key, value in case.get("set", {}).items():
         setattr(cfg, key, value)
     return cfg

@@ -46,12 +46,28 @@ global batch's weight mass, summed over the processes before the
 backward, so the gradients summed by one all-reduce are the global
 batch's; the training loss and accuracies and every validation sum are
 summed over the processes as well, so the scheduler, ``best_val_acc`` and
-the saves see the same numbers on every process. Not ported yet
-(ROADMAP.md): the superstep (CUDA graphs later).
+the saves see the same numbers on every process.
+
+Superstep (``steps_per_call``, default 8, as JAX): on the store path a
+chunk of k index batches runs by ``train_chunk_idx``
+(``train/superstep.py``: one CUDA graph replay of k steps on the card's
+ViT route, else k eager steps on the same staged inputs) when it fits the
+epoch (``i + k <= len(batches)``) and, under a strict budget, ``step + k
+<= step_budget``; otherwise single steps. Each logging boundary crossed in
+a chunk logs its own window's means with the chunk's shared rates; the bits
+are those of k single steps.
+
+cuDNN: a zoo net's steps run with ``torch.backends.cudnn.deterministic``
+set (cuDNN's fast 3-D convolution weight gradients sum with atomics, so a
+li resume would miss its control by the last bits; the JAX zoo's XLA
+convolutions repeat them); the flag is set on entry to the Finetuner's
+steps, validation and ``fit``, and restored on their exit, so the rest of
+the process keeps its own.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from collections import deque
@@ -61,8 +77,9 @@ import numpy as np
 import torch
 
 from maskedsst_tpu_torch.config import Config
-from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
+from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher, gather_crop
 from maskedsst_tpu_torch.data.pipeline import DataLoader
+from maskedsst_tpu_torch.models.layers import StepDraws
 from maskedsst_tpu_torch.models.zoo import ZooNet
 from maskedsst_tpu_torch.parallel.mesh import (
     DataWorld,
@@ -86,9 +103,29 @@ from maskedsst_tpu_torch.train.optim import (
     plateau_scheduler,
 )
 from maskedsst_tpu_torch.train.pretrainer import largest_divisor
+from maskedsst_tpu_torch.train.superstep import Superstep, choose_route
 from maskedsst_tpu_torch.train.train_state import TrainState
 from maskedsst_tpu_torch.train.windows import window_tiles
 from maskedsst_tpu_torch.utils.tracking import Throughput, Tracker
+
+
+def _conv_deterministic(method):
+    """Runs a Finetuner method of a zoo net with
+    ``torch.backends.cudnn.deterministic`` set, and restores the flag on
+    exit (ViT models run no cuDNN operation and leave it alone)."""
+
+    @functools.wraps(method)
+    def scoped(self, *args, **kwargs):
+        if not isinstance(self.model, ZooNet):
+            return method(self, *args, **kwargs)
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+
+    return scoped
 
 
 def get_val_epochs(config: Config, steps_per_epoch: int) -> list:
@@ -133,14 +170,11 @@ class Finetuner:
         self.device = next(model.parameters()).device
         self.center_pixel = center_pixel
         self.add_channel_dim = add_channel_dim
-        if isinstance(model, ZooNet):
-            # cuDNN's fastest 3-D convolution weight gradients sum with
-            # atomics, so two li steps from one state differ in their last
-            # bits on the card and a resume misses its control (the JAX zoo's
-            # XLA convolutions repeat them); the deterministic algorithms cost
-            # li's store step ~2x of device time (PERF.md, PR 15). cuDNN
-            # only: the ViT paths run no cuDNN operation.
-            torch.backends.cudnn.deterministic = True
+        # a zoo net's steps run with cuDNN's deterministic algorithms
+        # (_conv_deterministic): its fastest 3-D convolution weight gradients
+        # sum with atomics, so two li steps from one state would differ in
+        # their last bits on the card and a resume would miss its control;
+        # they cost li's store step ~2x of device time (PERF.md)
         self.tile_size = tile_size
         self.class_weights = (None if class_weights is None else
                               torch.as_tensor(np.asarray(class_weights), dtype=torch.float32,
@@ -152,8 +186,13 @@ class Finetuner:
         opt.update(optimizer_override or {})
         if opt["linear_eval"]:
             opt["head_lr"] = None  # linear eval trains the head at the base lr
+        self.steps_per_call = int(config.get("steps_per_call", 8))
+        # Adam capturable on the graph route: its eager steps and replays
+        # take one arithmetic (train/superstep.py)
+        self.route = choose_route(self.device, self.world, model, opt["name"],
+                                  self.steps_per_call)
         optimizer = build_optimizer(model, opt.pop("learning_rate"), opt.pop("weight_decay"),
-                                    **opt)
+                                    capturable=self.route.graph, **opt)
         rng = torch.Generator().manual_seed(int(config.get("seed", 5)))
         self.state = TrainState(model, optimizer, rng)
         self.scheduler = plateau_scheduler(optimizer)
@@ -162,6 +201,7 @@ class Finetuner:
         self.shifting_window = bool(config.get("shifting_window", False))
         self.eval_chunk = int(config.get("eval_chunk", 256))
         self._resume_extra: dict = {}
+        self.superstep = Superstep(self.route, self.device)
 
     @property
     def window(self) -> int:
@@ -219,6 +259,7 @@ class Finetuner:
         label = torch.as_tensor(label).to(self.device, torch.int64)
         return img, label
 
+    @_conv_deterministic
     def train_step(self, img, label, xy: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
         """One update on a batch of tiles (numpy or tensors, the global
         batch); returns the global batch's loss, acc and macro_acc as device
@@ -235,46 +276,112 @@ class Finetuner:
         return store_img[safe], self._mask_pad(store_label[safe], idx)
 
     def _gather_crop_batch(self, store_img: torch.Tensor, store_label: torch.Tensor,
-                           idx: torch.Tensor, xy: Tuple[int, int], s: int):
-        """Gather + crop on the card: reads only the [B, C, s, s] windows of
-        the indexed tiles and the [B, s, s] windows of their labels."""
-        x0, y0 = xy
+                           idx: torch.Tensor, xy, s: int):
+        """Gather + crop on the card at origin ``xy`` (two ints, or an int64
+        [2] on the card): reads only the [B, C, s, s] windows of the indexed
+        tiles and the [B, s, s] windows of their labels."""
         safe = idx.clamp(min=0)
-        img = store_img[:, :, x0 : x0 + s, y0 : y0 + s][safe]
-        label = store_label[:, x0 : x0 + s, y0 : y0 + s][safe]
+        img = gather_crop(store_img, safe, xy, s)
+        label = gather_crop(store_label, safe, xy, s)
         return img, self._mask_pad(label, idx)
 
     def _mask_pad(self, label: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         keep = (idx >= 0).reshape((-1,) + (1,) * (label.dim() - 1))
         return torch.where(keep, label, torch.full_like(label, self.config.ignored_label))
 
+    def _crops_on_card(self, store_label: torch.Tensor) -> bool:
+        return self.crop and not self.shifting_window and store_label.dim() == 3
+
+    def _gather_step(self, store_img: torch.Tensor, store_label: torch.Tensor,
+                     idx: torch.Tensor, xy):
+        """A step's images and labels from the store at ``idx`` (this
+        process's rows) and crop origin ``xy`` (two ints or an int64 [2] on
+        the card; unused without a crop)."""
+        if self._crops_on_card(store_label):
+            s = self.window
+            img, label = self._gather_crop_batch(store_img, store_label, idx, xy, s)
+            if self.center_pixel:
+                label = label[:, s // 2, s // 2]
+            return img, label
+        return self._prep(*self._gather_batch(store_img, store_label, idx), xy)
+
+    @_conv_deterministic
     def train_step_idx(self, store_img: torch.Tensor, store_label: torch.Tensor, idx,
                        xy: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
         """One update on the store's tiles at ``idx`` ([B] indices of the
         global batch, -1 for padding: this process gathers its rows), as
         ``train_step`` on the same tiles: the crop origin is drawn first (or
         given as ``xy``), then the dropout seeds."""
-        idx = self._shard_idx(idx).to(store_img.device)
-        if self.crop and not self.shifting_window and store_label.dim() == 3:
-            s, xy = (self.window, xy) if xy is not None else self._crop_draw()
-            img, label = self._gather_crop_batch(store_img, store_label, idx, xy, s)
-            if self.center_pixel:
-                label = label[:, s // 2, s // 2]
-            return self._update(img, label)
-        return self._update(*self._prep(*self._gather_batch(store_img, store_label, idx), xy))
+        return self._step_idx(store_img, store_label, idx, xy)
 
-    def _update(self, img: torch.Tensor, label: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _step_idx(self, store_img, store_label, idx, xy=None) -> Dict[str, torch.Tensor]:
+        idx = self._shard_idx(idx).to(store_img.device)
+        if xy is None and self._crops_on_card(store_label):
+            xy = self._crop_draw()[1]
+        return self._update(*self._gather_step(store_img, store_label, idx, xy))
+
+    @_conv_deterministic
+    def train_chunk_idx(self, store_img: torch.Tensor, store_label: torch.Tensor,
+                        idx_chunk) -> Dict[str, torch.Tensor]:
+        """k updates on the store's tiles at the k index batches of
+        ``idx_chunk`` (each the global batch's, -1 for padding), with the
+        bits of k calls of ``train_step_idx``: every step's crop origin and
+        the model's draws first, in their order, then the steps by
+        ``self.route`` (``train/superstep.py``). A model without
+        ``draw_step`` (the zoo nets) draws inside its forward: its chunk is
+        k calls of ``train_step_idx``. Returns [k] device vectors of loss,
+        acc and macro_acc."""
+        k = len(idx_chunk)
+        if not hasattr(self.model, "draw_step"):
+            return self.superstep.run(self.state, k, lambda i: self._step_idx(
+                store_img, store_label, idx_chunk[i]))
+        rows = np.stack([self._shard_idx(i).numpy() for i in idx_chunk])
+        self.model.train()
+        shape = self._step_shape(store_img, store_label, rows.shape[1])
+        xy, draws = np.zeros((k, 2), np.int64), []
+        for i in range(k):
+            if self._crops_on_card(store_label):
+                xy[i] = self._crop_draw()[1]
+            draws.append(self.model.draw_step(self.state.rng, shape, store_img.device,
+                                              self.world.shard))
+        staged = self.superstep.stage(rows, xy, draws)
+
+        def step(i: int) -> Dict[str, torch.Tensor]:
+            xy_i = staged.xy[i] if self._crops_on_card(store_label) else None
+            img, label = self._gather_step(store_img, store_label, staged.idx[i], xy_i)
+            return self._update(img, label, staged.draws(i))
+
+        return self.superstep.run(self.state, k, step)
+
+    def _step_shape(self, store_img: torch.Tensor, store_label: torch.Tensor, rows: int):
+        """The shape of a step's images for ``rows`` indices, from the
+        gather's shapes alone (meta tensors)."""
+        meta = {"device": "meta"}
+        img, _ = self._gather_step(
+            torch.empty(store_img.shape, dtype=store_img.dtype, **meta),
+            torch.empty(store_label.shape, dtype=store_label.dtype, **meta),
+            torch.zeros(rows, dtype=torch.int64, **meta),
+            torch.zeros(2, dtype=torch.int64, **meta) if self._crops_on_card(store_label)
+            else None)
+        return tuple(img.shape)
+
+    def _update(self, img: torch.Tensor, label: torch.Tensor,
+                draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         """Forward in train mode, cross-entropy, backward and the Adam step
         on this process's rows of a batch, on the card; the global batch's
         loss and accuracies as device scalars. The loss is normalized by the
         global weight mass, so that the gradients summed over the processes
         are the global batch's (the ranks' means averaged would weigh the
-        rows of a rank with few valid labels more)."""
+        rows of a rank with few valid labels more). ``draws``: the model's
+        draws made ahead (``draw_step``), in place of the generator."""
         cfg, world = self.config, self.world
         self.model.train()
         self.model.zero_grad(set_to_none=True)
-        logits = self.model(img[:, None] if self.add_channel_dim else img, rng=self.state.rng,
-                            shard=world.shard)
+        x = img[:, None] if self.add_channel_dim else img
+        if draws is None:
+            logits = self.model(x, rng=self.state.rng, shard=world.shard)
+        else:
+            logits = self.model(x, shard=world.shard, draws=draws)
         num, wsum = cross_entropy_sums(logits, label, ignore_index=cfg.ignored_label,
                                        weight=self.class_weights)
         loss = num / all_reduce_(wsum.detach(), world).clamp_min(1e-12)
@@ -349,6 +456,7 @@ class Finetuner:
                                                  cl.dtype)])
             yield ci, cl
 
+    @_conv_deterministic
     def validate(self, val_loader, val_store: Optional[DeviceTileStore] = None) -> Optional[dict]:
         """Mean loss, acc and macro_acc over every window of the loader's
         batches: host batches, or index batches into ``val_store``. Each
@@ -390,6 +498,7 @@ class Finetuner:
         the generator seeded from the file's JAX key,
         ``io/flax_checkpoint.py``)."""
         restore_checkpoint(path, self.state)
+        self.superstep = Superstep(self.route, self.device)  # a graph holds the old state's addresses
         try:
             extra = load_metadata(path).get("extra", {})
         except FileNotFoundError:
@@ -400,6 +509,7 @@ class Finetuner:
         return self.state.step
 
     # --- loop ----------------------------------------------------------------
+    @_conv_deterministic
     def fit(self, train_dataset, val_dataset, tracker: Optional[Tracker] = None,
             models_dir: str = "models", save_checkpoints: bool = True,
             epochs: Optional[int] = None, max_steps: Optional[int] = None) -> dict:
@@ -467,20 +577,43 @@ class Finetuner:
         train_seconds, train_steps = 0.0, 0
         meter = Throughput(cfg.batch_size, num_chips=self.world.size)
         meter.start()
+        k = self.steps_per_call
+        self.superstep = Superstep(self.route, self.device)
+        if train_store is not None and k > 1:
+            print(f"[finetune] {self.route.describe(k)}")
 
         def done() -> bool:
             if strict:
                 return epoch >= epoch_budget or step >= step_budget
             return epoch >= epoch_budget + 1 and step >= step_budget + 1
 
-        def log_step():
-            means = {k: float(torch.stack(list(v)).float().mean()) for k, v in win.items() if v}
-            if "loss" in means and not np.isfinite(means["loss"]):
-                raise ValueError("Loss is NaN")
-            # the rates are read after the means' fetch, which waits for the card
-            tracker.log({"epoch": epoch, **means,
-                         "lr": get_learning_rates(self.state.optimizer)[0],
-                         **meter.window_stats()}, step=step)
+        def window_means() -> dict:
+            return {k: float(torch.stack(list(v)).float().mean()) for k, v in win.items() if v}
+
+        def book(metrics: dict) -> bool:
+            """Books a step's metrics (device scalars) or a chunk's ([k]): one
+            row per logging boundary crossed, each with its own window's
+            means (fetched first, which waits for the card) and the rates of
+            the steps since the last row, shared by a chunk's rows. Returns
+            whether a strict budget ends the epoch."""
+            nonlocal step, train_steps
+            n = metrics["loss"].numel()
+            rows = []
+            for j in range(n):
+                for name in win:
+                    win[name].append(metrics[name].reshape(-1)[j])
+                if (step + j + 1) % cfg.logging_freq == 0:
+                    rows.append((step + j + 1, window_means()))
+            meter.tick(n)
+            rates = meter.rates_for_chunk(step, step + n, cfg.logging_freq)
+            for at, means in rows:
+                if "loss" in means and not np.isfinite(means["loss"]):
+                    raise ValueError("Loss is NaN")
+                tracker.log({"epoch": epoch, **means,
+                             "lr": get_learning_rates(self.state.optimizer)[0], **rates}, step=at)
+            step += n
+            train_steps += n
+            return strict and step >= step_budget
 
         def loop_extra() -> dict:
             """The loop state a resume cannot rederive from the train state."""
@@ -500,24 +633,31 @@ class Finetuner:
             # the batches a complete pass over this epoch yields
             skip = resume_skip if epoch == start_epoch else 0
             expected = len(loader) - skip
-            batches = loader if train_store is None else list(loader)[skip:]
             t0 = time.perf_counter()
-            for batch in batches:
-                if train_store is None:
+            if train_store is None:
+                for batch in loader:
                     metrics = self.train_step(batch["img"], batch["label"])
-                else:
-                    metrics = self.train_step_idx(train_store.arrays["img"],
-                                                  train_store.arrays["label"], batch)
-                train_steps += 1
-                for k in win:
-                    win[k].append(metrics[k])
-                step += 1
-                consumed += 1
-                meter.tick()
-                if step % cfg.logging_freq == 0:
-                    log_step()
-                if strict and step >= step_budget:
-                    break
+                    consumed += 1
+                    if book(metrics):
+                        break
+            else:
+                batches = list(loader)[skip:]
+                store = (train_store.arrays["img"], train_store.arrays["label"])
+                while consumed < len(batches):
+                    # a full chunk of k when it fits the epoch and a strict
+                    # budget (JAX's rule), else one step
+                    if (k > 1 and consumed + k <= len(batches)
+                            and (not strict or step + k <= step_budget)):
+                        chunk = self.train_chunk_idx(*store, batches[consumed : consumed + k])
+                        consumed += k
+                        metrics = {name: v[-1] for name, v in chunk.items()}
+                        if book(chunk):
+                            break
+                    else:
+                        metrics = self.train_step_idx(*store, batches[consumed])
+                        consumed += 1
+                        if book(metrics):
+                            break
             sync()
             train_seconds += time.perf_counter() - t0
             epoch_complete = consumed >= expected

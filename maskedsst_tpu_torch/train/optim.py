@@ -31,6 +31,13 @@ the same head/rest groups; the sharma recipe steps :class:`MultiStepLR`.
 
 Groups are ordered head first, then the rest, the order in which the JAX
 package's ``get_learning_rates`` reports them.
+
+``capturable``: Adam and AdamW built so that their step can be captured
+in a CUDA graph (step counters on the card, the bias corrections computed
+there). A trainer on the superstep's graph route (``train/superstep.py``)
+builds them so, and its eager steps and graph replays take one
+arithmetic; everywhere else (the CPU, where torch refuses it, and the
+eager route) they are torch's default.
 """
 
 from __future__ import annotations
@@ -81,10 +88,10 @@ class Adagrad(torch.optim.Optimizer):
 
 
 def _make(name: str, groups, learning_rate: float, weight_decay: float,
-          momentum: float) -> torch.optim.Optimizer:
+          momentum: float, capturable: bool = False) -> torch.optim.Optimizer:
     if name == "Adam":
         return torch.optim.Adam(groups, lr=learning_rate, weight_decay=weight_decay,
-                                betas=(0.9, 0.999), eps=1e-8)
+                                betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
     if name == "SGD":
         return torch.optim.SGD(groups, lr=learning_rate, momentum=momentum,
                                weight_decay=weight_decay)
@@ -106,15 +113,18 @@ def build_optimizer(
     head_lr: Optional[float] = None,
     head_label_fn: Optional[Callable[[str], bool]] = None,
     linear_eval: bool = False,
+    capturable: bool = False,
 ) -> torch.optim.Optimizer:
     """The optimizer ``name`` (Adam, SGD, Adagrad or Adadelta, each with
     coupled L2; ``momentum`` for SGD) over the model's parameters, in
     head/rest groups when ``head_lr`` differs from ``learning_rate`` or
-    under ``linear_eval`` (head only, at ``head_lr`` or the base lr)."""
+    under ``linear_eval`` (head only, at ``head_lr`` or the base lr);
+    ``capturable`` for Adam."""
     named = list(model.named_parameters())
     needs_groups = linear_eval or (head_lr is not None and head_lr != learning_rate)
     if not needs_groups:
-        return _make(name, [p for _, p in named], learning_rate, weight_decay, momentum)
+        return _make(name, [p for _, p in named], learning_rate, weight_decay, momentum,
+                     capturable)
     if head_label_fn is None:
         raise ValueError("head_label_fn is required for parameter groups")
     head = [p for n, p in named if head_label_fn(n)]
@@ -122,7 +132,7 @@ def build_optimizer(
     groups = [{"params": head, "lr": head_lr if head_lr is not None else learning_rate}]
     if not linear_eval:
         groups.append({"params": rest, "lr": learning_rate})
-    return _make(name, groups, learning_rate, weight_decay, momentum)
+    return _make(name, groups, learning_rate, weight_decay, momentum, capturable)
 
 
 def get_learning_rates(optimizer: torch.optim.Optimizer) -> List[float]:
@@ -152,15 +162,17 @@ def plateau_scheduler(optimizer: torch.optim.Optimizer, factor: float = 0.9,
 
 
 def build_pretrain_optimizer(model: nn.Module, name: str, learning_rate: float,
-                             weight_decay: float = 0.0) -> torch.optim.Optimizer:
+                             weight_decay: float = 0.0,
+                             capturable: bool = False) -> torch.optim.Optimizer:
     """The pretraining optimizer named by the config: ``AdamW`` (the
     recipe's), decoupled decay on every parameter; any other name of
     :func:`build_optimizer` with its coupled L2, as the JAX pretrainer
-    builds them."""
+    builds them; ``capturable`` for Adam and AdamW."""
+    params = list(model.parameters())
     if name == "AdamW":
-        return torch.optim.AdamW(model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=weight_decay)
-    return _make(name, list(model.parameters()), learning_rate, weight_decay, 0.0)
+        return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=weight_decay, capturable=capturable)
+    return _make(name, params, learning_rate, weight_decay, 0.0, capturable)
 
 
 def clamp_gradients_(params: Iterable[torch.Tensor], bound: float) -> None:

@@ -35,24 +35,33 @@ dropout seeds by its rank. After the backward the gradients are averaged
 over the processes by one all-reduce (each process's loss is the mean over
 its equal share of the rows), so the clamp, the norm and AdamW see the
 global batch's gradient on every process, and so do the logged and
-validation losses. Not ported yet (ROADMAP.md): the superstep (CUDA graphs
-later).
+validation losses.
+
+Superstep (``steps_per_call``, default 16, as JAX): on the store path
+``fit`` takes the epoch's index batches in full chunks of k, each run by
+``train_chunk_idx`` (``train/superstep.py``: one CUDA graph replay of k
+steps on the card's ViT route, else k eager steps on the same staged
+inputs), with the bits of k single steps. A chunk clipped by
+``max_steps`` and the epoch's tail run as single steps; ``log_grad_norm``
+sets k to 1. A chunk that crosses logging boundaries logs one row per
+boundary, each with its own window's mean loss and the chunk's shared
+rates (``Throughput.rates_for_chunk``).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from collections import deque
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from maskedsst_tpu_torch.config import Config
-from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher
+from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher, gather_crop
 from maskedsst_tpu_torch.data.pipeline import DataLoader, split_dataset
 from maskedsst_tpu_torch.models import SimMIMSpatialSpectral, ViTSpatialSpectral
+from maskedsst_tpu_torch.models.layers import StepDraws
 from maskedsst_tpu_torch.parallel.mesh import (
     DataWorld,
     all_reduce_grads_,
@@ -74,6 +83,7 @@ from maskedsst_tpu_torch.train.optim import (
     get_learning_rates,
     global_norm,
 )
+from maskedsst_tpu_torch.train.superstep import Superstep, choose_route
 from maskedsst_tpu_torch.train.train_state import TrainState
 from maskedsst_tpu_torch.train.windows import window_tiles
 from maskedsst_tpu_torch.utils.tracking import Throughput, Tracker
@@ -160,15 +170,21 @@ class Pretrainer:
         self.device = resolve_device(device)
         self.tile_size = tile_size
         self.model = build_pretrain_model(config, dtype, self.device)
-        optimizer = build_pretrain_optimizer(self.model, config.optimizer, config.lr,
-                                             config.weight_decay)
-        self.grad_clamp = 1.0 if config.get("clip_grad_norm") else None
         self.log_grad_norm = bool(config.get("log_grad_norm", False))
+        self.steps_per_call = int(config.get("steps_per_call", 16))
+        # Adam and AdamW capturable on the graph route: its eager steps and
+        # replays take one arithmetic (train/superstep.py)
+        self.route = choose_route(self.device, self.world, self.model, config.optimizer,
+                                  1 if self.log_grad_norm else self.steps_per_call)
+        optimizer = build_pretrain_optimizer(self.model, config.optimizer, config.lr,
+                                             config.weight_decay, capturable=self.route.graph)
+        self.grad_clamp = 1.0 if config.get("clip_grad_norm") else None
         rng = torch.Generator().manual_seed(int(config.get("seed", 5)))
         self.state = TrainState(self.model, optimizer, rng)
         self.scheduler = build_scheduler(config.scheduler, optimizer)
         self.num_params = sum(p.numel() for p in self.model.parameters())
         self.crop = config.image_size != tile_size and config.dataset in ("dfc", "enmap")
+        self.superstep = Superstep(self.route, self.device)
 
     # --- one step ------------------------------------------------------------
     def _crop_draw(self) -> Tuple[int, int]:
@@ -177,21 +193,26 @@ class Pretrainer:
         x0, y0 = torch.randint(0, hi, (2,), generator=self.state.rng).tolist()
         return x0, y0
 
-    def _update(self, img: torch.Tensor,
-                bool_mask: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _update(self, img: torch.Tensor, bool_mask: Optional[torch.Tensor],
+                draws: Optional[StepDraws] = None) -> Dict[str, torch.Tensor]:
         """Loss, backward, the gradients averaged over the processes, clamp,
         AdamW on this process's rows ``img``; the mask drawn when not given
-        (a given one is the global batch's). Returns the global batch's loss
-        and, with ``log_grad_norm``, the raw gradients' global norm, as
-        device scalars."""
+        (a given one is the global batch's), or the mask and seeds of
+        ``draws`` (drawn ahead, this process's rows). Returns the global
+        batch's loss and, with ``log_grad_norm``, the raw gradients' global
+        norm, as device scalars."""
         model, world = self.model, self.world
         model.train()
         model.zero_grad(set_to_none=True)
-        if bool_mask is None:
-            bool_mask = model.sample_mask(img.shape[0], img.device, self.state.rng, world.shard)
+        if draws is not None:
+            loss = model(img, shard=world.shard, draws=draws)
         else:
-            bool_mask = bool_mask[world.rows(bool_mask.shape[0])]
-        loss = model(img, rng=self.state.rng, bool_mask=bool_mask, shard=world.shard)
+            if bool_mask is None:
+                bool_mask = model.sample_mask(img.shape[0], img.device, self.state.rng,
+                                              world.shard)
+            else:
+                bool_mask = bool_mask[world.rows(bool_mask.shape[0])]
+            loss = model(img, rng=self.state.rng, bool_mask=bool_mask, shard=world.shard)
         loss.backward()
         all_reduce_grads_(model.parameters(), world, 1.0 / world.size)
         metrics = {"loss": sum_across({"loss": loss.detach()}, world)["loss"] / world.size}
@@ -219,26 +240,56 @@ class Pretrainer:
         img = tiles.to(self.device, torch.float32)
         return self._update(img, bool_mask)
 
-    def _gather_crop(self, store_img: torch.Tensor, idx: torch.Tensor, xy: Tuple[int, int],
-                     s: int) -> torch.Tensor:
-        """Gather + crop on the card: reads only the [B, C, s, s] windows of
-        the indexed tiles."""
-        x0, y0 = xy
-        return store_img[:, :, x0 : x0 + s, y0 : y0 + s][idx]
+    def _gather_crop(self, store_img: torch.Tensor, idx: torch.Tensor, xy, s: int) -> torch.Tensor:
+        """Gather + crop on the card at origin ``xy`` (two ints, or an int64
+        [2] on the card): reads only the [B, C, s, s] windows of the indexed
+        tiles."""
+        return gather_crop(store_img, idx, xy, s)
+
+    def _gather(self, store_img: torch.Tensor, idx: torch.Tensor, xy) -> torch.Tensor:
+        """The batch at ``idx`` (this process's rows): its crop windows at
+        ``xy``, or the tiles' top-left windows without a crop."""
+        s = self.config.image_size
+        if self.crop:
+            return self._gather_crop(store_img, idx, xy, s)
+        return store_img[idx][:, :, :s, :s]
 
     def train_step_idx(self, store_img: torch.Tensor, idx,
                        xy: Optional[Tuple[int, int]] = None,
                        bool_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """One update on the store's tiles at ``idx`` ([B] indices of the
         global batch: this process gathers its rows)."""
-        s = self.config.image_size
         idx = torch.as_tensor(idx, dtype=torch.int64)
         idx = idx[self.world.rows(idx.shape[0])].to(store_img.device)
-        if self.crop:
-            img = self._gather_crop(store_img, idx, xy if xy is not None else self._crop_draw(), s)
-        else:
-            img = store_img[idx][:, :, :s, :s]
-        return self._update(img, bool_mask)
+        if self.crop and xy is None:
+            xy = self._crop_draw()
+        return self._update(self._gather(store_img, idx, xy), bool_mask)
+
+    def train_chunk_idx(self, store_img: torch.Tensor, idx_chunk) -> Dict[str, torch.Tensor]:
+        """k updates on the store's tiles at the k index batches of
+        ``idx_chunk`` (each the global batch's), with the bits of k calls of
+        ``train_step_idx``: every step's crop origin, mask and seeds drawn
+        first, in their order, then the steps by ``self.route``
+        (``train/superstep.py``). Returns [k] device vectors of the metrics."""
+        k = len(idx_chunk)
+        rows = np.stack([np.asarray(i, np.int64) for i in idx_chunk])
+        rows = rows[:, self.world.rows(rows.shape[1])]
+        s = self.config.image_size
+        shape = (rows.shape[1], store_img.shape[1], s, s)
+        self.model.train()
+        xy, draws = np.zeros((k, 2), np.int64), []
+        for i in range(k):
+            if self.crop:
+                xy[i] = self._crop_draw()
+            draws.append(self.model.draw_step(self.state.rng, shape, store_img.device,
+                                              self.world.shard))
+        staged = self.superstep.stage(rows, xy, draws)
+
+        def step(i: int) -> Dict[str, torch.Tensor]:
+            img = self._gather(store_img, staged.idx[i], staged.xy[i])
+            return self._update(img, None, staged.draws(i))
+
+        return self.superstep.run(self.state, k, step)
 
     @torch.no_grad()
     def _step_val(self, tiles: torch.Tensor, seed: int,
@@ -273,6 +324,7 @@ class Pretrainer:
         key, ``io/flax_checkpoint.py``), and the scheduler from its
         sidecar; returns the step."""
         restore_checkpoint(path, self.state)
+        self.superstep = Superstep(self.route, self.device)  # a graph holds the old state's addresses
         try:
             sched = load_metadata(path).get("extra", {}).get("scheduler")
         except FileNotFoundError:
@@ -341,23 +393,58 @@ class Pretrainer:
         if start_epoch > 10 and model_save_freq == 1:
             model_save_freq = 10  # the switch at epoch 10 fired before the save
         freq = cfg.logging_freq
-        window: deque = deque(maxlen=freq)  # device scalars until a logging boundary
-        gn_window: deque = deque(maxlen=freq)
+        # device scalars and [k] vectors, fetched at a logging boundary
+        window: list = []
+        gn_window: list = []
         history: dict = {"train_loss": [], "val_loss": []}
         train_seconds = 0.0
         meter = Throughput(bs, num_chips=self.world.size)
         meter.start()
+        k = 1 if self.log_grad_norm else max(1, self.steps_per_call)
+        self.superstep = Superstep(self.route, self.device)
+        if train_store is not None and k > 1:
+            print(f"[pretrain] {self.route.describe(k)}")
 
-        def log_row(epoch: int) -> None:
-            loss = float(torch.stack(list(window)).float().mean())
-            if np.isnan(loss):
-                raise ValueError("Loss is NaN")
-            # the rates are read after the loss fetch, which waits for the card
-            row = {"epoch": epoch, "loss": loss,
-                   "lr": get_learning_rates(self.state.optimizer)[0], **meter.window_stats()}
-            if gn_window:
-                row["grad_norm"] = float(torch.stack(list(gn_window)).float().mean())
-            tracker.log(row, step=step)
+        def log_rows(epoch: int, prev_step: int) -> None:
+            """One row per logging boundary in (prev_step, step], each the mean
+            of the freq values up to it, taken where they lie (a fresh
+            [freq] tensor, as a stack of the steps' scalars); the rates
+            shared, read once after the first fetch, which waits for the
+            card."""
+            nonlocal window, gn_window
+            if step // freq == prev_step // freq:
+                return
+            losses = torch.cat([v.reshape(-1).float() for v in window])
+            norms = torch.cat([v.reshape(-1).float() for v in gn_window]) if gn_window else None
+            bounds = range((prev_step // freq + 1) * freq, step + 1, freq)
+            means = []
+            for b in bounds:
+                end = losses.numel() - (step - b)
+                lo = max(0, end - freq)
+                means.append((float(losses[lo:end].clone().mean()),
+                               None if norms is None else float(norms[lo:end].clone().mean())))
+            rates = meter.rates_for_chunk(prev_step, step, freq)
+            lr = get_learning_rates(self.state.optimizer)[0]
+            for b, (loss, norm) in zip(bounds, means):
+                if np.isnan(loss):
+                    raise ValueError("Loss is NaN")
+                row = {"epoch": epoch, "loss": loss, "lr": lr, **rates}
+                if norm is not None:
+                    row["grad_norm"] = norm
+                tracker.log(row, step=b)
+            window = [losses[-freq:]]
+            gn_window = [norms[-freq:]] if norms is not None else []
+
+        def book(metrics: Dict[str, torch.Tensor]) -> None:
+            """Books a step's metrics (device scalars) or a chunk's ([k])."""
+            nonlocal step, last
+            n = metrics["loss"].numel()
+            window.append(metrics["loss"])
+            if "grad_norm" in metrics:
+                gn_window.append(metrics["grad_norm"])
+            last = metrics["loss"].reshape(-1)[-1]
+            step += n
+            meter.tick(n)
 
         def sync():
             if self.device.type == "cuda":
@@ -375,23 +462,32 @@ class Pretrainer:
             t0 = time.perf_counter()
             if train_store is not None:
                 batches = list(loader)[resume_skip if epoch == start_epoch else 0 :]
+                store_img = train_store.arrays["img"]
+                # full chunks of k; a chunk clipped by max_steps, and the
+                # epoch's tail, as single steps (JAX's rule)
+                pos = 0
+                while pos < len(batches):
+                    prev_step = step
+                    chunk = batches[pos : pos + k]
+                    if max_steps is not None:
+                        chunk = chunk[: max(0, max_steps - step)]
+                        if not chunk:
+                            break
+                    pos += len(chunk)
+                    if len(chunk) == k and k > 1:
+                        book(self.train_chunk_idx(store_img, chunk))
+                    else:
+                        for batch in chunk:
+                            book(self.train_step_idx(store_img, batch))
+                    log_rows(epoch, prev_step)
+                    if max_steps is not None and step >= max_steps:
+                        break
             else:
-                batches = loader
-            for batch in batches:
-                if train_store is not None:
-                    metrics = self.train_step_idx(train_store.arrays["img"], batch)
-                else:
-                    metrics = self.train_step(batch["img"])
-                last = metrics["loss"]
-                window.append(last)
-                if "grad_norm" in metrics:
-                    gn_window.append(metrics["grad_norm"])
-                step += 1
-                meter.tick()
-                if step % freq == 0:
-                    log_row(epoch)
-                if max_steps is not None and step >= max_steps:
-                    break
+                for batch in loader:
+                    book(self.train_step(batch["img"]))
+                    log_rows(epoch, step - 1)
+                    if max_steps is not None and step >= max_steps:
+                        break
             sync()
             train_seconds += time.perf_counter() - t0
             # epoch-end hooks fire only for completed epochs

@@ -32,12 +32,22 @@ class TrainState:
     def load_state_dict(self, payload: Dict[str, Any]) -> None:
         self.model.load_state_dict(payload["model"])
         opt = payload["optimizer"]
+        # a load takes the saved groups' flags: keep this optimizer's own
+        # ``capturable`` (a card run saves True, a CPU run False), so that a
+        # file moves between the card and the CPU
+        capturable = [g.get("capturable", False) for g in self.optimizer.param_groups]
+        if len(capturable) == len(opt["param_groups"]):
+            opt = {**opt, "param_groups": [
+                {**g, "capturable": c} if "capturable" in g else g
+                for g, c in zip(opt["param_groups"], capturable)]}
         # torch keeps the step counters of an optimizer that is neither
-        # fused nor capturable (the port's) on the CPU, and a load leaves
-        # them where the payload was mapped: put them back
-        for s in opt["state"].values():
-            if isinstance(s.get("step"), torch.Tensor):
-                s["step"] = s["step"].cpu()
+        # fused nor capturable on the CPU, and a load leaves them where the
+        # payload was mapped: put them back. A capturable optimizer keeps
+        # them on the card (the load moves them beside their parameters).
+        if not any(capturable):
+            for s in opt["state"].values():
+                if isinstance(s.get("step"), torch.Tensor):
+                    s["step"] = s["step"].cpu()
         self.optimizer.load_state_dict(opt)
         self.rng.set_state(payload["rng"].cpu())  # a CPU generator
         self.step = int(payload["step"])

@@ -199,6 +199,31 @@ def test_store_step_matches_jax(jax_side):
         assert err <= 1e-4 * np.abs(want).max(), f"{name}: {err:.3e}"
 
 
+def test_chunk_matches_jax(jax_side):
+    """A 2-step chunk (``train_chunk_idx``, the superstep's eager route on
+    the CPU) from a store holding the two batches: its first step's metrics
+    and the parameters after both steps against the JAX oracle, by the rule
+    of test_finetune_step_matches_jax."""
+    from maskedsst_tpu_torch.data.device_store import DeviceTileStore
+
+    batches = [_batch(0), _batch(1)]
+    store = DeviceTileStore([{"img": img[r], "label": label[r]}
+                             for img, label in batches for r in range(2)], "cpu")
+    trainer = _port_trainer(jax_side["params0"], steps_per_call=2)
+    m = trainer.train_chunk_idx(store.arrays["img"], store.arrays["label"], [[0, 1], [2, 3]])
+    assert trainer.state.step == 2
+    for key in ("loss", "acc", "macro_acc"):
+        assert m[key].shape == (2,) and abs(float(m[key][0]) - jax_side[key]) <= 2e-5, key
+    have = _leaves(flax_from_params(trainer.model.state_dict()))
+    for name, want in jax_side["params2"].items():
+        lr = trainer.config.mlp_head_lr if "head_" in name else trainer.config.lr
+        sensitive = ((np.abs(jax_side["effective_grads1"][name]) < 1e-6)
+                     | (np.abs(jax_side["effective_grads2"][name]) < 1e-6))
+        err = np.abs(have[name] - want)
+        assert err[~sensitive].max(initial=0.0) <= 1e-2 * lr, name
+        assert err[sensitive].max(initial=0.0) <= 2 * lr, name
+
+
 def test_injected_crop_origin_matches_jax_prep(jax_side):
     jt = jax_side["crop_finetuner"]
     trainer = _port_trainer(jax_side["params0"])

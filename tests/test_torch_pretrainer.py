@@ -148,6 +148,25 @@ def test_pretrain_step_matches_jax(jax_side):
             assert err <= 1e-2 * lr, f"step {k} {name}: {err / lr:.3e} lr"
 
 
+def test_chunk_matches_jax(jax_side):
+    """A 2-step chunk (``train_chunk_idx``, the superstep's eager route on
+    the CPU) from a store holding the two batches, under the injected tube
+    masks, reaches the JAX parameters after steps 1 and 2 within 1e-2 x
+    lr, and its first loss the JAX step's."""
+    trainer = _port_trainer(jax_side["params0"], steps_per_call=2)
+    masks = iter([torch.from_numpy(_tube_masks(k, 2, 20)) for k in (1, 2)])
+    trainer.model.sample_mask = lambda *args: next(masks)
+    store = torch.from_numpy(np.concatenate([_batch(1), _batch(2)]))
+    losses = trainer.train_chunk_idx(store, [[0, 1], [2, 3]])["loss"]
+    assert losses.shape == (2,) and trainer.state.step == 2
+    assert abs(float(losses[0]) - jax_side["loss"]) <= 2e-5 * abs(jax_side["loss"])
+    lr = trainer.config.lr
+    have = _leaves(flax_from_params(trainer.model.state_dict()))
+    for name, want in jax_side["params2"].items():
+        err = np.abs(have[name] - want).max()
+        assert err <= 1e-2 * lr, f"{name}: {err / lr:.3e} lr"
+
+
 def test_two_ranks_match_jax(jax_side, tmp_path):
     """The JAX step on a one-device mesh is what its multi-process mesh
     computes (tests/test_multihost.py): two Gloo ranks of the port, one row
@@ -236,6 +255,10 @@ def test_injected_crop_origin_matches_jax_gather_crop():
                                       jnp.asarray([13, 41]), 8)
     trainer = Pretrainer(_cfg(get_pretrain_config, **NARROW), device="cpu")
     got = trainer._gather_crop(torch.from_numpy(tiles), torch.from_numpy(idx), (13, 41), 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the superstep's route: the origin a tensor, gathered by index arithmetic
+    got = trainer._gather_crop(torch.from_numpy(tiles), torch.from_numpy(idx),
+                               torch.tensor([13, 41]), 8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # a drawn origin stays in [0, tile - s)
     for _ in range(50):

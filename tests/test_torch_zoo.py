@@ -384,13 +384,21 @@ def test_li_finetune_step_matches_jax(monkeypatch):
     with the last class zeroed, the cubes given their channel axis) through
     the port's Finetuner against the JAX Finetuner's loss and optax chain,
     on 7x7 windows of 8x8 tiles taken at the origin. The Finetuner selects
-    cuDNN's deterministic algorithms for a zoo net (exact resume)."""
+    cuDNN's deterministic algorithms for a zoo net's steps (exact resume)
+    and leaves the process's flag as it was outside them."""
     cfg, jcfg = _li_configs()
     model, kwargs = build_finetune_model(cfg, device="cpu")
     jmodel, jkwargs = jax_build(jcfg)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
     trainer = Finetuner(cfg, model, tile_size=64, **kwargs)
-    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.deterministic
+    flags, update = [], trainer._update
+
+    def recorded(*args, **kw):
+        flags.append(torch.backends.cudnn.deterministic)
+        return update(*args, **kw)
+
+    trainer._update = recorded
     jt = JaxFinetuner(jcfg, jmodel, mesh=get_mesh(devices=jax.devices()[:1]), tile_size=64,
                       **jkwargs)
     like = jt.state.params
@@ -413,6 +421,7 @@ def test_li_finetune_step_matches_jax(monkeypatch):
     got, want = _leaves(zoo_flax_from_state(model.state_dict(), like)["params"]), _leaves(params)
     _close_per_tensor({k: got[k] - before[k] for k in got},
                       {k: want[k] - before[k] for k in want}, 1e-4)
+    assert flags == [True, True] and not torch.backends.cudnn.deterministic
     assert trainer.state.optimizer.state  # SGD momentum buffers, saved by a checkpoint
     assert all("momentum_buffer" in s for s in trainer.state.optimizer.state.values())
 
