@@ -20,6 +20,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from maskedsst_tpu_torch.utils.profiling import span
+
 
 def default_devices(device: str) -> List[str]:
     """Every visible card for the default ``"cuda"``, else ``[device]``."""
@@ -78,22 +80,35 @@ class Predictor:
     def __call__(self, x: np.ndarray) -> np.ndarray:
         """x [N, ...] → outputs [N, ...]; N may be ragged, or 0 (the empty
         result keeps the output's trailing shape and dtype). bf16 outputs
-        come back as float32, which numpy can hold."""
+        come back as float32, which numpy can hold.
+
+        Under a torch profiler the call records host spans
+        (``utils/profiling.py::span``): ``serve.call`` with ``rows`` (asked),
+        ``rows_run`` (the padded rows the replicas ran) and ``batches``, and
+        in it, per batch and replica, ``serve.copy_in`` (the replica's rows
+        made contiguous, its zeroed device batch, the upload) and
+        ``serve.forward`` (its forward and the postprocess), then per batch
+        ``serve.copy_out`` (the rows fetched, which waits on the cards)."""
         n, per = x.shape[0], self.per_device
-        outs = []
-        with torch.inference_mode():
+        outs, batches = [], 0
+        with span("serve.call", rows=n) as call, torch.inference_mode():
             for start in range(0, n, self.batch_size):
-                chunk = np.ascontiguousarray(x[start : start + self.batch_size])
                 launched = []
                 for i, (dev, replica) in enumerate(zip(self.devices, self.replicas)):
-                    rows = chunk[i * per : (i + 1) * per]
-                    part = torch.zeros((per, *chunk.shape[1:]), dtype=torch.float32, device=dev)
-                    part[: rows.shape[0]] = torch.from_numpy(rows).to(dev, torch.float32)
-                    out = replica(part)
-                    if isinstance(out, tuple):  # semi-supervised zoo nets
-                        out = out[0]
-                    launched.append((self.post(out), rows.shape[0]))
-                outs += [_to_numpy(out[:real]) for out, real in launched if real]
+                    with span("serve.copy_in"):
+                        rows = np.ascontiguousarray(
+                            x[start : start + self.batch_size][i * per : (i + 1) * per])
+                        part = torch.zeros((per, *x.shape[1:]), dtype=torch.float32, device=dev)
+                        part[: rows.shape[0]] = torch.from_numpy(rows).to(dev, torch.float32)
+                    with span("serve.forward"):
+                        out = replica(part)
+                        if isinstance(out, tuple):  # semi-supervised zoo nets
+                            out = out[0]
+                        launched.append((self.post(out), rows.shape[0]))
+                with span("serve.copy_out"):
+                    outs += [_to_numpy(out[:real]) for out, real in launched if real]
+                batches += 1
+            call.count(rows_run=batches * self.batch_size, batches=batches)
             if outs:
                 return np.concatenate(outs)
             # shape and dtype only: the postprocess runs on a meta tensor

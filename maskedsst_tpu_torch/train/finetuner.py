@@ -106,6 +106,7 @@ from maskedsst_tpu_torch.train.pretrainer import largest_divisor
 from maskedsst_tpu_torch.train.superstep import Superstep, choose_route
 from maskedsst_tpu_torch.train.train_state import TrainState
 from maskedsst_tpu_torch.train.windows import window_tiles
+from maskedsst_tpu_torch.utils.profiling import span
 from maskedsst_tpu_torch.utils.tracking import Throughput, Tracker
 
 
@@ -332,26 +333,28 @@ class Finetuner:
         k calls of ``train_step_idx``. Returns [k] device vectors of loss,
         acc and macro_acc."""
         k = len(idx_chunk)
-        if not hasattr(self.model, "draw_step"):
-            return self.superstep.run(self.state, k, lambda i: self._step_idx(
-                store_img, store_label, idx_chunk[i]))
-        rows = np.stack([self._shard_idx(i).numpy() for i in idx_chunk])
-        self.model.train()
-        shape = self._step_shape(store_img, store_label, rows.shape[1])
-        xy, draws = np.zeros((k, 2), np.int64), []
-        for i in range(k):
-            if self._crops_on_card(store_label):
-                xy[i] = self._crop_draw()[1]
-            draws.append(self.model.draw_step(self.state.rng, shape, store_img.device,
-                                              self.world.shard))
-        staged = self.superstep.stage(rows, xy, draws)
+        with span("train.chunk", steps=k):
+            if not hasattr(self.model, "draw_step"):
+                return self.superstep.run(self.state, k, lambda i: self._step_idx(
+                    store_img, store_label, idx_chunk[i]))
+            rows = np.stack([self._shard_idx(i).numpy() for i in idx_chunk])
+            self.model.train()
+            shape = self._step_shape(store_img, store_label, rows.shape[1])
+            with span("train.draw"):
+                xy, draws = np.zeros((k, 2), np.int64), []
+                for i in range(k):
+                    if self._crops_on_card(store_label):
+                        xy[i] = self._crop_draw()[1]
+                    draws.append(self.model.draw_step(self.state.rng, shape, store_img.device,
+                                                      self.world.shard))
+            staged = self.superstep.stage(rows, xy, draws)
 
-        def step(i: int) -> Dict[str, torch.Tensor]:
-            xy_i = staged.xy[i] if self._crops_on_card(store_label) else None
-            img, label = self._gather_step(store_img, store_label, staged.idx[i], xy_i)
-            return self._update(img, label, staged.draws(i))
+            def step(i: int) -> Dict[str, torch.Tensor]:
+                xy_i = staged.xy[i] if self._crops_on_card(store_label) else None
+                img, label = self._gather_step(store_img, store_label, staged.idx[i], xy_i)
+                return self._update(img, label, staged.draws(i))
 
-        return self.superstep.run(self.state, k, step)
+            return self.superstep.run(self.state, k, step)
 
     def _step_shape(self, store_img: torch.Tensor, store_label: torch.Tensor, rows: int):
         """The shape of a step's images for ``rows`` indices, from the

@@ -86,6 +86,7 @@ from maskedsst_tpu_torch.train.optim import (
 from maskedsst_tpu_torch.train.superstep import Superstep, choose_route
 from maskedsst_tpu_torch.train.train_state import TrainState
 from maskedsst_tpu_torch.train.windows import window_tiles
+from maskedsst_tpu_torch.utils.profiling import span
 from maskedsst_tpu_torch.utils.tracking import Throughput, Tracker
 
 VAL_SEED = 7  # the JAX loop's validation key, PRNGKey(7)
@@ -272,24 +273,26 @@ class Pretrainer:
         first, in their order, then the steps by ``self.route``
         (``train/superstep.py``). Returns [k] device vectors of the metrics."""
         k = len(idx_chunk)
-        rows = np.stack([np.asarray(i, np.int64) for i in idx_chunk])
-        rows = rows[:, self.world.rows(rows.shape[1])]
-        s = self.config.image_size
-        shape = (rows.shape[1], store_img.shape[1], s, s)
-        self.model.train()
-        xy, draws = np.zeros((k, 2), np.int64), []
-        for i in range(k):
-            if self.crop:
-                xy[i] = self._crop_draw()
-            draws.append(self.model.draw_step(self.state.rng, shape, store_img.device,
-                                              self.world.shard))
-        staged = self.superstep.stage(rows, xy, draws)
+        with span("train.chunk", steps=k):
+            rows = np.stack([np.asarray(i, np.int64) for i in idx_chunk])
+            rows = rows[:, self.world.rows(rows.shape[1])]
+            s = self.config.image_size
+            shape = (rows.shape[1], store_img.shape[1], s, s)
+            self.model.train()
+            with span("train.draw"):
+                xy, draws = np.zeros((k, 2), np.int64), []
+                for i in range(k):
+                    if self.crop:
+                        xy[i] = self._crop_draw()
+                    draws.append(self.model.draw_step(self.state.rng, shape, store_img.device,
+                                                      self.world.shard))
+            staged = self.superstep.stage(rows, xy, draws)
 
-        def step(i: int) -> Dict[str, torch.Tensor]:
-            img = self._gather(store_img, staged.idx[i], staged.xy[i])
-            return self._update(img, None, staged.draws(i))
+            def step(i: int) -> Dict[str, torch.Tensor]:
+                img = self._gather(store_img, staged.idx[i], staged.xy[i])
+                return self._update(img, None, staged.draws(i))
 
-        return self.superstep.run(self.state, k, step)
+            return self.superstep.run(self.state, k, step)
 
     @torch.no_grad()
     def _step_val(self, tiles: torch.Tensor, seed: int,

@@ -34,6 +34,14 @@ how the trainer was built (:func:`choose_route`):
 
 Either route returns the chunk's metrics as [K] device vectors, and gives
 the bits of K single steps.
+
+Under a torch profiler the host's part is recorded as spans
+(``utils/profiling.py::span``) inside the trainers' ``train.chunk``
+(``steps``) and its ``train.draw``: ``train.stage``, in it
+``train.stage_wait`` (the host waiting on the card for a pinned buffer);
+``train.capture`` and ``train.replay``, each with ``launches``, the counts
+by kernel that a replay adds; ``train.eager`` (an eager or warm-up chunk)
+with ``launches``, the counts its wrappers added.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 
 from maskedsst_tpu_torch.models.layers import StepDraws
 from maskedsst_tpu_torch.ops import add_launch_counts, launch_counts
+from maskedsst_tpu_torch.utils.profiling import span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -95,6 +104,17 @@ def chain(step: Callable[[int], Metrics], k: int) -> Metrics:
     """Steps 0..k-1 one after the other; their metrics stacked into [k]."""
     outs = [step(i) for i in range(k)]
     return {name: torch.stack([o[name] for o in outs]) for name in outs[0]}
+
+
+def _eager(step: Callable[[int], Metrics], k: int) -> Metrics:
+    """:func:`chain` in a ``train.eager`` span that counts its launches."""
+    with span("train.eager") as sp:
+        before = launch_counts() if sp else None
+        out = chain(step, k)
+        if sp:
+            after = launch_counts()
+            sp.count(launches={name: after[name] - before[name] for name in after})
+    return out
 
 
 class Staged(NamedTuple):
@@ -147,33 +167,35 @@ class Superstep:
         """Puts a chunk's inputs on the device: ``idx`` int [K, B] (this
         process's rows), ``xy`` int [K, 2], ``draws`` the K steps' draws
         (seeds on the CPU, masks on the device)."""
-        seeds = torch.stack([d.seeds for d in draws]).to(torch.int64).numpy()
-        table = np.concatenate([np.asarray(idx, np.int64), np.asarray(xy, np.int64), seeds],
-                               axis=1)
-        k, b, n_seeds = table.shape[0], idx.shape[1], seeds.shape[1]
-        masks = [d.mask for d in draws]
-        keeps = [d.keep for d in draws]
-        key = (table.shape, *(None if t[0] is None else (tuple(t[0].shape), t[0].dtype)
-                              for t in (masks, keeps)))
-        if key != self._key:
-            self._allocate(key, k, b, n_seeds, masks[0], keeps[0])
-        if self.device.type == "cuda":
-            host, event = self._pinned[self._turn]
-            if event is not None:
-                event.synchronize()  # the copy two chunks ago has read this buffer
-            host.numpy()[...] = table
-            self._table.copy_(host, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            self._pinned[self._turn][1] = event
-            self._turn ^= 1
-        else:
-            self._table.copy_(torch.from_numpy(table))
-        st = self._staged
-        st.seeds.copy_(self._table[:, b + 2 :])
-        _stack_into(st.mask, masks)
-        _stack_into(st.keep, keeps)
-        return st
+        with span("train.stage"):
+            seeds = torch.stack([d.seeds for d in draws]).to(torch.int64).numpy()
+            table = np.concatenate([np.asarray(idx, np.int64), np.asarray(xy, np.int64), seeds],
+                                   axis=1)
+            k, b, n_seeds = table.shape[0], idx.shape[1], seeds.shape[1]
+            masks = [d.mask for d in draws]
+            keeps = [d.keep for d in draws]
+            key = (table.shape, *(None if t[0] is None else (tuple(t[0].shape), t[0].dtype)
+                                  for t in (masks, keeps)))
+            if key != self._key:
+                self._allocate(key, k, b, n_seeds, masks[0], keeps[0])
+            if self.device.type == "cuda":
+                host, event = self._pinned[self._turn]
+                if event is not None:
+                    with span("train.stage_wait"):
+                        event.synchronize()  # the copy two chunks ago has read this buffer
+                host.numpy()[...] = table
+                self._table.copy_(host, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                self._pinned[self._turn][1] = event
+                self._turn ^= 1
+            else:
+                self._table.copy_(torch.from_numpy(table))
+            st = self._staged
+            st.seeds.copy_(self._table[:, b + 2 :])
+            _stack_into(st.mask, masks)
+            _stack_into(st.keep, keeps)
+            return st
 
     def _allocate(self, key, k, b, n_seeds, mask, keep) -> None:
         self._graph = self._outputs = self._graph_key = None
@@ -196,15 +218,18 @@ class Superstep:
         """The chunk's K steps (``step(i)`` reads row i of the staged inputs
         and makes one update of ``state``): [K] metric vectors."""
         if not self.route.graph:
-            return chain(step, k)
+            return _eager(step, k)
         shapes = (k, self._key)
         if shapes not in self._warm:
             self._warm.add(shapes)
-            return chain(step, k)
+            return _eager(step, k)
         key = (shapes, tuple(float(g["lr"]) for g in state.optimizer.param_groups))
         if key != self._graph_key:
-            self._capture(state, k, step, key)
-        self._graph.replay()
+            with span("train.capture") as sp:
+                self._capture(state, k, step, key)
+                sp.count(launches=self._counts)
+        with span("train.replay", launches=self._counts):
+            self._graph.replay()
         self.replays += 1
         add_launch_counts(self._counts)
         state.step += k

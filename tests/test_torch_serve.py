@@ -18,6 +18,7 @@ from maskedsst_tpu_torch.config import get_finetune_config
 from maskedsst_tpu_torch.io.flax_params import flax_from_params, params_from_flax
 from maskedsst_tpu_torch.serve import Predictor
 from maskedsst_tpu_torch.train.factory import build_finetune_model
+from maskedsst_tpu_torch.utils import profiling
 
 CONFIGS = ("configs/finetune_config_enmap.yaml", "configs/config.yaml")
 ATOL = 2e-5
@@ -167,3 +168,62 @@ def test_unported_methods_raise(method):
     got = Predictor(model, batch_size=2, device="cpu")(x)
     assert got.shape == want.shape == (3, 8, 8, 8) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+# --- host spans ---------------------------------------------------------------
+
+class _FirstColumns(torch.nn.Module):
+    """A stand-in served model: each row's first three values as its logits."""
+
+    logits_shape = (3,)
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)[:, :3]
+
+
+def _traced_call(predictor, x):
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = predictor(x)
+    return out, profiling.recorded_spans()
+
+
+def test_predictor_spans_count_rows_batches_and_nest_per_batch():
+    """A ragged call (300 rows at batch 256) under a profiler: one
+    ``serve.call`` counting 300 rows asked, 512 run, 2 batches; each batch
+    one ``copy_in``, ``forward`` and ``copy_out`` in that order, children of
+    the call by ``parent_id``, each inside its parent's interval."""
+    x = np.arange(300 * 8, dtype=np.float32).reshape(300, 2, 2, 2)
+    out, spans = _traced_call(Predictor(_FirstColumns(), batch_size=256, device="cpu"), x)
+    np.testing.assert_array_equal(out, x.reshape(300, -1)[:, :3])
+    calls = [s for s in spans if s[0] == "serve.call"]
+    assert len(calls) == 1 and len(spans) == 7
+    name, call_id, parent, start, end, counts = calls[0]
+    assert parent is None and counts == {"rows": 300, "rows_run": 512, "batches": 2}
+    children = sorted((s for s in spans if s[0] != "serve.call"), key=lambda s: s[3])
+    assert [s[0] for s in children] == ["serve.copy_in", "serve.forward", "serve.copy_out"] * 2
+    for s in children:
+        assert s[2] == call_id and start <= s[3] <= s[4] <= end and s[5] == {}
+    assert all(a[4] <= b[3] for a, b in zip(children, children[1:]))
+
+
+def test_predictor_records_nothing_without_a_profiler():
+    profiling.clear_spans()
+    Predictor(_FirstColumns(), batch_size=4, device="cpu")(np.zeros((5, 2, 2, 2), np.float32))
+    assert profiling.recorded_spans() == [] and profiling.dropped_spans() == 0
+
+
+@pytest.mark.parametrize("n,batch", [(300, 256), (0, 4), (8, 4), (9, 4)])
+def test_predictor_rows_run_equals_what_a_forward_pre_hook_counts(n, batch):
+    """The padded rows counted on ``serve.call`` are the rows the model is
+    called on, as the benchmark's forward pre-hook counts them."""
+    model, hooked = _FirstColumns(), []
+    model.register_forward_pre_hook(lambda module, args: hooked.append(args[0].shape[0]))
+    _, spans = _traced_call(Predictor(model, batch_size=batch, device="cpu"),
+                            np.zeros((n, 2, 2, 2), np.float32))
+    (call,) = [s for s in spans if s[0] == "serve.call"]
+    assert call[5]["rows_run"] == sum(hooked) and call[5]["batches"] == len(hooked)
+    assert call[5]["rows"] == n

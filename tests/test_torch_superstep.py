@@ -20,6 +20,7 @@ from maskedsst_tpu_torch.data.device_store import DeviceTileStore, IndexBatcher,
 from maskedsst_tpu_torch.data.pipeline import split_dataset
 from maskedsst_tpu_torch.data.synthetic import SyntheticCubeDataset
 from maskedsst_tpu_torch.models.zoo import get_model as zoo_get_model
+from maskedsst_tpu_torch.ops import launch_counts
 from maskedsst_tpu_torch.ops.fused_layer import (
     LayerConfig,
     LayerParams,
@@ -32,6 +33,8 @@ from maskedsst_tpu_torch.parallel.mesh import DataWorld, Grid
 from maskedsst_tpu_torch.train import superstep
 from maskedsst_tpu_torch.train.factory import build_finetune_model
 from maskedsst_tpu_torch.train.finetuner import Finetuner
+from maskedsst_tpu_torch.train.pretrainer import Pretrainer
+from maskedsst_tpu_torch.utils import profiling
 from tests.quiet_tracker import QuietTracker
 from tests.test_torch_checkpoint import (
     TILE,
@@ -400,3 +403,110 @@ def test_a_load_keeps_the_optimizers_own_capturable_flag(pretrain_data):
     assert all(s["step"].device.type == "cpu" for s in other.state.optimizer.state.values())
     other.train_step_idx(store, np.arange(8, 16))
     assert other.state.step == 2
+
+
+# --- host spans ---------------------------------------------------------------
+
+def _chunk_spans(trainer_kind, pretrain_data, finetune_data, k=3):
+    """A chunk of ``k`` steps on the CPU under a profiler: (its span records,
+    the launch counts' change over it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if trainer_kind == "pretrain":
+        trainer = _pretrainer(_pre_cfg(steps_per_call=k))
+        store = (DeviceTileStore(pretrain_data, "cpu").arrays["img"],)
+        n, bs = len(pretrain_data), 8
+    else:
+        trainer = _finetuner(_fine_cfg(steps_per_call=k))
+        arrays = DeviceTileStore(finetune_data[0], "cpu").arrays
+        store = (arrays["img"], arrays["label"])
+        n, bs = len(finetune_data[0]), 4
+    batches = list(IndexBatcher(n, bs, shuffle=True, drop_last=False, seed=3))[:k]
+    profiling.clear_spans()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]):
+        trainer.train_chunk_idx(*store, batches)
+    after = launch_counts()
+    return profiling.recorded_spans(), {name: after[name] - before[name] for name in after}
+
+
+@pytest.mark.parametrize("trainer_kind", ["pretrain", "finetune"])
+def test_an_eager_chunk_records_its_host_spans(trainer_kind, pretrain_data, finetune_data):
+    """``train.chunk`` (its ``steps``) holds ``train.draw``, ``train.stage``
+    and ``train.eager`` in that order, each inside it; the eager span counts
+    the launches the wrappers counted (none on the CPU, where the plain
+    versions run), and no span waits on a card."""
+    spans, delta = _chunk_spans(trainer_kind, pretrain_data, finetune_data)
+    (chunk,) = [s for s in spans if s[0] == "train.chunk"]
+    assert chunk[2] is None and chunk[5] == {"steps": 3}
+    inner = sorted((s for s in spans if s is not chunk), key=lambda s: s[3])
+    assert [s[0] for s in inner] == ["train.draw", "train.stage", "train.eager"]
+    for s in inner:
+        assert s[2] == chunk[1] and chunk[3] <= s[3] <= s[4] <= chunk[4]
+    assert inner[-1][5] == {"launches": delta} and set(delta.values()) == {0}
+
+
+# --- host spans on the card (the ``cuda`` marker; they skip elsewhere) ----------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return "cuda"
+
+
+@pytest.mark.cuda
+def test_graph_route_spans_carry_the_captured_launches(card, pretrain_data):
+    """Under a CUDA-only profiler, a graph-route chunk records
+    ``train.capture`` and then ``train.replay``, each with the launches the
+    capture counted; the next chunk one more replay with the same counts,
+    and the host waiting for a pinned buffer as ``train.stage_wait``."""
+    trainer = Pretrainer(_pre_cfg(steps_per_call=4), tile_size=TILE, device=card)
+    assert trainer.superstep.route.graph
+    store = DeviceTileStore(pretrain_data, card).arrays["img"]
+    batches = list(IndexBatcher(len(pretrain_data), 8, shuffle=True, drop_last=False, seed=3))
+    trainer.train_chunk_idx(store, batches[:4])  # a new shape's first chunk runs eagerly
+    with profiling.trace() as info:
+        trainer.train_chunk_idx(store, batches[4:8])
+        trainer.train_chunk_idx(store, batches[:4])
+    spans = sorted(info["spans"], key=lambda s: s[3])
+    names = [s[0] for s in spans if s[0] in ("train.capture", "train.replay", "train.eager")]
+    assert names == ["train.capture", "train.replay", "train.replay"]
+    want = trainer.superstep.captures[-1]["launches"]
+    assert want["fused_layer_fwd"] > 0
+    for s in spans:
+        if s[0] in ("train.capture", "train.replay"):
+            assert s[5] == {"launches": want}
+    assert [s[0] for s in spans].count("train.stage_wait") >= 1
+    assert info["spans_dropped"] == 0 and info["events"]
+
+
+@pytest.mark.cuda
+def test_every_upload_lies_in_a_copy_in_span_on_the_device_clock(card):
+    """Every ``Memcpy HtoD`` the CUDA trace records of traced ``Predictor``
+    calls starts inside a ``serve.copy_in`` span, within 50 us: the spans'
+    ``time.time_ns()`` and the device events, put on the host clock by
+    ``profiling.device_events``, share one clock (a pageable upload runs
+    while the host waits in its span)."""
+    from maskedsst_tpu_torch.serve import Predictor
+
+    class FirstColumns(torch.nn.Module):
+        logits_shape, compute_dtype = (3,), torch.float32
+
+        def forward(self, x):
+            return x.reshape(x.shape[0], -1)[:, :3]
+
+    predictor = Predictor(FirstColumns(), batch_size=256, devices=[card])
+    x = np.random.default_rng(0).standard_normal((300, 200, 8, 8)).astype(np.float32)
+    predictor(x)
+    with profiling.trace() as info:
+        for _ in range(3):
+            predictor(x)
+    copies = [e for e in info["events"] if "Memcpy HtoD" in e["name"]]
+    spans = [s for s in info["spans"] if s[0] == "serve.copy_in"]
+    assert len(copies) == len(spans) == 6, [e["name"] for e in info["events"]]
+    offsets = [min(max(s[3] - e["ts"] * 1e3, e["ts"] * 1e3 - s[4], 0.0) for s in spans)
+               for e in copies]
+    assert max(offsets) <= 50e3, (offsets, info["clock_shift_us"],
+                                  [(e["ts"], e["dur"]) for e in copies],
+                                  [(s[3], s[4]) for s in spans])

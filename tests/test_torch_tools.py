@@ -13,6 +13,7 @@ on both sides; the two differ in summation order)."""
 import contextlib
 import io
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -94,6 +95,151 @@ def test_no_device_events_give_none_and_nan():
     with profiling.trace() as info:
         pass
     assert info["events"] == [] and info["wall_s"] >= 0
+
+
+def _cpu_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _open_and_close(name):
+    with profiling.span(name):
+        pass
+
+
+def test_spans_record_only_under_a_profiler_and_nest_by_thread():
+    """No profiler: one shared no-op, false, that keeps no count. Under one:
+    records ``(name, id, parent_id, start_ns, end_ns, counts)`` on the
+    ``time.time_ns()`` clock, the parent the innermost span open on the same
+    thread; a thread the profiler does not run on records nothing."""
+    import threading
+
+    profiling.clear_spans()
+    with profiling.span("off", rows=1) as off:
+        off.count(more=2)
+    assert not off and profiling.span("other") is off
+    assert profiling.recorded_spans() == []
+    t0 = time.time_ns()
+    with _cpu_profile():
+        with profiling.span("outer", rows=3) as outer:
+            assert outer
+            with profiling.span("inner") as inner:
+                inner.count(batches=2)
+            worker = threading.Thread(target=_open_and_close, args=("elsewhere",))
+            worker.start()
+            worker.join(timeout=30)
+    t1 = time.time_ns()
+    assert not worker.is_alive()
+    got = {r[0]: r for r in profiling.recorded_spans()}
+    assert set(got) == {"outer", "inner"}  # the thread had no profiler of its own
+    assert got["inner"][2] == got["outer"][1] and got["outer"][2] is None
+    assert t0 <= got["outer"][3] <= got["inner"][3] <= got["inner"][4] <= got["outer"][4] <= t1
+    assert got["outer"][5] == {"rows": 3} and got["inner"][5] == {"batches": 2}
+    profiling.clear_spans()
+    assert profiling.recorded_spans() == []
+
+
+def test_spans_past_the_cap_are_counted_as_dropped(monkeypatch):
+    """Past ``SPAN_CAP`` records a span is counted, not kept; ``trace()``
+    clears both and reports them (no card here: no profiler, no spans)."""
+    monkeypatch.setattr(profiling, "SPAN_CAP", 3)
+    profiling.clear_spans()
+    with _cpu_profile():
+        for i in range(5):
+            with profiling.span("s", i=i):
+                pass
+    assert [r[5]["i"] for r in profiling.recorded_spans()] == [0, 1, 2]
+    assert profiling.dropped_spans() == 2
+    with profiling.trace() as info:
+        with profiling.span("untraced"):
+            pass
+    assert info["spans"] == [] and info["spans_dropped"] == 0
+    assert profiling.recorded_spans() == [] and profiling.dropped_spans() == 0
+
+
+US = 1_000  # ns
+NO_CALL = (float("nan"), float("nan"))
+
+
+def _ops(n, gap, clock, lag=30 * US, blocking_every=2):
+    """``n`` ops every ``gap`` ns, each launched ``lag`` ns before it starts
+    (an idle card) and lasting 10 us, every ``blocking_every``-th a blocking
+    copy whose call returns 5 us after it ends; ``clock(t)`` the device
+    clock's error at t."""
+    starts, ends, calls, blocking = [], [], [], []
+    for i in range(n):
+        t = i * gap
+        starts.append(t + lag + clock(t))
+        ends.append(t + lag + 10 * US + clock(t))
+        calls.append((t, t + lag + 15 * US))
+        blocking.append(i % blocking_every == 0)
+    return starts, ends, calls, blocking
+
+
+@pytest.mark.parametrize("case", ["right", "early", "late", "ramp", "loose", "no calls"])
+def test_host_clock_shift_takes_out_the_device_clocks_error(case):
+    """The shift that puts device ops on the host clock: none where every op
+    starts after its launch and every blocking copy ends before its call
+    returns; where the device clock runs early or late, the least shift that
+    restores both, to within the launch lag; nothing where the bounds are
+    loose (a busy card, no blocking copy) or the trace holds no calls."""
+    clock = {"right": lambda t: 0, "early": lambda t: -3_000 * US, "late": lambda t: 4_000 * US,
+             "ramp": lambda t: -t / 500, "loose": lambda t: 0, "no calls": lambda t: 0}[case]
+    kw = {"loose": dict(lag=5_000 * US, blocking_every=10**9)}.get(case, {})
+    starts, ends, calls, blocking = _ops(400, 2_000 * US, clock, **kw)  # 0.8 s of ops
+    if case == "no calls":
+        calls = [NO_CALL] * len(calls)
+    shift = profiling.host_clock_shift(starts, ends, calls, blocking)
+    want = np.array([clock(c[0]) for c in calls]) if case != "no calls" else np.zeros(400)
+    assert np.abs(shift - want).max() <= 30 * US
+    if case in ("right", "loose", "no calls"):
+        assert not shift.any()
+
+
+def test_device_events_are_put_on_the_host_clock():
+    """``device_events`` pairs each device op with its API call (a host
+    event named ``cu...``; an operator's matching id is no call) by
+    correlation id and moves it by ``host_clock_shift``: here a copy
+    recorded 2 ms before the call that launched it."""
+
+    class Event:
+        def __init__(self, name, dev, corr, start, end):
+            self._v = (name, dev, corr, start, end)
+
+        def name(self):
+            return self._v[0]
+
+        def device_type(self):
+            return self._v[1]
+
+        def correlation_id(self):
+            return self._v[2]
+
+        def start_ns(self):
+            return self._v[3]
+
+        def end_ns(self):
+            return self._v[4]
+
+        def duration_ns(self):
+            return self._v[4] - self._v[3]
+
+        def is_user_annotation(self):
+            return False
+
+    t = 1_792_000_000_000_000_000  # ns since 1970, as the profiler stamps
+    raw = [Event("cudaMemcpyAsync", "DeviceType.CPU", 7, t, t + 100 * US),
+           Event("aten::copy_", "DeviceType.CPU", 7, t + 5_000 * US, t + 6_000 * US),
+           Event("Memcpy DtoH (Device -> Pageable)", "DeviceType.CUDA", 7,
+                 t - 2_000 * US + 20 * US, t - 2_000 * US + 90 * US)]
+    prof = type("Prof", (), {})()
+    prof.profiler = type("P", (), {})()
+    prof.profiler.kineto_results = type("R", (), {"events": lambda self: raw})()
+    (event,) = profiling.device_events(prof)
+    assert event["name"] == "Memcpy DtoH (Device -> Pageable)" and event["cat"] == "kernel"
+    assert t / 1e3 <= event["ts"] and event["ts"] + event["dur"] <= t / 1e3 + 100
+    assert event["dur"] == pytest.approx(70)
 
 
 def test_bound_ms_takes_the_larger_bound():
