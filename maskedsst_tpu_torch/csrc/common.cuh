@@ -137,19 +137,25 @@ __device__ __forceinline__ float drop_mult(const DropCfg& dc, uint32_t site, uin
                          static_cast<uint32_t>(idx));
 }
 
-// drop_mult over a run of one site's indices (a row): the key is taken
-// once, for the high word of the run's first index, and again only for an
-// index past the next multiple of 2^32. The same bits as drop_mult.
+// drop_mult over a run of one site's indices (a row) shorter than 2^32:
+// the keys of the high words of the run's first index and of the next are
+// taken once, so that an index of the run costs one hash and a select, no
+// branch. The same bits as drop_mult for every index in [first, first +
+// 2^32).
 struct DropRun {
-  uint32_t site, hi, key;
+  uint32_t lo0, key0, key1;
 
-  __device__ DropRun(const DropCfg& dc, uint32_t s, uint64_t first)
-      : site(s), hi(static_cast<uint32_t>(first >> 32)), key(dc.on ? drop_key(dc, s, hi) : 0u) {}
+  __device__ DropRun(const DropCfg& dc, uint32_t site, uint64_t first)
+      : lo0(static_cast<uint32_t>(first)),
+        key0(dc.on ? drop_key(dc, site, static_cast<uint32_t>(first >> 32)) : 0u),
+        key1(dc.on ? drop_key(dc, site, static_cast<uint32_t>(first >> 32) + 1u) : 0u) {}
 
-  __device__ float operator()(const DropCfg& dc, uint64_t idx) const {
+  // the multiplier (0 or scale; 1 when off) of index idx of the run: past
+  // a multiple of 2^32 exactly where its low word is below first's
+  __device__ __forceinline__ float operator()(const DropCfg& dc, uint64_t idx) const {
     if (!dc.on) return 1.f;
-    const uint32_t h = static_cast<uint32_t>(idx >> 32);
-    return drop_mult_keyed(dc, h == hi ? key : drop_key(dc, site, h), static_cast<uint32_t>(idx));
+    const uint32_t lo = static_cast<uint32_t>(idx);
+    return drop_mult_keyed(dc, lo >= lo0 ? key0 : key1, lo);
   }
 };
 

@@ -53,6 +53,19 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The row form: out[r * width + c] is the multiplier of base + r * width +
+// c, drawn by one DropRun over each row, as the layer kernels draw a row of
+// a site: the bits of the contiguous form, which a test holds it to.
+__global__ void __launch_bounds__(kThreads)
+    dropout_sample_rows_kernel(float* __restrict__ out, int rows, int width, uint64_t base,
+                               DropCfg dc, uint32_t site) {
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < rows; r += gridDim.x * kThreads) {
+    const uint64_t first = base + static_cast<uint64_t>(r) * width;
+    const DropRun run(dc, site, first);
+    for (int c = 0; c < width; ++c) out[static_cast<size_t>(r) * width + c] = run(dc, first + c);
+  }
+}
+
 // i / width == (i * magic) >> shift for every i < 2^31: with l = ceil(log2
 // width), magic = floor(2^(32 + l) / width) + 1 and shift = 32 + l
 // (Granlund and Montgomery, 1994, theorem 4.2, for 32-bit numerators);
@@ -99,5 +112,24 @@ extern "C" int dropout_sample(void* out, int numel, int width, int base_lo, int 
   dropout_sample_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), numel, static_cast<uint32_t>(width), rs, magic, shift, b, dc,
       static_cast<uint32_t>(site));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out: fp32 [rows, width] by the row form; the other arguments as
+// dropout_sample's.
+extern "C" int dropout_sample_rows(void* out, int rows, int width, int base_lo, int base_hi,
+                                   int seed, int site, int thr, float scale, void* stream) {
+  if (rows <= 0 || width <= 0) return static_cast<int>(cudaSuccess);
+  DropCfg dc;
+  dc.on = 1;
+  dc.proj = 1;
+  dc.seed = static_cast<uint32_t>(seed);
+  dc.thr = static_cast<uint32_t>(thr);
+  dc.scale = scale;
+  const uint64_t b = (static_cast<uint64_t>(static_cast<uint32_t>(base_hi)) << 32) |
+                     static_cast<uint32_t>(base_lo);
+  const int blocks = (rows + kThreads - 1) / kThreads;
+  dropout_sample_rows_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), rows, width, b, dc, static_cast<uint32_t>(site));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Warp-level tensor-core helpers shared by the register-resident kernels
-// (fused_layer_fwd.cu, fused_embed_fwd.cu, fused_embed_bwd.cu): products on
+// (fused_layer_fwd.cu, the row kernel of fused_layer_bwd.cu,
+// fused_embed_fwd.cu, fused_embed_bwd.cu): products on
 // mma.sync.m16n8k16 (bf16 operands, fp32 sums), ldmatrix B operands,
 // movmatrix transposes, cp.async copies and the fixed-order sums that keep
 // an fp32 reduction in the plain version's pairwise order.

@@ -104,6 +104,28 @@ def _bind():
     return lib, _build.bind(lib, _KERNEL, n_pointers=1, n_ints=9, n_floats=1)
 
 
+def dropout_sample_rows(out: torch.Tensor, seed: int, site: int, rate: float,
+                        base: int = 0) -> torch.Tensor:
+    """The contiguous form's multipliers (``base + i`` for element i of
+    ``out``, fp32 [rows, width] on the card), each row drawn by one
+    ``DropRun`` of ``csrc/common.cuh`` as the layer kernels draw a row of a
+    site; a row may cross a multiple of 2^32. Not counted in ``launches``."""
+    from maskedsst_tpu_torch.ops import _build
+
+    if out.device.type != "cuda" or out.dim() != 2:
+        raise ValueError(f"{_KERNEL}_rows: out must be a 2-d CUDA tensor")
+    _check(out, rate, base)
+    lib, _ = _bind()
+    fn = _build.bind(lib, _KERNEL + "_rows", n_pointers=1, n_ints=7, n_floats=1)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        code = fn(out.data_ptr(), out.shape[0], out.shape[1], _i32(base), _i32(base >> 32),
+                  _i32(seed), _i32(site), _i32(dropout_threshold(rate)), dropout_scale(rate),
+                  ctypes.c_void_p(stream))
+    _build.check(lib, _KERNEL + "_rows", code)
+    return out
+
+
 def _launch(out: torch.Tensor, seed: int, site: int, rate: float, base: int = 0,
             row_stride: Optional[int] = None) -> torch.Tensor:
     global launches

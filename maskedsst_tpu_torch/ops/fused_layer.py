@@ -62,6 +62,12 @@ SITE_FF_OUT = 7  # MLP output [B, S, D]
 launches = 0
 bwd_launches = 0
 
+# the register-resident row kernel of the tensor-core backward takes row
+# blocks of at most this many rows, and is laid out for this many blocks on
+# each SM (its persistent grid)
+WARP_ROWS = 64
+WARP_BLOCKS_PER_SM = 2
+
 
 class LayerParams(NamedTuple):
     """One layer's weights; [D]=dim, [I]=heads*dim_head, [F]=mlp dim."""
@@ -452,9 +458,12 @@ def _bind(name: str):
         plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     else:
         fn = (_build.bind(lib, name, n_pointers=18, n_ints=14, n_floats=1),
-              _build.bind(lib, name + "_tc", n_pointers=20, n_ints=13, n_floats=1))
+              _build.bind(lib, name + "_tc", n_pointers=20, n_ints=14, n_floats=1))
         plan = lib.fused_layer_bwd_plan
         plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.fused_layer_bwd_warp_occupancy.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.fused_layer_bwd_warp_occupancy.restype = ctypes.c_int
     plan.restype = ctypes.c_int
     return lib, fn, plan
 
@@ -463,9 +472,10 @@ class Plan(NamedTuple):
     """Where a kernel launch keeps its buffers (``fused_layer_fwd_plan``,
     ``fused_layer_bwd_plan``): the plan's level (0: every buffer in shared
     memory, the row kernel's weights staged there; each level above moves
-    one more buffer to a per-block scratch in device memory), its shared
-    bytes, its scratch bytes per block, and the card's limit on a block's
-    shared memory."""
+    one more buffer to a per-block scratch in device memory; the
+    register-resident row kernel has level 0 alone), its shared bytes, its
+    scratch bytes per block, and the card's limit on a block's shared
+    memory."""
 
     level: int
     shared_bytes: int
@@ -502,6 +512,21 @@ def launch_plan(form: str, s: int, d: int, dh: int, f: int, device: torch.device
             f"D {d}, dh {dh}, F {f}: its smallest plan takes {plan.shared_bytes} bytes a "
             f"block, the card allows {plan.limit}")
     return plan
+
+
+def warp_blocks_per_sm(s: int, d: int, dh: int, f: int, device: torch.device,
+                       io_dtype: torch.dtype = torch.bfloat16) -> int:
+    """The blocks of the register-resident row kernel that one SM of
+    ``device`` holds at this geometry (the CUDA occupancy API, for its
+    registers and shared memory); 0 where the kernel does not take it."""
+    from maskedsst_tpu_torch.ops import _build
+
+    lib, _, _ = _bind(_BWD)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(lib, _BWD + "_warp_occupancy", lib.fused_layer_bwd_warp_occupancy(
+            s, d, dh, f, int(io_dtype == torch.bfloat16), ctypes.byref(out)))
+    return out.value
 
 
 def _scratch(plan: Plan, blocks: int, device) -> Optional[torch.Tensor]:
@@ -612,27 +637,43 @@ def seqs_per_block(s: int) -> int:
     return 1 if s >= 64 else 64 // s
 
 
+def block_rows(s: int) -> int:
+    """Rows of a tensor-core kernel block: its sequences, rounded up to 16."""
+    return -(-seqs_per_block(s) * s // 16) * 16
+
+
+def warp_rows(s: int) -> bool:
+    """Whether the tensor-core backward's row kernel at sequence length s is
+    the register-resident one (one warp per 16 rows, at most WARP_ROWS rows
+    a block: S up to 64) rather than the planned WMMA kernel, which takes
+    the longer sequences. Chosen by shape alone."""
+    return block_rows(s) <= WARP_ROWS
+
+
 def _tc_form(cfg: LayerConfig, s: int, d: int, f: int) -> bool:
     """Whether the layer takes the tensor-core forms (the forward's, then the
     backward's row kernel and layer_wgrad) rather than the FMA forms: bf16
     compute at widths that are multiples of 16, within the tensor-core
     forward's register tiles (``tc_widths`` in ``csrc/fused_layer_fwd.cu``):
     D and F at most 128, dim_head at most 64, at most 128 rows a block.
-    Every such geometry launches: past 64 rows the row kernel reads its
-    weights from device memory and moves buffers to a device scratch until
-    its shared memory fits (:func:`launch_plan`)."""
+    Every such geometry launches: up to 64 rows a block the row kernel is
+    the register-resident one (:func:`warp_rows`); past them the WMMA row
+    kernel reads its weights from device memory and moves buffers to a
+    device scratch until its shared memory fits (:func:`launch_plan`)."""
     dh = cfg.dim_head
-    rows = -(-seqs_per_block(s) * s // 16) * 16
     return (cfg.compute_dtype == torch.bfloat16 and d % 16 == 0 and dh % 16 == 0
-            and f % 16 == 0 and d <= 128 and dh <= 64 and f <= 128 and rows <= 128)
+            and f % 16 == 0 and d <= 128 and dh <= 64 and f <= 128 and block_rows(s) <= 128)
 
 
-def _nparts(b: int, s: int, device: torch.device) -> int:
-    """The backward's grid: one block per SM (132, an H100's, for the plain
-    versions on the CPU), at most one per row block."""
+def _nparts(b: int, s: int, device: torch.device, rows_kernel: bool = True) -> int:
+    """The backward's persistent grid, at most one block per row block:
+    WARP_BLOCKS_PER_SM blocks per SM for the register-resident row kernel,
+    one for the WMMA row kernel and for the FMA form (``rows_kernel``
+    False); an H100's 132 SMs for the plain versions on the CPU."""
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" else 132)
-    return min(-(-b // seqs_per_block(s)), sms)
+    per_sm = WARP_BLOCKS_PER_SM if rows_kernel and warp_rows(s) else 1
+    return min(-(-b // seqs_per_block(s)), sms * per_sm)
 
 
 def _check_dy(x, dy, name):
@@ -646,7 +687,8 @@ def layer_bwd_rows(x, dy, params, *config, x1=None):
     buffer of layer_wgrad.OPERANDS, the flat fp32 gradient vector with the
     small vectors' entries written). A CPU tensor takes
     :func:`layer_bwd_rows_reference` (and sums its partials in order); a
-    CUDA tensor launches ``csrc/fused_layer_bwd.cu``'s row kernel or
+    CUDA tensor launches ``csrc/fused_layer_bwd.cu``'s row kernel (the
+    register-resident one where :func:`warp_rows`, else the WMMA one) or
     raises. ``config`` as the fields of LayerConfig; ``x1``, the residual
     stream after attention that the forward kernel wrote for this x (None:
     a forward launch writes it first)."""
@@ -675,6 +717,7 @@ def layer_bwd_rows(x, dy, params, *config, x1=None):
     if x1.shape != x.shape or x1.dtype != torch.float32 or not x1.is_contiguous():
         raise ValueError(f"{_BWD}: x1 must be a contiguous fp32 {tuple(x.shape)}")
     plan = launch_plan("rows", s, d, cfg.dim_head, f, x.device)
+    warp = warp_rows(s)
     args = _kernel_weights(params, cfg)
     n = b * s
     ops = torch.empty(n * sum(layer_wgrad.operand_widths(d, inner, f).values()),
@@ -689,8 +732,8 @@ def layer_bwd_rows(x, dy, params, *config, x1=None):
             x.data_ptr(), x1.data_ptr(), dy.data_ptr(), dx.data_ptr(),
             *(a.data_ptr() for a in args), ops.data_ptr(), ws.data_ptr(), _ptr(scratch),
             grads.data_ptr(), _seed_ptr(cfg), b, s, d, cfg.heads, cfg.dim_head, f,
-            _flags(x, cfg)[0], nparts,
-            plan.level, *_drop_args(cfg), ctypes.c_void_p(stream),
+            _flags(x, cfg)[0], nparts, plan.level, int(warp), *_drop_args(cfg),
+            ctypes.c_void_p(stream),
         )
     _build.check(lib, _BWD, code)
     bwd_launches += 1
@@ -733,7 +776,7 @@ def _launch_bwd(x, dy, params, *config, x1=None):
     args = _kernel_weights(params, cfg)
     lib, (fn, _), _ = _bind(_BWD)
     count = layer_wgrad.grad_count(d, inner, f)
-    nparts = _nparts(b, s, x.device)
+    nparts = _nparts(b, s, x.device, rows_kernel=False)
     ws = torch.empty((nparts, count), dtype=torch.float32, device=x.device)
     scratch = _scratch(plan, nparts, x.device)
     grads = torch.empty(count, dtype=torch.float32, device=x.device)

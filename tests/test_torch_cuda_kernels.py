@@ -15,7 +15,7 @@ bf16 compute at the widths of fused_layer._tc_form, FMA loops otherwise),
 dropout, the x1 that the tensor-core forward's training call writes and
 its repeats bit for bit, the backward kernels (the tensor-core form's row kernel and
 weight-gradient kernel each against its plain version too, ragged row
-chunks included), the masks each kernel applies read bit for bit
+chunks included; the row kernel's route by shape and its blocks per SM), the masks each kernel applies read bit for bit
 (ops/dropout_probe.py), the gradients' run-to-run determinism, and the
 wrappers' refusals; for the SimMIM decode + weighted-L1 kernels
 (test_simmim_fwd_kernel_matches_plain, test_simmim_bwd_kernel_matches_plain
@@ -318,16 +318,55 @@ def test_dropout_masks_bitwise(cuda, b, s, d, heads, dh, f, io_dtype, compute_dt
             assert r.equal and r.margin < 0.5, r
 
 
-def test_layer_bwd_gradients_are_deterministic(cuda):
+# the training cells' layer geometries at batch 64 (D 96, 8 heads x 64, F
+# 64): EnMAP spatial and spectral, Houston2018 spatial and spectral; then
+# row counts that leave the last row block part-empty
+CELL_GEOMETRIES = [(1280, 64), (4096, 20), (320, 64), (4096, 5)]
+RAGGED_GEOMETRIES = [(300, 20), (4097, 5)]
+
+
+@pytest.mark.parametrize("b,s", CELL_GEOMETRIES + RAGGED_GEOMETRIES)
+def test_layer_bwd_gradients_are_deterministic(cuda, b, s):
+    """Two calls of the bf16 backward with dropout 0.1 (the row kernel from
+    a fresh forward's x1, then layer_wgrad) give the same bits."""
     rng = np.random.default_rng(8)
     params = _layer_params(rng, 96, 8, 64, 64, cuda)
-    x = torch.from_numpy(rng.standard_normal((300, 20, 96)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((b, s, 96)).astype(np.float32)).to(cuda)
     dy = torch.randn_like(x)
     cfg = (8, 64, torch.bfloat16, 0.1, True, 3, True)
     first = fused_layer._launch_bwd(x, dy, params, *cfg)
     second = fused_layer._launch_bwd(x, dy, params, *cfg)
     assert torch.equal(first[0], second[0])
     assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+@pytest.mark.parametrize("s,warp", [(64, True), (20, True), (5, True), (65, False)])
+@pytest.mark.parametrize("io_dtype", [torch.float32, torch.bfloat16])
+def test_row_kernel_route_follows_the_shape(cuda, s, warp, io_dtype):
+    """The cells' sequence lengths take the register-resident row kernel,
+    read from the profiler's kernel names and counted once in
+    bwd_launches, with at least WARP_BLOCKS_PER_SM blocks resident on each
+    SM (the occupancy API); ViTRGB's 65 takes the WMMA kernel."""
+    rng = np.random.default_rng(14)
+    params = _layer_params(rng, 96, 8, 64, 64, cuda)
+    x = torch.from_numpy(rng.standard_normal((7, s, 96)).astype(np.float32)).to(cuda, io_dtype)
+    dy = torch.randn_like(x)
+    cfg = (8, 64, torch.bfloat16, 0.1, True, 5, True)
+    fused_layer.layer_bwd_rows(x, dy, params, *cfg)  # built and bound before the trace
+    torch.cuda.synchronize()
+    before = fused_layer.bwd_launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fused_layer.layer_bwd_rows(x, dy, params, *cfg)
+        torch.cuda.synchronize()
+    assert fused_layer.bwd_launches == before + 1
+    names = {e.key for e in prof.key_averages() if "fused_layer_bwd" in e.key}
+    assert any("fused_layer_bwd_warp_kernel" in n for n in names) == warp, names
+    assert any("fused_layer_bwd_tc_kernel" in n for n in names) == (not warp), names
+    per_sm = fused_layer.warp_blocks_per_sm(s, 96, 64, 64, cuda, io_dtype)
+    if warp:
+        assert per_sm >= fused_layer.WARP_BLOCKS_PER_SM, per_sm
+    else:
+        assert per_sm == 0
 
 
 SPLIT_SHAPES = [
@@ -337,6 +376,13 @@ SPLIT_SHAPES = [
     (101, 20, 96, 8, 64, 64),  # N = 2,020: seven chunks of 320 rows, the last of 100
     (5, 8, 32, 2, 16, 16),  # narrow
     (2, 80, 32, 2, 16, 16),  # a sequence longer than 64 rows
+    (40, 64, 96, 8, 64, 64),  # EnMAP spatial: two cubes' 20 spectral blocks of 64 tokens
+    (128, 20, 96, 8, 64, 64),  # EnMAP spectral: two cubes' 64 pixels of 20 blocks
+    (10, 64, 96, 8, 64, 64),  # Houston2018 spatial: two cubes' 5 blocks
+    (128, 5, 96, 8, 64, 64),  # Houston2018 spectral: two cubes' 64 pixels of 5 blocks
+    (131, 5, 96, 8, 64, 64),  # the last row block 11 of 12 sequences: its last warp 7 rows
+    (300, 64, 96, 8, 64, 64),  # more row blocks than an H100's 264 grid blocks: some walk two
+    (3, 65, 96, 8, 64, 64),  # ViTRGB's S = 65: the WMMA row kernel
 ]
 
 
@@ -433,9 +479,16 @@ def test_layer_long_sequences_match_plain(cuda, s, io_dtype, compute_dtype, rate
 def test_layer_plans_keep_the_main_paths_in_shared_memory(cuda, s, form):
     """At the main paths' sequences (and the forward's FMA form up to 80
     rows) every buffer stays in shared memory, the weights staged: the
-    plans of the launches before longer sequences were taken."""
+    plans of the launches before longer sequences were taken. The row
+    kernel there is the register-resident one, WARP_BLOCKS_PER_SM blocks of
+    it on each SM (the occupancy API, for its shared memory and
+    registers)."""
     plan = fused_layer.launch_plan(form, s, 96, 64, 64, cuda)
     assert plan.level == 0 and plan.scratch_bytes == 0, plan
+    if form == "rows":
+        assert fused_layer.warp_rows(s)
+        per_sm = fused_layer.warp_blocks_per_sm(s, 96, 64, 64, cuda)
+        assert per_sm >= fused_layer.WARP_BLOCKS_PER_SM, (plan, per_sm)
 
 
 @pytest.mark.parametrize("form", ["fwd", "bwd"])
@@ -722,6 +775,23 @@ def test_dropout_sample_strided_kernel_matches_plain_bitwise(cuda, site, full_sh
     full = fused_layer.dropout_mask(full_shape, 1064, site, 0.1, cuda).reshape(shape[0], -1)
     start = base
     assert torch.equal(got.reshape(shape[0], -1), full[:, start:start + width])
+
+
+@pytest.mark.parametrize("shape,base", [
+    ((1280 * 8 * 64, 64), 0),  # the spatial attention site's rows, batch 64
+    ((64, 96), 2**32 - 96 * 20 - 37),  # rows across 2^32, one of them split by it
+    ((40, 20), 2**40 - 300),  # across 2^40
+])
+def test_drop_run_matches_drop_mult_bitwise(cuda, shape, base):
+    """common.cuh's DropRun (one key pair a row, a select an element, as
+    the layer kernels draw their rows) gives drop_mult's bits, also on a
+    row that crosses a multiple of 2^32."""
+    got = dropout_sample.dropout_sample_rows(torch.empty(shape, device=cuda), 1064,
+                                             fused_layer.SITE_ATTN, 0.1, base)
+    want = dropout_sample.dropout_sample(torch.empty(shape, device=cuda), 1064,
+                                         fused_layer.SITE_ATTN, 0.1, base)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_dropout_sample_kernel_is_deterministic_and_counted(cuda):

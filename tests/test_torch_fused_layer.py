@@ -166,6 +166,25 @@ def test_tc_form_takes_the_tensor_core_widths(s, d, dh, f, dtype, want):
     assert fused_layer._tc_form(cfg, s, d, f) is want
 
 
+@pytest.mark.parametrize("s,rows,warp,per_sm", [
+    (5, 64, True, 2),  # Houston spectral: twelve sequences a block
+    (20, 64, True, 2),  # EnMAP spectral: three sequences a block
+    (64, 64, True, 2),  # EnMAP and Houston spatial: one sequence a block
+    (65, 80, False, 1),  # ViTRGB's cls-token sequence: the WMMA row kernel
+])
+def test_row_kernel_route_by_shape(s, rows, warp, per_sm):
+    """Which row kernel the tensor-core backward launches at a sequence
+    length (the shape alone decides) and its persistent grid on the CPU's
+    stand-in of 132 SMs; the FMA form keeps one block per SM."""
+    assert fused_layer.block_rows(s) == rows
+    assert fused_layer.warp_rows(s) is warp
+    nblocks = -(-10_000 // fused_layer.seqs_per_block(s))
+    cpu = torch.device("cpu")
+    assert fused_layer._nparts(10_000, s, cpu) == min(nblocks, 132 * per_sm)
+    assert fused_layer._nparts(10_000, s, cpu, rows_kernel=False) == min(nblocks, 132)
+    assert fused_layer._nparts(3, s, cpu) == -(-3 // fused_layer.seqs_per_block(s))
+
+
 def test_reference_x1_matches_jax_with_a_zero_mlp():
     """The plain x1 (x + the projection), which the tensor-core forward's
     training call writes for the backward, is the JAX layer's output when

@@ -70,19 +70,32 @@ def test_chunking_covers_the_rows_in_whole_tiles():
     assert layer_wgrad.chunking(260, 32, 16)[1] == 5
 
 
-def test_row_partials_follow_the_kernel_blocks():
-    """Kernel block p owns row blocks p, p + nparts, ...: its partial of the
-    small vectors is their sum, and the partials add up to the full sums."""
-    b, s, d, heads, dh, f = 13, 5, 16, 2, 8, 12  # 2 row blocks of 12 sequences, then 1
+@pytest.mark.parametrize("b,s,nparts", [
+    (13, 5, 2),  # row blocks of 12, then 1 sequence of 5 rows
+    (37, 5, 2),  # row blocks of 12, 12, 12 and 1 sequences: blocks 0 and 1 own two each
+    (13, 20, 2),  # row blocks of 3 sequences of 20 (60 rows), the last of 1
+    (5, 64, 3),  # one sequence a row block
+    (4, 65, 3),  # past 64 rows (the WMMA row kernel): one sequence a row block
+])
+def test_row_partials_follow_the_kernel_blocks(b, s, nparts):
+    """Kernel block p owns row blocks p, p + nparts, ... of
+    seqs_per_block(S) whole sequences: its partial of the small vectors is
+    their sum, taken here row by row, and the partials add up to the full
+    sums."""
+    d, heads, dh, f = 16, 2, 8, 12
     x, dy, params = _inputs(b, s, d, heads, dh, f, seed=1)
     cfg = (heads, dh, torch.float32, 0.1, True, 3, True)
     _, ops, rows = fused_layer._bwd_terms(x, dy, params, fused_layer.LayerConfig(*cfg))
-    _, buf, partials = fused_layer.layer_bwd_rows_reference(x, dy, params, *cfg, nparts=2)
+    _, buf, partials = fused_layer.layer_bwd_rows_reference(x, dy, params, *cfg, nparts=nparts)
     terms = torch.cat([rows[k] for k in fused_layer.SMALL], dim=1)
-    per_block = [terms[0:60].sum(0), terms[60:65].sum(0)]  # 12 and 1 sequences of 5 rows
+    block = fused_layer.seqs_per_block(s) * s  # rows of a row block
+    want = torch.zeros(nparts, terms.shape[1])
+    for n in range(b * s):
+        want[n // block % nparts] += terms[n]
+    assert partials.shape == want.shape
     atol = 1e-6 * float(partials.abs().max())  # fp32 sums in another order
-    torch.testing.assert_close(partials[0], per_block[0], rtol=0, atol=atol)
-    torch.testing.assert_close(partials[1], per_block[1], rtol=0, atol=atol)
+    torch.testing.assert_close(partials, want, rtol=0, atol=atol)
+    torch.testing.assert_close(partials.sum(0), terms.sum(0), rtol=0, atol=atol * b * s)
     split = layer_wgrad.split_operands(buf, b * s, d, heads * dh, f)
     assert [t.shape[1] for t in split.values()] == [d, 3 * heads * dh, heads * dh, d, d, f, f, d]
     for k in layer_wgrad.OPERANDS:
